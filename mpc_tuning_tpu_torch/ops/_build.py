@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``ops/csrc/`` are compiled with ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded with
+``ctypes``.  The library is built at first use into
+``mpc_tuning_tpu_torch/_build/``, keyed on a hash of the sources, so a
+fresh checkout builds it once and later processes reuse it.  A failed
+build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+__all__ = ["library", "build_seconds"]
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+_BUILD = pathlib.Path(__file__).resolve().parent.parent / "_build"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lib = None
+build_seconds = None  # wall seconds of the last nvcc run in this process
+
+
+def _sources():
+    return sorted(list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _bind(lib):
+    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.mpc_spd_factor.argtypes = [i, vp, vp, i, i, vp]
+    lib.mpc_spd_factor.restype = i
+    lib.mpc_spd_factor_solve.argtypes = [i, vp, vp, vp, i, i, vp]
+    lib.mpc_spd_factor_solve.restype = i
+    lib.mpc_error_string.argtypes = [i]
+    lib.mpc_error_string.restype = ctypes.c_char_p
+    lib.mpc_closed_sim_ptr_count.restype = i
+    lib.mpc_closed_sim_dim_count.restype = i
+    lib.mpc_closed_sim_work_rows.argtypes = [i, d]
+    lib.mpc_closed_sim_work_rows.restype = ctypes.c_longlong
+    lib.mpc_closed_sim.argtypes = [i, i, ctypes.POINTER(vp), d,
+                                   ctypes.POINTER(ctypes.c_double), vp]
+    lib.mpc_closed_sim.restype = i
+    return lib
+
+
+def library():
+    """The loaded kernel library, built first if needed."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    import time
+
+    srcs = _sources()
+    h = hashlib.sha256()
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    so = _BUILD / f"libmpc_kernels_{h.hexdigest()[:16]}.so"
+    if not so.exists():
+        _BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
+               *[str(p) for p in srcs if p.suffix == ".cu"]]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}")
+        os.replace(tmp, so)
+    _lib = _bind(ctypes.CDLL(str(so)))
+    return _lib
+
+
+def check(code: int, what: str):
+    """Raise if a launcher returned a CUDA error code."""
+    if code != 0:
+        msg = library().mpc_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

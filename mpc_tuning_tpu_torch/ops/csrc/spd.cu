@@ -1,0 +1,103 @@
+// Batched small SPD Cholesky factor and solve: the counterparts of the
+// Pallas kernels _factor_kernel / _solve_kernel
+// (mpc_tuning_tpu/ops/pallas_kernels.py, reached through spd_factor and
+// spd_factor_solve from the open leg's masked PDIP, ops/qp.py).
+//
+// One thread per matrix, in the public batch-major layout (B, n, n).  The
+// work is n^3/6 dependent multiply-adds per matrix at n <= 31 (a few
+// thousand), so the kernel is bound by the latency of that serial chain,
+// not by bytes or FLOP/s; a batch of B matrices keeps B threads busy.
+// Unlike the Pallas factor, the upper triangle of L is written as zeros,
+// so the result equals torch.linalg.cholesky up to rounding.
+
+#include "common.cuh"
+
+namespace mpc {
+
+template <typename T>
+__global__ void spd_factor_kernel(const T* __restrict__ M, T* __restrict__ L,
+                                  int B, int n) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const T* A = M + (size_t)b * n * n;
+  T* Lb = L + (size_t)b * n * n;
+  for (int j = 0; j < n; ++j) {
+    T d = A[j * n + j];
+    for (int k = 0; k < j; ++k) d -= Lb[j * n + k] * Lb[j * n + k];
+    const T ljj = sqrt(d);
+    Lb[j * n + j] = ljj;
+    for (int i = j + 1; i < n; ++i) {
+      T v = A[i * n + j];
+      for (int k = 0; k < j; ++k) v -= Lb[i * n + k] * Lb[j * n + k];
+      Lb[i * n + j] = v / ljj;
+    }
+    for (int i = 0; i < j; ++i) Lb[i * n + j] = T(0);
+  }
+}
+
+template <typename T>
+__global__ void spd_factor_solve_kernel(const T* __restrict__ L,
+                                        const T* __restrict__ rhs,
+                                        T* __restrict__ x, int B, int n) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const T* Lb = L + (size_t)b * n * n;
+  const T* r = rhs + (size_t)b * n;
+  T* xb = x + (size_t)b * n;
+  // forward: L y = rhs (y kept in x)
+  for (int i = 0; i < n; ++i) {
+    T v = r[i];
+    for (int k = 0; k < i; ++k) v -= Lb[i * n + k] * xb[k];
+    xb[i] = v / Lb[i * n + i];
+  }
+  // back: L^T x = y, in place
+  for (int i = n - 1; i >= 0; --i) {
+    T v = xb[i];
+    for (int k = i + 1; k < n; ++k) v -= Lb[k * n + i] * xb[k];
+    xb[i] = v / Lb[i * n + i];
+  }
+}
+
+constexpr int kSpdThreads = 128;
+
+template <typename T>
+int launch_factor(const void* M, void* L, int B, int n, cudaStream_t st) {
+  const int blocks = (B + kSpdThreads - 1) / kSpdThreads;
+  spd_factor_kernel<T><<<blocks, kSpdThreads, 0, st>>>(
+      static_cast<const T*>(M), static_cast<T*>(L), B, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_solve(const void* L, const void* rhs, void* x, int B, int n,
+                 cudaStream_t st) {
+  const int blocks = (B + kSpdThreads - 1) / kSpdThreads;
+  spd_factor_solve_kernel<T><<<blocks, kSpdThreads, 0, st>>>(
+      static_cast<const T*>(L), static_cast<const T*>(rhs),
+      static_cast<T*>(x), B, n);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mpc
+
+extern "C" {
+
+int mpc_spd_factor(int is_f64, const void* M, void* L, int B, int n,
+                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_f64 ? mpc::launch_factor<double>(M, L, B, n, st)
+                : mpc::launch_factor<float>(M, L, B, n, st);
+}
+
+int mpc_spd_factor_solve(int is_f64, const void* L, const void* rhs, void* x,
+                         int B, int n, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_f64 ? mpc::launch_solve<double>(L, rhs, x, B, n, st)
+                : mpc::launch_solve<float>(L, rhs, x, B, n, st);
+}
+
+const char* mpc_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

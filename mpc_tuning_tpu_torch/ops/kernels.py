@@ -1,0 +1,398 @@
+"""The port's hand-written Hopper kernels, each beside its plain PyTorch
+version (the counterpart of ``mpc_tuning_tpu/ops/pallas_kernels.py``).
+
+Every public function here is a wrapper:
+  * for tensors on the CPU it runs the plain version (the CPU tests use it);
+  * for CUDA tensors it checks dtype, shape and contiguity, launches the
+    CUDA kernel (ops/csrc/, built by ops/_build.py) on the current stream,
+    or raises.  There is no fallback.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``; only a
+launch adds to it.
+
+Layouts follow the JAX package: ``spd_factor`` / ``spd_factor_solve`` take
+the public batch-major (B, n, n) / (B, n) layout; the whole-sim kernels
+take lane-major inputs, the candidate batch B on the last axis
+(``sim/mpc_loop.py`` builds them).  Unlike the TPU kernels, nothing is
+padded to (8, 128) tiles.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mpc_tuning_tpu_torch.ops import _build
+
+__all__ = ["spd_factor", "spd_factor_solve", "closed_sim_admm",
+           "closed_sim_pdip", "spd_factor_plain", "spd_factor_solve_plain",
+           "closed_sim_admm_plain", "closed_sim_pdip_plain", "reset_launches",
+           "launch_counts"]
+
+_SIM_TABLES = ("Cpl", "Apl", "Bplu", "C", "Mk", "A", "Bu", "SxF", "SstF",
+               "ThT", "Vt")
+# argument order of the C launcher (ops/csrc/closed_sim.cu, enum P_*)
+_SIM_PTRS = _SIM_TABLES + (
+    "g_ptr", "g_col", "g_val", "gt_ptr", "gt_row", "gt_val",
+    "r", "q", "hbase", "su", "rowm", "colm", "Dinv", "e", "par", "sfy", "sfu",
+    "Hm", "Y", "U", "work")
+_SIM_DIMS = ("B", "nit", "iters", "ny", "nu", "nxa", "nxp", "pny", "n", "mc",
+             "m_max")
+
+
+def _on_cpu(*ts) -> bool:
+    """True when every tensor lies on the CPU, False when all are on one
+    CUDA device; anything else raises."""
+    kinds = {t.device for t in ts}
+    if all(d.type == "cpu" for d in kinds):
+        return True
+    if len(kinds) != 1 or next(iter(kinds)).type != "cuda":
+        raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+    return False
+
+
+def _require(t, shape, dtype, name):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _float_dtype(t):
+    if t.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"kernels take float32 or float64, got {t.dtype}")
+    return t.dtype
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+# ------------------------------------------------------------ spd_factor
+#
+# Replaces _factor_batched_impl / _factor_kernel
+# (mpc_tuning_tpu/ops/pallas_kernels.py, spd_factor).  Bound by the serial
+# n^3/6 multiply-add chain of each matrix; one thread per matrix
+# (ops/csrc/spd.cu).
+
+
+def spd_factor_plain(M):
+    """Lower Cholesky factor of a (B, n, n) SPD batch; a failed factor is
+    all NaN (as jnp.linalg.cholesky returns)."""
+    L, info = torch.linalg.cholesky_ex(M)
+    L = torch.where((info != 0)[:, None, None],
+                    torch.full_like(L, float("nan")), L)
+    return L.contiguous()  # the kernel's layout, so it can take this L
+
+
+def spd_factor(M):
+    """(B, n, n) SPD -> lower factor L (B, n, n), upper triangle zero."""
+    if _on_cpu(M):
+        return spd_factor_plain(M)
+    dtype = _float_dtype(M)
+    B, n = M.shape[0], M.shape[-1]
+    _require(M, (B, n, n), dtype, "M")
+    L = torch.empty_like(M)
+    _build.check(_build.library().mpc_spd_factor(
+        int(dtype == torch.float64), M.data_ptr(), L.data_ptr(), B, n,
+        _stream(M)), "spd_factor")
+    spd_factor.launches += 1
+    return L
+
+
+spd_factor.launches = 0
+
+
+# ------------------------------------------------------ spd_factor_solve
+#
+# Replaces _solve_batched_impl / _solve_kernel (spd_factor_solve): forward
+# then back substitution, 2 n^2 dependent multiply-adds per system; one
+# thread per system (ops/csrc/spd.cu).
+
+
+def spd_factor_solve_plain(L, rhs):
+    """x with L L' x = rhs; L (B, n, n) lower, rhs (B, n)."""
+    y = torch.linalg.solve_triangular(L, rhs[:, :, None], upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(1, 2), y, upper=True)
+    return x[:, :, 0]
+
+
+def spd_factor_solve(L, rhs):
+    """(B, n, n) lower factor, (B, n) rhs -> x (B, n) with L L' x = rhs."""
+    if _on_cpu(L, rhs):
+        return spd_factor_solve_plain(L, rhs)
+    dtype = _float_dtype(L)
+    B, n = L.shape[0], L.shape[-1]
+    _require(L, (B, n, n), dtype, "L")
+    _require(rhs, (B, n), dtype, "rhs")
+    x = torch.empty_like(rhs)
+    _build.check(_build.library().mpc_spd_factor_solve(
+        int(dtype == torch.float64), L.data_ptr(), rhs.data_ptr(),
+        x.data_ptr(), B, n, _stream(L)), "spd_factor_solve")
+    spd_factor_solve.launches += 1
+    return x
+
+
+spd_factor_solve.launches = 0
+
+
+# ------------------------------------------------------- whole-sim loops
+#
+# Shared inputs of both whole-sim kernels (lane-major, B = candidates):
+#   tables:  Cpl (ny, nxp), Apl (nxp, nxp), Bplu (nxp, nu), C (ny, nxa),
+#            Mk (nxa, ny), A (nxa, nxa), Bu (nxa, nu), SxF (pny, nxa),
+#            SstF (pny, nu), ThT (n, pny), G0 (mc, n), Vt (nv, nit) with
+#            rows [Dv v_s | Bv v_s | Bpl_v v | Sv v_s], and T2T (n*n, mc)
+#            for the plain PDIP;
+#   lane_consts: q (pny, B), hbase / su (mc, B), sfy (ny, B), sfu (nu, B),
+#            plus arow / acol / Dinv / e / par (ADMM) or rmask / cmask
+#            (PDIP);
+#   r_l (nit, ny, B): setpoints pre-scaled by 1 / sf_y.
+# Both return Y (nit, ny, B) raw plant outputs (before the step's update)
+# and U (nit, nu, B) applied inputs.
+#
+# The plain versions take ``u_follow`` (nit, nu, B): when given, the loop
+# still computes and returns its own U[k] from its own QP solve, but steps
+# the model and the plant with u_follow[k].  Fed a kernel's U, the plain
+# version then meets every step in the state the kernel met it in, so the
+# two are compared step by step; rounding cannot build up along two
+# separate trajectories (an interior point run to its floor turns a
+# last-digit difference into a different iterate, and a closed loop
+# carries that through all later steps).
+
+
+def _vcols(Vt, k, ny, nxa, nxp):
+    col = Vt[:, k:k + 1]
+    return (col[:ny], col[ny:ny + nxa], col[ny + nxa:ny + nxa + nxp],
+            col[ny + nxa + nxp:])
+
+
+def _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny):
+    """Plant output, Kalman update, weighted tracking error for step k."""
+    nxa, nxp = t["A"].shape[0], t["Apl"].shape[0]
+    dv, _, _, sv = _vcols(t["Vt"], k, ny, nxa, nxp)
+    y = t["Cpl"] @ x_pl
+    innov = y / lc["sfy"] - t["C"] @ xhp - dv
+    x_hat = xhp + t["Mk"] @ innov
+    free = t["SxF"] @ x_hat + t["SstF"] @ u_prev + sv
+    p = t["SxF"].shape[0] // ny
+    err = lc["q"] * (r_l[k].repeat(p, 1) - free)
+    return y, x_hat, err
+
+
+def _sim_post(t, lc, k, x_hat, x_pl, u_s, ny, u_follow):
+    """U[k] = u_s * sf_u, then the model and plant step on it (or on
+    u_follow[k]); returns (U[k], the u_s stepped on, xhp, x_pl)."""
+    nxa, nxp = t["A"].shape[0], t["Apl"].shape[0]
+    _, bv, bpl, _ = _vcols(t["Vt"], k, ny, nxa, nxp)
+    u_out = u_s * lc["sfu"]
+    u_pl = u_out
+    if u_follow is not None:
+        u_pl = u_follow[k]
+        u_s = u_pl / lc["sfu"]
+    xhp = t["A"] @ x_hat + t["Bu"] @ u_s + bv
+    x_pl = t["Apl"] @ x_pl + t["Bplu"] @ u_pl + bpl
+    return u_out, u_s, xhp, x_pl
+
+
+def _u_rows(u_prev, m_max, mc):
+    """u_prev tiled over the 4 m_max nu move/input rows, zero below."""
+    nu, B = u_prev.shape
+    pad = torch.zeros((mc - 4 * m_max * nu, B), dtype=u_prev.dtype,
+                      device=u_prev.device)
+    return torch.cat([u_prev.repeat(4 * m_max, 1), pad], dim=0)
+
+
+def _sim_state(t, r_l, nu):
+    nit, ny, B = r_l.shape
+    kw = dict(dtype=r_l.dtype, device=r_l.device)
+    return (torch.empty((nit, ny, B), **kw), torch.empty((nit, nu, B), **kw),
+            torch.zeros((t["Apl"].shape[0], B), **kw),
+            torch.zeros((t["A"].shape[0], B), **kw),
+            torch.zeros((nu, B), **kw))
+
+
+def closed_sim_admm_plain(tables, lane_consts, Minv_t, r_l, nit, iters,
+                          sigma, over_relax, dims, u_follow=None):
+    """Plain version of ``closed_sim_admm``: the same loop as batched torch
+    code, a Python loop over steps and ADMM iterations."""
+    t, lc = tables, lane_consts
+    ny, nu, n, mc, m_max = (dims[k] for k in ("ny", "nu", "n", "mc", "m_max"))
+    B = r_l.shape[2]
+    Y, U, x_pl, xhp, u_prev = _sim_state(t, r_l, nu)
+    G0 = t["G0"]
+    arow, acol, Dinv, ev = lc["arow"], lc["acol"], lc["Dinv"], lc["e"]
+    rho, rho_inv = lc["par"][0:1], lc["par"][1:2]
+    x = torch.zeros((n, B), dtype=r_l.dtype, device=r_l.device)
+    zc = torch.zeros((mc, B), dtype=r_l.dtype, device=r_l.device)
+    yd = torch.zeros_like(zc)
+    for k in range(nit):
+        y, x_hat, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
+        Y[k] = y
+        fs = -2.0 * (t["ThT"] @ err) * Dinv
+        hs = (lc["hbase"] + lc["su"] * _u_rows(u_prev, m_max, mc)) * ev
+        for _ in range(iters):
+            rhs = sigma * x - fs + acol * (G0.T @ (arow * (rho * zc - yd)))
+            x = torch.einsum("ijb,jb->ib", Minv_t, rhs)
+            gx_r = over_relax * (arow * (G0 @ (acol * x))) + (1.0 - over_relax) * zc
+            z_new = torch.minimum(gx_r + yd * rho_inv, hs)
+            yd = yd + rho * (gx_r - z_new)
+            zc = z_new
+        u_s = u_prev + (x * Dinv)[:nu]
+        U[k], u_prev, xhp, x_pl = _sim_post(t, lc, k, x_hat, x_pl, u_s, ny,
+                                            u_follow)
+    return Y, U
+
+
+def closed_sim_pdip_plain(tables, lane_consts, Hp_t, r_l, nit, iters, dims,
+                          u_follow=None):
+    """Plain version of ``closed_sim_pdip``: per step the PDIP of
+    ``ops/qp.pdip_lanes``, warm-started from the previous step's best
+    iterate (z, lam), with the plain factor and solve."""
+    from mpc_tuning_tpu_torch.ops.qp import pdip_lanes
+
+    t, lc = tables, lane_consts
+    ny, nu, n, mc, m_max = (dims[k] for k in ("ny", "nu", "n", "mc", "m_max"))
+    B = r_l.shape[2]
+    kw = dict(dtype=r_l.dtype, device=r_l.device)
+    Y, U, x_pl, xhp, u_prev = _sim_state(t, r_l, nu)
+    rmask, cmask = lc["rmask"], lc["cmask"]
+    warm = (torch.zeros((n, B), **kw), torch.ones((mc, B), **kw))
+    for k in range(nit):
+        y, x_hat, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
+        Y[k] = y
+        f = cmask * (-2.0 * (t["ThT"] @ err))
+        h = lc["hbase"] + lc["su"] * _u_rows(u_prev, m_max, mc)
+        warm = pdip_lanes(Hp_t, f, t["G0"], t["T2T"], rmask, cmask, h, iters,
+                          warm, factor=spd_factor_plain,
+                          solve=spd_factor_solve_plain)[:2]
+        u_s = u_prev + warm[0][:nu]
+        U[k], u_prev, xhp, x_pl = _sim_post(t, lc, k, x_hat, x_pl, u_s, ny,
+                                            u_follow)
+    return Y, U
+
+
+def _csr(G):
+    """Row-wise CSR of a dense matrix: (ptr int32, col int32, val)."""
+    nz = G != 0
+    ptr = torch.zeros(G.shape[0] + 1, dtype=torch.int32, device=G.device)
+    ptr[1:] = torch.cumsum(nz.sum(dim=1), 0)
+    rows, cols = nz.nonzero(as_tuple=True)
+    return ptr, cols.to(torch.int32).contiguous(), G[rows, cols].contiguous()
+
+
+def _launch_sim(pdip: bool, tables, lc, Hm, r_l, nit, iters, dims, scal,
+                row_key, col_key):
+    ny, nu, n, mc, m_max = (dims[k] for k in ("ny", "nu", "n", "mc", "m_max"))
+    dtype = _float_dtype(r_l)
+    B = r_l.shape[2]
+    nxa, nxp = tables["A"].shape[0], tables["Apl"].shape[0]
+    pny = tables["SxF"].shape[0]
+    nv = ny + nxa + nxp + pny
+    shapes = {
+        "Cpl": (ny, nxp), "Apl": (nxp, nxp), "Bplu": (nxp, nu), "C": (ny, nxa),
+        "Mk": (nxa, ny), "A": (nxa, nxa), "Bu": (nxa, nu), "SxF": (pny, nxa),
+        "SstF": (pny, nu), "ThT": (n, pny), "Vt": (nv, nit), "G0": (mc, n),
+    }
+    for k, shp in shapes.items():
+        _require(tables[k], shp, dtype, k)
+    lane_rows = {"q": pny, "hbase": mc, "su": mc, "sfy": ny, "sfu": nu,
+                 row_key: mc, col_key: n}
+    if not pdip:
+        lane_rows.update(Dinv=n, e=mc, par=2)
+    for k, rows in lane_rows.items():
+        _require(lc[k], (rows, B), dtype, k)
+    _require(Hm, (n, n, B), dtype, "Minv/Hp")
+    _require(r_l, (nit, ny, B), dtype, "r_l")
+
+    lib = _build.library()
+    g_ptr, g_col, g_val = _csr(tables["G0"])
+    gt_ptr, gt_row, gt_val = _csr(tables["G0"].T.contiguous())
+    dim_vals = dict(B=B, nit=nit, iters=iters, ny=ny, nu=nu, nxa=nxa, nxp=nxp,
+                    pny=pny, n=n, mc=mc, m_max=m_max)
+    dims_c = (ctypes.c_int * len(_SIM_DIMS))(*[dim_vals[k] for k in _SIM_DIMS])
+    if lib.mpc_closed_sim_ptr_count() != len(_SIM_PTRS) or \
+            lib.mpc_closed_sim_dim_count() != len(_SIM_DIMS):
+        raise RuntimeError("closed_sim argument layout mismatch")
+    rows = lib.mpc_closed_sim_work_rows(int(pdip), dims_c)
+    kw = dict(dtype=dtype, device=r_l.device)
+    Y = torch.empty((nit, ny, B), **kw)
+    U = torch.empty((nit, nu, B), **kw)
+    work = torch.empty((rows * B,), **kw)
+    bufs = dict(tables, g_ptr=g_ptr, g_col=g_col, g_val=g_val, gt_ptr=gt_ptr,
+                gt_row=gt_row, gt_val=gt_val, r=r_l, q=lc["q"],
+                hbase=lc["hbase"], su=lc["su"], rowm=lc[row_key],
+                colm=lc[col_key], sfy=lc["sfy"], sfu=lc["sfu"], Hm=Hm, Y=Y,
+                U=U, work=work)
+    if not pdip:
+        bufs.update(Dinv=lc["Dinv"], e=lc["e"], par=lc["par"])
+    for k, v in bufs.items():
+        if isinstance(v, torch.Tensor) and v.device != r_l.device:
+            raise ValueError(f"{k}: on {v.device}, expected {r_l.device}")
+    ptrs = (ctypes.c_void_p * len(_SIM_PTRS))(
+        *[bufs[k].data_ptr() if k in bufs and bufs[k].numel() else None
+          for k in _SIM_PTRS])
+    scal_c = (ctypes.c_double * 3)(*scal)
+    _build.check(lib.mpc_closed_sim(int(pdip), int(dtype == torch.float64),
+                                    ptrs, dims_c, scal_c, _stream(r_l)),
+                 "closed_sim_pdip" if pdip else "closed_sim_admm")
+    return Y, U
+
+
+# Replaces closed_sim_admm_lanes / _closed_sim_admm_kernel
+# (mpc_tuning_tpu/ops/pallas_kernels.py); see ops/csrc/closed_sim.cu for
+# what bounds it and the design.
+
+
+def closed_sim_admm(tables, lane_consts, Minv_t, r_l, nit, iters, sigma,
+                    over_relax, dims):
+    """Whole closed loop with `iters` warm equilibrated ADMM iterations per
+    step against the per-lane Minv_t (n, n, B); returns (Y, U)."""
+    if _on_cpu(r_l, Minv_t):
+        return closed_sim_admm_plain(tables, lane_consts, Minv_t, r_l, nit,
+                                     iters, sigma, over_relax, dims)
+    out = _launch_sim(False, tables, lane_consts, Minv_t, r_l, nit, iters,
+                      dims, (sigma, over_relax, 0.0), "arow", "acol")
+    closed_sim_admm.launches += 1
+    return out
+
+
+closed_sim_admm.launches = 0
+
+
+# Replaces closed_sim_pdip_lanes / _closed_sim_pdip_kernel
+# (mpc_tuning_tpu/ops/pallas_kernels.py).  Solves with the factor by
+# substitution in place of the TPU kernel's explicit L^{-1}; the two differ
+# only in rounding.
+
+
+def closed_sim_pdip(tables, lane_consts, Hp_t, r_l, nit, iters, dims):
+    """Whole closed loop with a warm masked Mehrotra PDIP of `iters`
+    iterations per step against the per-lane Hessians Hp_t (n, n, B);
+    returns (Y, U)."""
+    if _on_cpu(r_l, Hp_t):
+        return closed_sim_pdip_plain(tables, lane_consts, Hp_t, r_l, nit,
+                                     iters, dims)
+    from mpc_tuning_tpu_torch.ops.qp import WS_EPS, pdip_constants
+
+    ridge, w_cap = pdip_constants(r_l.dtype)
+    out = _launch_sim(True, tables, lane_consts, Hp_t, r_l, nit, iters, dims,
+                      (WS_EPS, ridge, w_cap), "rmask", "cmask")
+    closed_sim_pdip.launches += 1
+    return out
+
+
+closed_sim_pdip.launches = 0
+
+_WRAPPERS = (spd_factor, spd_factor_solve, closed_sim_admm, closed_sim_pdip)
+
+
+def reset_launches():
+    for fn in _WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in _WRAPPERS}

@@ -1,0 +1,184 @@
+"""Batched QP solvers: the port of the main-path half of
+the JAX package's ``ops/qp.py``.
+
+    min_z  1/2 z'Hz + f'z   s.t.  G z <= h
+
+* ``solve_qp_masked`` — infeasible-start Mehrotra predictor-corrector
+  primal-dual interior point with a FIXED iteration count and
+  best-iterate-by-merit return, for the masked-constraint MPC QP
+  G = diag(rmask) G0 diag(cmask_z).  Its public face takes the batch as
+  the leading axis; the algorithm itself is ``pdip_lanes`` (batch last),
+  which the whole-sim plain version also runs at every step.  The
+  reduced-system Cholesky factor and solves go through the hand-written
+  ``spd_factor`` / ``spd_factor_solve`` kernels (ops/kernels.py).
+* ``admm_precompute`` — per-candidate equilibration and the inverse
+  Minv = (Hs + sigma I + rho Gs'Gs)^{-1} that the whole-sim ADMM kernel
+  reuses at every step.
+
+Same algorithm and constants as the JAX package (fraction to the boundary
+0.995, sigma = (mu_aff/mu)^3, ridge 1e-9 / 1e-6 and dual cap 1e13 / 1e7 at
+f64 / f32, warm-start floor 1e-4).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mpc_tuning_tpu_torch.ops.kernels import spd_factor, spd_factor_solve
+
+__all__ = ["solve_qp_masked", "pdip_lanes", "admm_precompute", "WS_EPS",
+           "pdip_constants"]
+
+# warm-start re-centering: slacks/duals are floored at WS_EPS so a stale
+# active set cannot start the Newton iteration nearly singular
+WS_EPS = 1e-4
+
+
+def pdip_constants(dtype):
+    """(ridge, w_cap) of the PDIP normal matrix at this precision."""
+    if dtype == torch.float64:
+        return 1e-9, 1e13
+    return 1e-6, 1e7
+
+
+def _max_step(v, dv):
+    """Fraction-to-the-boundary step per lane (rows on axis 0); NaN
+    propagates (as jnp.min does)."""
+    ratio = torch.where(dv < 0, -v / dv, torch.full_like(v, float("inf")))
+    one = torch.ones((), dtype=v.dtype, device=v.device)
+    return torch.minimum(one, 0.995 * ratio.amin(dim=0, keepdim=True))
+
+
+def solve_qp_masked(H, f, G0, T2, rmask, cmask_z, h, iters: int = 30,
+                    init=None):
+    """PDIP for a batch of masked MPC QPs.
+
+    H (B, n, n), f (B, n), rmask (B, mc), cmask_z (B, n), h (B, mc); the
+    constraint matrix G0 (mc, n) and its row outer products T2 (mc, n*n)
+    are shared.  ``init`` = (z0, lam0, s0) warm-starts (s0 is recomputed
+    from h); None is the cold start.  Returns (z, lam, s), each (B, .).
+    The batch-first face of ``pdip_lanes``, with the SPD kernels.
+    """
+    warm = None if init is None else (init[0].T, init[1].T)
+    out = pdip_lanes(H.permute(1, 2, 0), f.T, G0, T2.T, rmask.T, cmask_z.T,
+                     h.T, iters, warm)
+    return tuple(x.T for x in out)
+
+
+def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
+               factor=spd_factor, solve=spd_factor_solve):
+    """Masked Mehrotra PDIP, lane-major: the batch B is the last axis.
+
+    Hp (n, n, B), f (n, B), rmask (mc, B), cmask (n, B), h (mc, B), shared
+    G0 (mc, n) and T2T (n*n, mc).  ``warm`` = (z0, lam0) warm-starts the
+    solve (s from h, duals and slacks floored at WS_EPS); None is the cold
+    start.  ``factor`` / ``solve`` take the batch-first (B, n, n) / (B, n)
+    layout: the kernels by default, their plain versions in the whole-sim
+    plain version.  Returns the best iterate by merit, (z, lam, s).
+
+    Masked rows are exact no-ops: their duals are pinned to zero and mu
+    normalises by the active row count.  Every reduction runs over axis 0,
+    so the zero rows and columns of a capacity bucket add exact zeros in
+    order and bucketing is exact on the CPU too.
+    """
+    n, B = f.shape
+    kw = dict(dtype=f.dtype, device=f.device)
+
+    def Gmat(z):
+        return rmask * (G0 @ (cmask * z))
+
+    def GTmat(y):
+        return cmask * (G0.T @ (rmask * y))
+
+    def residuals(z, lam, s):
+        r_d = torch.einsum("ijb,jb->ib", Hp, z) + f + GTmat(lam)
+        r_p = Gmat(z) + s - h
+        gap = (lam * s).sum(0, keepdim=True)
+        merit = (torch.sqrt((r_d * r_d).sum(0, keepdim=True))
+                 + torch.sqrt((r_p * r_p).sum(0, keepdim=True)) + gap)
+        return r_d, r_p, gap, merit
+
+    def solve_t(L, rhs):
+        return solve(L, rhs.T.contiguous()).T
+
+    nact = torch.clamp_min(rmask.sum(0, keepdim=True), 1.0)
+    eps_c = torch.tensor(WS_EPS, **kw)
+    if warm is None:
+        z = torch.zeros_like(f)
+        s = torch.maximum(h - Gmat(z), torch.ones_like(h))
+        lam = torch.ones_like(h) * rmask
+    else:
+        z = warm[0]
+        s = torch.maximum(h - Gmat(z), eps_c)
+        lam = torch.maximum(warm[1], eps_c) * rmask
+
+    ridge, w_cap = pdip_constants(f.dtype)
+    w_cap = torch.tensor(w_cap, **kw)
+    ridge_eye = ridge * torch.eye(n, **kw)[:, :, None]
+    cc = cmask[:, None, :] * cmask[None, :, :]
+
+    zb, lamb, sb = z, lam, s
+    mb = torch.full((1, B), float("inf"), **kw)
+    for _ in range(iters):
+        r_d, r_p, gap, mnew = residuals(z, lam, s)
+        mu = gap / nact
+
+        # best iterate by the merit of the INCOMING iterate; NaN never wins
+        take = mnew < mb
+        zb = torch.where(take, z, zb)
+        lamb = torch.where(take, lam, lamb)
+        sb = torch.where(take, s, sb)
+        mb = torch.where(take, mnew, mb)
+
+        w = torch.minimum(lam / s, w_cap) * rmask
+        M = Hp + (T2T @ w).reshape(n, n, B) * cc + ridge_eye
+        L = factor(M.permute(2, 0, 1).contiguous())
+
+        dz_aff = solve_t(L, -r_d + GTmat(lam - w * r_p))
+        ds_aff = -(r_p + Gmat(dz_aff))
+        dlam_aff = -(lam * s + lam * ds_aff) / s * rmask
+        a_aff = torch.minimum(_max_step(s, ds_aff), _max_step(lam, dlam_aff))
+        mu_aff = ((lam + a_aff * dlam_aff) * (s + a_aff * ds_aff)).sum(
+            0, keepdim=True) / nact
+        sig_r = mu_aff / (mu + 1e-30)
+        sigma = sig_r * sig_r * sig_r
+
+        r_cent = (lam * s - sigma * mu + dlam_aff * ds_aff) * rmask
+        dz = solve_t(L, -r_d + GTmat(r_cent / s - w * r_p))
+        ds = -(r_p + Gmat(dz))
+        dlam = -(r_cent + lam * ds) / s * rmask
+        a = torch.minimum(_max_step(s, ds), _max_step(lam, dlam))
+        z, lam, s = z + a * dz, lam + a * dlam, s + a * ds
+
+    take = residuals(z, lam, s)[3] < mb
+    return (torch.where(take, z, zb), torch.where(take, lam, lamb),
+            torch.where(take, s, sb))
+
+
+def admm_precompute(H, G, sigma: float = 1e-6, cmask=None):
+    """Per-candidate constants of the equilibrated ADMM (batched).
+
+    Variable scaling Dinv = 1/sqrt(diag H), row scaling e = 1/||row|| of
+    G Dinv, rho = 0.1 ||Hs (masked)||_F / ||Gs'Gs||_F clipped to
+    [1e-3, 1e2], and Minv = (Hs + sigma I + rho Gs'Gs)^{-1}, computed once
+    per candidate outside any kernel.  H (B, n, n), G (B, mc, n), cmask
+    (B, n).  Returns {Minv, rho, Dinv, e, Hs, Gs}.
+    """
+    n = H.shape[-1]
+    dh = torch.sqrt(torch.clamp_min(torch.diagonal(H, dim1=-2, dim2=-1), 1e-8))
+    Dinv = 1.0 / dh
+    Hs = H * Dinv[:, :, None] * Dinv[:, None, :]
+    Gs0 = G * Dinv[:, None, :]
+    rn = torch.linalg.vector_norm(Gs0, dim=-1)
+    e = 1.0 / torch.clamp_min(rn, 1e-8)
+    e = torch.where(rn < 1e-12, torch.ones_like(e), e)  # disabled rows keep 1
+    Gs = Gs0 * e[:, :, None]
+    GtG = Gs.transpose(1, 2) @ Gs
+    Hn = Hs if cmask is None else Hs * cmask[:, :, None] * cmask[:, None, :]
+    rho = 0.1 * (torch.linalg.matrix_norm(Hn)
+                 / (torch.linalg.matrix_norm(GtG) + 1e-12))
+    rho = torch.clamp(rho, 1e-3, 1e2)
+    eye = torch.eye(n, dtype=H.dtype, device=H.device)
+    M = Hs + sigma * eye + rho[:, None, None] * GtG
+    Minv = torch.linalg.inv(M)
+    return {"Minv": Minv, "rho": rho, "Dinv": Dinv, "e": e, "Hs": Hs, "Gs": Gs}

@@ -1,0 +1,318 @@
+"""Linear MPC closed-loop and single-shot open-loop evaluators (the port of
+the JAX package's ``sim/mpc_loop.py``).
+
+* closed loop = per step [Kalman update -> condensed QP -> first move ->
+  plant step] (the reference's toolbox ``sim(mpcobj, nit, r, v)``,
+  MPC-Tuning/MPC_Tuning/closedloop_toolbox.m:50), run for a whole candidate
+  batch by one of two whole-sim engines:
+    'admm_sim' — warm equilibrated ADMM per step (ops/kernels.closed_sim_admm);
+    'pdip_sim' — warm masked Mehrotra PDIP per step
+                 (ops/kernels.closed_sim_pdip);
+* open loop = solve the QP once from rest with the final setpoint and play
+  the optimal sequence through the model (closedloop_toolbox.m:83-100).
+
+All signals are in CONDITIONED units.  Candidates form the leading batch
+axis; each batch runs at the smallest capacity bucket covering its
+horizons (exact: the cut rows and columns are masked no-ops).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from mpc_tuning_tpu_torch.models.lti import DiscreteSS
+from mpc_tuning_tpu_torch.ops.kernels import closed_sim_admm, closed_sim_pdip
+from mpc_tuning_tpu_torch.ops.mpc_qp import (
+    MPCController,
+    assemble_candidate,
+    controller_arrays,
+    pin_precision,
+    qp_step_data,
+)
+from mpc_tuning_tpu_torch.ops.qp import solve_qp_masked
+
+__all__ = ["MPCLoop", "horizon_caps", "ENGINES", "sim_inputs", "run_whole_sim"]
+
+ENGINES = ("admm_sim", "pdip_sim")
+
+# Capacity buckets: a candidate batch whose horizons all fit (p_cap, m_cap)
+# is simulated with the controller tensors SLICED to that capacity — the
+# rows/columns beyond max(N)/max(Nu) are fully-masked exact zeros, so the
+# result is unchanged while the per-step QP cost scales with the bucket.
+_P_BUCKETS = (8, 16, 32, 48, 64, 96)
+_M_BUCKETS = (2, 4, 8)
+
+
+def horizon_caps(p_max, m_max, N_b, Nu_b):
+    """Smallest (p_cap, m_cap) bucket covering the batch, or the maxima."""
+    n_need = int(np.max(np.asarray(N_b)))
+    m_need = int(np.max(np.asarray(Nu_b)))
+    p_cap = next((b for b in _P_BUCKETS if n_need <= b < p_max), p_max)
+    m_cap = next((b for b in _M_BUCKETS if m_need <= b < m_max), m_max)
+    return p_cap, m_cap
+
+
+@dataclasses.dataclass
+class MPCLoop:
+    """Bound pair of (controller, true plant) ready to simulate."""
+
+    ctl: MPCController
+    plant_ss: DiscreteSS  # conditioned true plant, inputs [MV, MD]
+    _cap_cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                         compare=False)
+
+    @property
+    def dims(self):
+        s = self.ctl.spec
+        return dict(
+            p_max=s.p_max, m_max=s.m_max, ny=s.model.ny, nu=s.n_mv,
+            nd=s.n_md, with_y=s.has_y_constraints, rho=float(s.rho_eps),
+        )
+
+    def capped(self, p_cap: int, m_cap: int) -> "MPCLoop":
+        """Capacity-restricted view: controller prediction tensors sliced
+        to (p_cap, m_cap).  EXACT for every candidate with N <= p_cap and
+        Nu <= m_cap (the discarded rows/cols were fully-masked zeros)."""
+        s = self.ctl.spec
+        if (p_cap, m_cap) == (s.p_max, s.m_max):
+            return self
+        assert p_cap <= s.p_max and m_cap <= s.m_max, (p_cap, m_cap)
+        key = (p_cap, m_cap)
+        hit = self._cap_cache.get(key)
+        if hit is None:
+            ctl = self.ctl
+            ny, nu = s.model.ny, s.n_mv
+            spec2 = dataclasses.replace(s, p_max=p_cap, m_max=m_cap)
+            Theta4 = ctl.Theta.reshape(s.p_max, ny, s.m_max, nu)
+            ctl2 = MPCController(
+                spec=spec2, aug=ctl.aug,
+                A=ctl.A, Bu=ctl.Bu, Bv=ctl.Bv, C=ctl.C, Dv=ctl.Dv, M=ctl.M,
+                Sx=ctl.Sx[:p_cap], Sstep=ctl.Sstep[: p_cap + 1],
+                Sv=ctl.Sv[:p_cap],
+                Theta=Theta4[:p_cap, :, :m_cap].reshape(p_cap * ny,
+                                                        m_cap * nu),
+                Tcum=np.kron(np.tril(np.ones((m_cap, m_cap))), np.eye(nu)),
+                umin_s=ctl.umin_s, umax_s=ctl.umax_s,
+                dumin_s=ctl.dumin_s, dumax_s=ctl.dumax_s,
+                ymin_s=ctl.ymin_s, ymax_s=ctl.ymax_s,
+            )
+            hit = MPCLoop(ctl=ctl2, plant_ss=self.plant_ss)
+            self._cap_cache[key] = hit
+        return hit
+
+    def arrays(self, dtype=torch.float64, device="cpu"):
+        c = controller_arrays(self.ctl, dtype, device)
+        mss = self.ctl.spec.model  # conditioned internal model (playback)
+        for key, arr in (("A_pl", self.plant_ss.A), ("B_pl", self.plant_ss.B),
+                         ("C_pl", self.plant_ss.C), ("A_pl_model", mss.A),
+                         ("B_pl_model", mss.B), ("C_pl_model", mss.C)):
+            c[key] = torch.as_tensor(np.asarray(arr), dtype=dtype,
+                                     device=device)
+        return c
+
+    def _batch(self, N_b, Nu_b, caps, dtype, device, *vals):
+        """Capped loop, its arrays and the batch as device tensors."""
+        if self.ctl.spec.has_y_constraints:
+            raise NotImplementedError(
+                "y-constrained (band) cases are not ported yet")
+        pin_precision()
+        s = self.ctl.spec
+        if caps is None:
+            caps = horizon_caps(s.p_max, s.m_max, N_b, Nu_b)
+        loop = self.capped(*caps)
+        c = loop.arrays(dtype, device)
+        as_long = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.long,
+                                            device=device)
+        as_f = lambda x: torch.as_tensor(np.array(x, dtype=np.float64),
+                                         dtype=dtype, device=device)
+        return loop, c, as_long(N_b), as_long(Nu_b), [as_f(x) for x in vals]
+
+    # ------------------------------------------------- batched tuning API
+    def sim_inputs(self, r_b, v, N_b, Nu_b, delta_b, lam_b, nit, dtype,
+                   engine: str = "pdip_sim", device="cpu", caps=None):
+        """Inputs of the whole-sim kernel of ``engine`` for a candidate
+        batch: (tables, lane_consts, Minv_t or Hp_t, r_l, dims)."""
+        if engine not in ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
+        loop, c, N_t, Nu_t, (r_t, v_t, d_t, l_t) = self._batch(
+            N_b, Nu_b, caps, dtype, device, np.asarray(r_b)[:, :nit],
+            np.asarray(v)[:nit], delta_b, lam_b)
+        d = loop.dims
+        return sim_inputs(engine, c, r_t, v_t, N_t, Nu_t, d_t, l_t,
+                          d["p_max"], d["m_max"], d["ny"], d["nu"], d["rho"])
+
+    def closed_batch(self, r_b, v, N_b, Nu_b, delta_b, lam_b, nit, dtype,
+                     qp_iters, engine: str = "pdip_sim", device="cpu",
+                     caps=None):
+        """Closed loops of a candidate batch: r_b (B, nit, ny), v (nit, nd),
+        N_b / Nu_b (B,), delta_b (B, ny), lam_b (B, nu).  ``qp_iters`` is
+        the engine's iteration count (ADMM or PDIP).  Returns (Y (B, nit,
+        ny), U (B, nit, nu)) tensors on ``device``."""
+        inputs = self.sim_inputs(r_b, v, N_b, Nu_b, delta_b, lam_b, nit,
+                                 dtype, engine, device, caps)
+        return run_whole_sim(engine, *inputs, qp_iters)
+
+    def open_batch(self, rfin_b, v, N_b, Nu_b, delta_b, lam_b, nit, dtype,
+                   qp_iters, device="cpu", caps=None):
+        """Open-loop playback of a candidate batch: rfin_b (B, ny) final
+        setpoints.  Returns (Y (B, nit, ny), U (B, nit, nu)) tensors."""
+        v = np.asarray(v)
+        loop, c, N_t, Nu_t, (r_t, vf_t, v_t, d_t, l_t) = self._batch(
+            N_b, Nu_b, caps, dtype, device, rfin_b, v[nit - 1], v[:nit],
+            delta_b, lam_b)
+        d = loop.dims
+        return open_loop_batch(c, r_t, vf_t, v_t, N_t, Nu_t, d_t, l_t,
+                               d["p_max"], d["m_max"], d["ny"], d["nu"],
+                               d["rho"], qp_iters)
+
+    # -------------------------------------------------------------- API
+    def simulate(self, r, v, nit, N, Nu, delta, lam, dtype=torch.float64,
+                 qp_iters: int = 30, engine: str = "pdip_sim", device="cpu"):
+        """Closed loop of one candidate (a B = 1 ``closed_batch``).
+        Returns (y, u) conditioned NumPy arrays (nit, ny), (nit, nu)."""
+        Y, U = self.closed_batch(
+            np.asarray(r)[None], v, [N], [Nu], np.asarray(delta)[None],
+            np.asarray(lam)[None], nit, dtype, qp_iters, engine, device)
+        return Y[0].cpu().numpy(), U[0].cpu().numpy()
+
+    def open_loop(self, r_final, v, nit, N, Nu, delta, lam,
+                  dtype=torch.float64, qp_iters: int = 30, device="cpu"):
+        """Single-shot optimal sequence from rest played through the model
+        (a B = 1 ``open_batch``).  Returns (ys, uopt) NumPy arrays."""
+        Y, U = self.open_batch(
+            np.asarray(r_final)[None], v, [N], [Nu], np.asarray(delta)[None],
+            np.asarray(lam)[None], nit, dtype, qp_iters, device)
+        return Y[0].cpu().numpy(), U[0].cpu().numpy()
+
+
+# ------------------------------------------------------------ evaluators
+
+
+def open_loop_batch(c, r_final, v_final, v_traj, N, Nu, delta, lam,
+                    p_max, m_max, ny, nu, rho, qp_iters):
+    """From rest (all case setpoints are zero at k=0): one cold masked PDIP
+    per candidate, the optimal du sequence held after the control horizon
+    and played through the conditioned model."""
+    dtype, dev = r_final.dtype, r_final.device
+    B = r_final.shape[0]
+    cand = assemble_candidate(c, N, Nu, delta, lam, p_max, m_max, ny, nu,
+                              rho)
+    nxa = c["A"].shape[0]
+    nit = v_traj.shape[0]
+    nd = v_traj.shape[1]
+    x_hat = torch.zeros((B, nxa), dtype=dtype, device=dev)
+    u_prev = torch.zeros((B, nu), dtype=dtype, device=dev)
+    r_s = r_final / c["sf_y"]
+    v_s = v_final / c["sf_v"] if nd else v_final
+    f, h, _ = qp_step_data(c, cand, x_hat, u_prev, r_s, v_s, p_max, m_max,
+                           ny, nu)
+    z, _, _ = solve_qp_masked(cand["H"], f, c["G0"], c["T2"], cand["rmask"],
+                              cand["cmask_z"], h, iters=qp_iters)
+    du_seq = (z[:, :-1] * cand["cmask_flat"]).reshape(B, m_max, nu)
+    u_seq = torch.cumsum(du_seq, dim=1) * c["sf_u"]
+    idx = torch.clamp(torch.arange(nit, device=dev), 0, m_max - 1)
+    uopt = u_seq[:, idx]                                   # (B, nit, nu)
+
+    A_m, B_m, C_m = c["A_pl_model"], c["B_pl_model"], c["C_pl_model"]
+    x = torch.zeros((B, A_m.shape[0]), dtype=dtype, device=dev)
+    ys = torch.empty((B, nit, ny), dtype=dtype, device=dev)
+    for k in range(nit):
+        ys[:, k] = x @ C_m.T
+        uv = torch.cat([uopt[:, k], v_traj[k].expand(B, nd)], dim=1)
+        x = x @ A_m.T + uv @ B_m.T
+    return ys, uopt
+
+
+def sim_inputs(engine, c, r_b, v, N_b, Nu_b, delta_b, lam_b, p_max, m_max,
+               ny, nu, rho):
+    """Shared tables, lane constants, per-lane matrices and scaled
+    setpoints of the whole-sim kernel of ``engine`` (the table-building
+    half of the JAX wrappers _closed_sim_fused_body /
+    closed_loop_batch_sim_pdip, without the TPU tile padding).  Returns
+    (tables, lane_consts, Minv_t or Hp_t (n, n, B), r_l (nit, ny, B),
+    dims)."""
+    dtype, dev = r_b.dtype, r_b.device
+    B, nit = r_b.shape[:2]
+    n = m_max * nu + 1
+    pny = p_max * ny
+    kw = dict(dtype=dtype, device=dev)
+    cand = assemble_candidate(c, N_b, Nu_b, delta_b, lam_b, p_max, m_max, ny,
+                              nu, rho)
+
+    def lanes(x):  # (B, rows) -> lane-major (rows, B)
+        return x.T.contiguous()
+
+    q_b = (delta_b.abs()[:, None, :] ** 2
+           * cand["row_mask"][:, :, None]).reshape(B, pny)
+    h1 = cand["en_du_hi"] * c["dumax"].repeat(m_max) + (1.0 - cand["en_du_hi"])
+    h2 = -cand["en_du_lo"] * c["dumin"].repeat(m_max) + (1.0 - cand["en_du_lo"])
+    h3 = cand["en_u_hi"] * c["umax"].repeat(m_max) + (1.0 - cand["en_u_hi"])
+    h4 = -cand["en_u_lo"] * c["umin"].repeat(m_max) + (1.0 - cand["en_u_lo"])
+    zero1 = torch.zeros((B, 1), **kw)
+    zeros_mu = torch.zeros_like(h1)
+    lc = {
+        "q": lanes(q_b),
+        "hbase": lanes(torch.cat([h1, h2, h3, h4, zero1], dim=1)),
+        "su": lanes(torch.cat([zeros_mu, zeros_mu, -cand["en_u_hi"],
+                               cand["en_u_lo"], zero1], dim=1)),
+        "sfy": c["sf_y"][:, None].expand(ny, B).contiguous(),
+        "sfu": c["sf_u"][:, None].expand(nu, B).contiguous(),
+    }
+
+    # shared tables; per-step v-dependent columns packed into Vt (nv, nit)
+    nd = v.shape[1]
+    nxa, nxp = c["A"].shape[0], c["A_pl"].shape[0]
+    SvF = c["Sv"].reshape(pny, -1)
+    if nd:
+        v_s = v / c["sf_v"]
+        Vt = torch.cat([c["Dv"] @ v_s.T, c["Bv"] @ v_s.T,
+                        c["B_pl"][:, nu:] @ v.T, SvF @ v_s.T], dim=0)
+    else:
+        Vt = torch.zeros((ny + nxa + nxp + pny, nit), **kw)
+    ThT = torch.zeros((n, pny), **kw)
+    ThT[:m_max * nu] = c["Theta"].T
+    tables = {
+        "Cpl": c["C_pl"], "Apl": c["A_pl"],
+        "Bplu": c["B_pl"][:, :nu].contiguous(),
+        "C": c["C"], "Mk": c["M"], "A": c["A"], "Bu": c["Bu"],
+        "SxF": c["Sx"].reshape(pny, -1).contiguous(),
+        "SstF": c["Sstep"][1:].reshape(pny, nu).contiguous(),
+        "ThT": ThT, "G0": c["G0"], "Vt": Vt.contiguous(),
+    }
+    r_l = (r_b / c["sf_y"][None, None, :]).permute(1, 2, 0).contiguous()
+    dims = dict(ny=ny, nu=nu, n=n, mc=c["G0"].shape[0], m_max=m_max)
+
+    if engine == "admm_sim":
+        pre = cand["admm"]
+        Dinv_m = pre["Dinv"] * cand["cmask_z"]  # masked-variable fs/du scale
+        lc.update(arow=lanes(pre["e"] * cand["rmask"]), acol=lanes(Dinv_m),
+                  Dinv=lanes(Dinv_m), e=lanes(pre["e"]),
+                  par=torch.stack([pre["rho"], 1.0 / pre["rho"]]).contiguous())
+        Hm = pre["Minv"].permute(1, 2, 0).contiguous()
+    else:
+        lc.update(rmask=lanes(cand["rmask"]), cmask=lanes(cand["cmask_z"]))
+        tables["T2T"] = c["T2"].T.contiguous()
+        Hm = cand["H"].permute(1, 2, 0).contiguous()
+    return tables, lc, Hm, r_l, dims
+
+
+def run_whole_sim(engine, tables, lane_consts, Hm, r_l, dims, qp_iters):
+    """Run the whole-sim kernel of ``engine`` on its inputs:
+      'admm_sim' — `qp_iters` warm equilibrated ADMM iterations per step
+                   (sigma 1e-6, over-relaxation 1.6) against Minv_t;
+      'pdip_sim' — a warm-started masked PDIP of `qp_iters` iterations per
+                   step against Hp_t; the best iterate (z, lam) is the next
+                   step's warm pair.
+    Returns (Y (B, nit, ny), U (B, nit, nu))."""
+    nit = r_l.shape[0]
+    if engine == "admm_sim":
+        Y, U = closed_sim_admm(tables, lane_consts, Hm, r_l, nit=nit,
+                               iters=qp_iters, sigma=1e-6, over_relax=1.6,
+                               dims=dims)
+    else:
+        Y, U = closed_sim_pdip(tables, lane_consts, Hm, r_l, nit=nit,
+                               iters=qp_iters, dims=dims)
+    return Y.permute(2, 0, 1), U.permute(2, 0, 1)

@@ -1,0 +1,229 @@
+"""Tuning objectives evaluated as batched closed-loop simulations.
+
+GAM objective (GAM_fun.m:79-117): per-output SSE of the closed loop against
+the desired reference trajectory Yref, with the candidate weights.
+
+VNS objective (VNS2.m:148-195): per candidate (N, Nu),
+  j21 — closed loop vs single-shot open-loop playback mismatch,
+  j22 — closed loop vs Yref,
+  Jnu — squared ratio of the first open-loop control move to subsequent
+        increments (horizon-parsimony penalty, NaN/Inf -> 0),
+  F = sum(j21 + j22) + N + sum(Jnu),
+with the square-system per-output setpoint-selector protocol
+(unit steps at inK=10 on one output at a time, VNS2.m:58-65,148-165) and the
+single-sim protocol with the case setpoints for non-square systems.
+
+Every candidate (and every selector) is one lane of a batched closed-loop
+simulation — the whole neighborhood/population evaluates in one device
+call.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from mpc_tuning_tpu_torch.sim.mpc_loop import ENGINES, MPCLoop, horizon_caps
+
+__all__ = ["TuningProblem", "gam_sse_batch", "vns_objective_batch",
+           "resolve_qp_method"]
+
+
+def resolve_qp_method(method: str, stage: str = "gam",
+                      f64: bool = False) -> str:
+    """'auto' -> the closed-loop engine for this tuning stage; an explicit
+    engine name ('admm_sim' or 'pdip_sim') passes through.
+
+    The policy follows the JAX package's accelerator policy and is the
+    same on every device; only the executor differs (plain torch for CPU
+    tensors, the CUDA kernels for CUDA tensors):
+      * float32, tracking case: GAM -> 'pdip_sim' (ADMM rank-flips the GAM
+        objective on extreme CMA weight vectors), VNS -> 'admm_sim' (warm
+        40-iteration ADMM preserves the VNS argmin on the WB grid);
+      * float64 (the decision-grade path): both stages -> 'pdip_sim'.
+    Band (y-constrained) cases are not ported; MPCLoop.closed_batch raises
+    for them."""
+    if method != "auto":
+        if method not in ENGINES:
+            raise ValueError(f"unknown engine {method!r}; use 'auto' or one "
+                             f"of {ENGINES}")
+        return method
+    if stage == "vns" and not f64:
+        return "admm_sim"
+    return "pdip_sim"
+
+
+@dataclasses.dataclass
+class TuningProblem:
+    """Everything the tuner needs about one case (conditioned units)."""
+
+    loop: MPCLoop
+    r: np.ndarray  # (nit, ny) case setpoints (conditioned)
+    v: np.ndarray  # (nit, nd) measured disturbance (conditioned)
+    Yref: np.ndarray  # (nit, ny) desired response (conditioned)
+    nit: int
+    w: np.ndarray  # (my,) pareto weights
+    band_mask: np.ndarray  # (my,) True where user OV weight == 0 (band control)
+    dmin: np.ndarray  # (my,) per-output minimum delay (samples)
+    nbp: int
+    nbc: int
+    inK: int = 10
+    goal: float = 0.001
+    dtype: torch.dtype = torch.float64
+    device: str = "cpu"
+    qp_iters: int = 30
+    # 'auto' = the stage policy of resolve_qp_method; an explicit engine
+    # name overrides it (GAM stage and open leg / VNS closed leg)
+    qp_method: str = "auto"
+    vns_qp_method: str = "auto"
+    admm_iters: int = 40  # warm ADMM iterations when 'admm_sim' runs
+
+    @property
+    def my(self) -> int:
+        return self.loop.ctl.spec.model.ny
+
+    @property
+    def nu(self) -> int:
+        return self.loop.ctl.spec.n_mv
+
+    @property
+    def square(self) -> bool:
+        return self.my == self.nu
+
+    def _caps(self, N_b, Nu_b):
+        s = self.loop.ctl.spec
+        return horizon_caps(s.p_max, s.m_max, N_b, Nu_b)
+
+    def closed_batch(self, r_b, N_b, Nu_b, delta_b, lam_b, stage="gam"):
+        """Batched closed loops; returns NumPy (Y, U) in ``dtype``."""
+        raw = self.vns_qp_method if stage == "vns" else self.qp_method
+        engine = resolve_qp_method(raw, stage=stage,
+                                   f64=self.dtype == torch.float64)
+        iters = self.admm_iters if engine == "admm_sim" else self.qp_iters
+        Y, U = self.loop.closed_batch(
+            np.asarray(r_b, dtype=np.float64), self.v, N_b, Nu_b, delta_b,
+            lam_b, self.nit, self.dtype, iters, engine=engine,
+            device=self.device, caps=self._caps(N_b, Nu_b))
+        return Y.cpu().numpy(), U.cpu().numpy()
+
+    def open_batch(self, rfin_b, N_b, Nu_b, delta_b, lam_b):
+        """Batched open-loop playbacks; returns NumPy (Y, U) in ``dtype``."""
+        Y, U = self.loop.open_batch(
+            np.asarray(rfin_b, dtype=np.float64), self.v, N_b, Nu_b, delta_b,
+            lam_b, self.nit, self.dtype, self.qp_iters, device=self.device,
+            caps=self._caps(N_b, Nu_b))
+        return Y.cpu().numpy(), U.cpu().numpy()
+
+
+def _apply_band(delta: np.ndarray, band_mask: np.ndarray) -> np.ndarray:
+    """Zero user OV weight => band control: delta forced to 0
+    (GAM_fun.m:58-72, MPC_TFob.m:83-93)."""
+    return np.where(band_mask, 0.0, delta)
+
+
+def gam_sse_batch(problem: TuningProblem, N: int, Nu: int, X: np.ndarray) -> np.ndarray:
+    """Evaluate the GAM objective for a batch of weight vectors.
+
+    X: (B, my+nu) decision vectors [delta, lambda] (abs is applied, as in
+    GAM_fun.m:55-76).  Returns (B, my) per-output SSE vs Yref.
+    """
+    B = X.shape[0]
+    my, nu = problem.my, problem.nu
+    delta = _apply_band(np.abs(X[:, :my]), problem.band_mask[None, :])
+    lam = np.abs(X[:, my:])
+    r_b = np.broadcast_to(problem.r[: problem.nit], (B, problem.nit, my))
+    N_b = np.full(B, N, dtype=np.int64)
+    Nu_b = np.full(B, Nu, dtype=np.int64)
+    Y, _ = problem.closed_batch(r_b, N_b, Nu_b, delta, lam)
+    err = np.asarray(Y) - problem.Yref[None, : problem.nit, :]
+    return np.sum(err * err, axis=1)  # (B, my)
+
+
+def vns_objective_batch(
+    problem: TuningProblem,
+    N_b: np.ndarray,  # (B,) shared prediction horizon per candidate
+    Nu_b: np.ndarray,  # (B,) max control horizon per candidate
+    delta: np.ndarray,  # (my,) current weights
+    lam: np.ndarray,  # (nu,)
+    return_parts: bool = False,
+) -> np.ndarray:
+    """VNS cost F for each candidate (VNS2.m:171-195).  Returns (B,), or
+    (F, {"j21", "j22", "Jnu"}) when ``return_parts`` (each (B,)) — used by
+    the parity cross-evaluation and the band-objective audit."""
+    B = len(N_b)
+    my, nu, nit, inK = problem.my, problem.nu, problem.nit, problem.inK
+    # weights may be shared (my,)/(nu,) — the VNS neighborhood case — or
+    # per-candidate (B, my)/(B, nu): the weight-search decision path
+    # scores a LAMBDA grid in one batched device call instead of B
+    # latency-bound B=1 calls
+    delta = np.abs(np.asarray(delta, dtype=np.float64))
+    lam = np.abs(np.asarray(lam, dtype=np.float64))
+    if delta.ndim == 1:
+        delta = np.broadcast_to(delta, (B, my))
+    if lam.ndim == 1:
+        lam = np.broadcast_to(lam, (B, nu))
+    delta = _apply_band(delta, problem.band_mask[None, :])
+
+    if problem.square:
+        # unit-step setpoint selectors: lane (cand, output i) simulates
+        # with r = step at inK on output i only (VNS2.m:58-65)
+        steps = np.zeros((my, nit, my))
+        for i in range(my):
+            steps[i, inK - 1 :, i] = 1.0
+        rfin = steps[:, -1, :]  # (my, my): final setpoint per selector lane
+        rfin_b = np.broadcast_to(rfin[None], (B, my, my)).reshape(B * my, my)
+        r_b = np.broadcast_to(steps[None], (B, my, nit, my)).reshape(B * my, nit, my)
+        N_l = np.repeat(N_b, my)
+        Nu_l = np.repeat(Nu_b, my)
+        d_l = np.repeat(delta, my, axis=0)
+        l_l = np.repeat(lam, my, axis=0)
+        Yc, Uc = problem.closed_batch(r_b, N_l, Nu_l, d_l, l_l, stage="vns")
+        Yo, Uo = problem.open_batch(rfin_b, N_l, Nu_l, d_l, l_l)
+        Yc = np.asarray(Yc).reshape(B, my, nit, my)
+        Yo = np.asarray(Yo).reshape(B, my, nit, my)
+        Uo = np.asarray(Uo).reshape(B, my, nit, nu)
+        # take row i from lane i (VNS2.m:156-160)
+        idx = np.arange(my)
+        Xy = Yc[:, idx, :, idx].transpose(1, 0, 2)  # (B, my, nit)
+        Xyma = Yo[:, idx, :, idx].transpose(1, 0, 2)
+        Xuma = Uo[:, idx, :, idx].transpose(1, 0, 2)  # (B, ny, nit), square
+    else:
+        r_b = np.broadcast_to(problem.r[:nit], (B, nit, my))
+        rfin_b = np.broadcast_to(problem.r[nit - 1], (B, my))
+        d_b = delta
+        l_b = lam
+        Yc, Uc = problem.closed_batch(r_b, N_b, Nu_b, d_b, l_b, stage="vns")
+        Yo, Uo = problem.open_batch(rfin_b, N_b, Nu_b, d_b, l_b)
+        Xy = np.asarray(Yc).transpose(0, 2, 1)  # (B, my, nit)
+        Xyma = np.asarray(Yo).transpose(0, 2, 1)
+        Xuma = np.asarray(Uo).transpose(0, 2, 1)  # (B, nu, nit)
+
+    k0 = inK - 1  # MATLAB inK 1-indexed
+    e2 = Xy[:, :, k0:] - Xyma[:, :, k0:]
+    eref = Xy[:, :, k0:] - problem.Yref[:nit].T[None, :, k0:]
+    j21 = np.sum(e2 * e2, axis=(1, 2))
+    j22 = np.sum(eref * eref, axis=(1, 2))
+
+    # Jnu: "was there a SIGNIFICANT change relative to the previous control
+    # increment" (VNS2.m:181-191).  The reference guards only exact 0/NaN
+    # increments (MATLAB f64 zero-pads Uopt past the control horizon, so
+    # held moves divide 0 exactly); any fixed-precision engine instead
+    # produces denormal-tiny increments whose squared ratios explode by
+    # 1e20+ and whose value flips between f32 and f64.  A relative
+    # threshold — increments below 1e-6 of the first move are "no change",
+    # contributing 0 exactly like the reference's Inf/NaN guard — makes the
+    # objective precision-stable while preserving its meaning.
+    dff = np.abs(np.diff(Xuma, axis=2))
+    u1 = np.abs(Xuma[:, :, :1])
+    sig = dff > 1e-6 * (u1 + 1e-12)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        Xnu = np.where(sig, u1 / dff, 0.0)
+    Xnu[~np.isfinite(Xnu)] = 0.0
+    Jnu = np.sum(Xnu * Xnu, axis=(1, 2))
+
+    F = j21 + j22 + N_b.astype(np.float64) + Jnu
+    if return_parts:
+        return F, {"j21": j21, "j22": j22, "Jnu": Jnu}
+    return F

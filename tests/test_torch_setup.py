@@ -1,0 +1,86 @@
+"""The port's host setup against the JAX package: the conditioned Wood-Berry
+problem, the controller arrays and the state conversion must be exactly
+equal (both sides run the same float64 NumPy/SciPy code)."""
+
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpc_tuning_tpu.cases import woodberry as wb_jax
+from mpc_tuning_tpu.tuning.api import build_problem as build_jax
+from mpc_tuning_tpu_torch import convert
+from mpc_tuning_tpu_torch.cases import woodberry as wb_torch
+from mpc_tuning_tpu_torch.tuning.api import build_problem as build_torch
+
+CTL_FIELDS = ("A", "Bu", "Bv", "C", "Dv", "M", "Sx", "Sstep", "Sv", "Theta",
+              "Tcum", "umin_s", "umax_s", "dumin_s", "dumax_s", "ymin_s",
+              "ymax_s")
+
+
+@pytest.fixture(scope="module")
+def problems():
+    pj, info_j = build_jax(wb_jax.make_case(), dtype=jnp.float64)
+    pt, info_t = build_torch(wb_torch.make_case(), dtype=torch.float64)
+    return pj, info_j, pt, info_t
+
+
+@pytest.mark.parametrize("field", CTL_FIELDS)
+def test_controller_field_exact(problems, field):
+    pj, _, pt, _ = problems
+    a = getattr(pj.loop.ctl, field)
+    b = getattr(pt.loop.ctl, field)
+    assert np.array_equal(a, b), field
+
+
+def test_conditioning_and_problem_exact(problems):
+    pj, info_j, pt, info_t = problems
+    for a, b in zip(info_j, info_t):  # L, R, Ru, Rv, S, cond_before
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    for name in ("r", "v", "Yref", "w", "band_mask", "dmin"):
+        assert np.array_equal(getattr(pj, name), getattr(pt, name)), name
+    assert pj.nit == pt.nit and pj.nbp == pt.nbp and pj.nbc == pt.nbc
+
+
+@pytest.mark.parametrize("caps", [None, (64, 8)])
+def test_controller_tables_exact(problems, caps):
+    """G0, T2 and every other controller array, at full size and capped."""
+    pj, _, pt, _ = problems
+    lj, lt = pj.loop, pt.loop
+    if caps is not None:
+        lj, lt = lj.capped(*caps), lt.capped(*caps)
+    cj = {k: np.asarray(v) for k, v in lj.arrays(jnp.float64).items()}
+    ct = {k: v.numpy() for k, v in lt.arrays(torch.float64).items()}
+    assert cj.keys() == ct.keys()
+    for k in cj:
+        assert np.array_equal(cj[k], ct[k]), k
+
+
+def test_arrays_from_numpy_matches_port_arrays(problems):
+    pj, _, pt, _ = problems
+    cj = {k: np.asarray(v) for k, v in pj.loop.arrays(jnp.float64).items()}
+    conv = convert.arrays_from_numpy(cj, torch.float64, "cpu")
+    own = pt.loop.arrays(torch.float64, "cpu")
+    assert conv.keys() == own.keys()
+    for k in own:
+        assert conv[k].dtype == own[k].dtype and conv[k].device == own[k].device
+        assert torch.equal(conv[k], own[k]), k
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import mpc_tuning_tpu_torch.tuning.api, mpc_tuning_tpu_torch.convert\n"
+        "import mpc_tuning_tpu_torch.cases.woodberry\n"
+        "new = set(sys.modules) - before\n"
+        "bad = sorted(m for m in new if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'mpc_tuning_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
