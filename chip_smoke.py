@@ -1,24 +1,35 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # needs one card; about 6 minutes
+    python3 chip_smoke.py            # needs one card; about 9 minutes
 
-Phases, each printing one line:
+Phases, each printing one line (with its wall time):
  1. environment: the card (nvidia-smi name and power limit), torch and CUDA
-    versions, and the build of the port's CUDA kernels;
- 2. every kernel of the main path against its plain PyTorch version on the
-    card, in float64 and float32, at the Wood-Berry shapes (caps (64,8) and
-    (127,15), B=1024, nit=400; SPD factor/solve at n = 5, 17, 31); the
-    whole-sim kernels step by step, the plain version following the
-    kernel's inputs (see ``phase_kernels``);
- 3. the main path: a seeded Wood-Berry hybrid tune in float32 on the card
-    through ``mpc_tuning``, with every kernel's launch count, the tune's
-    last batch of each whole-sim kernel against the plain version, a
-    validity check of the result and its closed-loop outputs against the
+    versions, and the build of the port's CUDA kernels (one nvcc per
+    source, started together);
+ 2. every kernel of the two main paths against its plain PyTorch version on
+    the card, the whole-sim kernels step by step (the plain version
+    following the kernel's inputs, ``follow_plain``):
+    2a the Wood-Berry kernels in float64 and float32 (caps (64,8) and
+       (127,15), B=1024, nit=200, cut from the case's 400 steps to make
+       room for the band rows; SPD factor/solve at n = 5, 17, 31);
+    2b the band kernel on Shell7x5 in float64, the only dtype band cases
+       run at (caps (32,4), (127,2), (127,15), B=256, nit=200, the seeded
+       candidates of tools/band_spread.band_inputs), held at the limits
+       that tools/band_spread.py derives from two correct runs;
+ 3. the first main path: a seeded Wood-Berry hybrid tune in float32 on the
+    card through ``mpc_tuning``, with every kernel's launch count, the
+    tune's last batch of each whole-sim kernel against the plain version,
+    a validity check of the result and its closed-loop outputs against the
     float64 plain version on the CPU;
- 4. throughput of each kernel and its plain version (recorded, not gated).
-Then one JSON line with the per-kernel record, and as the last line
-``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero before
-that line.
+ 3b. the band main path: a seeded Shell7x5 hybrid tune in float64 on the
+    card (the full case: nit 200, nbp/nbc 7/4), launch counts, its last
+    band batch against the plain version, a validity check of the result
+    and of ``shell7x5.final_simulation`` on the card;
+ 4. throughput of each kernel, its plain version and, where one PyTorch
+    call computes the same function, that call (recorded, not gated).
+Then one JSON line with the per-kernel record, the card's line, and as the
+last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
+non-zero before that line.
 """
 
 from __future__ import annotations
@@ -40,6 +51,19 @@ F32_SPD_GATE = 1e-4      # max |dL| / max |L|, max |dx| / max |x|, float32
 # keep |du| <= 0.05 differ by no more) on every lane
 F32_PDIP_U_CAP = 0.1
 LOOP_GATE = 1e-2         # tuned closed loop y: float32 card vs float64 CPU
+# Band rows: float64 only (band cases refuse float32).  du is ill-posed on
+# degenerate band steps, so two correct float64 runs of the same loop
+# differ there; the limits (tools/band_spread.BAND_LIMITS) are fixed just
+# above what two correct runs differ by, per lane statistic and lane
+# quantile, as tools/band_spread.py measured it.
+U_BOUND = 0.5            # Shell7x5 |u| limit (raw units)
+
+# peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s; FLOP/s in
+# float32 (outside the tensor cores) and float64 (the FP64 tensor cores,
+# which compute true float64: the band normal matrix is a GEMM-shaped
+# product that could run on them)
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 SOURCES = {
     "spd_factor": ("mpc_tuning_tpu_torch/ops/csrc/spd.cu",
@@ -50,7 +74,12 @@ SOURCES = {
                         "mpc_tuning_tpu/ops/pallas_kernels.py:944"),
     "closed_sim_pdip": ("mpc_tuning_tpu_torch/ops/csrc/closed_sim.cu",
                         "mpc_tuning_tpu/ops/pallas_kernels.py:1248"),
+    "closed_sim_band": ("mpc_tuning_tpu_torch/ops/csrc/closed_sim_band.cu",
+                        "mpc_tuning_tpu/ops/pallas_kernels.py:1611"),
 }
+PLAIN = {"closed_sim_admm": "closed_sim_admm_plain",
+         "closed_sim_pdip": "closed_sim_pdip_plain",
+         "closed_sim_band": "closed_sim_band_plain"}
 
 
 def fail(msg: str):
@@ -58,10 +87,10 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def timed(fn, reps: int = 1):
+def timed(fn, reps: int = 1, warm: bool = True):
     """Mean milliseconds per call on the card (CUDA events), after one
-    warm-up call; returns (ms, last result)."""
-    out = fn()
+    warm-up call unless ``warm`` is False; returns (ms, last result)."""
+    out = fn() if warm else None
     torch.cuda.synchronize()
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -76,9 +105,69 @@ def maxabs(a, b) -> float:
     return float((a - b).abs().max().item())
 
 
+def nbytes(*xs) -> int:
+    """Bytes of the tensors in xs (dicts, tuples and tensors)."""
+    total = 0
+    for x in xs:
+        if isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        elif isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+    return total
+
+
+def bound_ms(bytes_moved: float, flops: float, dtype):
+    """(least ms on the card, what bounds it): the bytes read and written
+    once over the HBM rate, or the operations over the peak rate."""
+    tb = bytes_moved / HBM_BPS * 1e3
+    to = flops / PEAK_FLOPS[dtype] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def sim_flops(engine, t, dims, nit, iters, N, Nu, lp=0, s2=0):
+    """Floating-point operations of one whole-sim launch on these inputs:
+    per step the estimator and plant products, per QP iteration the
+    constraint products, normal matrix, factor and solves on each lane's
+    active rows and columns (the kernels skip masked ones; the band kernel
+    works on +-row pairs)."""
+    ny, nu, n = dims["ny"], dims["nu"], dims["n"]
+    nxa, nxp = t["A"].shape[0], t["Apl"].shape[0]
+    pny = t["SxF"].shape[0]
+    step = 2 * (ny * nxp + ny * nxa + nxa * ny + pny * (nxa + nu) + n * pny
+                + nxa * (nxa + nu) + nxp * (nxp + nu))
+    total = 0.0
+    nnz = int((t["G0"] != 0).sum())
+    for Nb, Nub in zip(np.asarray(N), np.asarray(Nu)):
+        nc = int(Nub) * nu
+        nn = nc + 1
+        if engine == "closed_sim_band":
+            pr = int(Nb) * ny
+            nsp = dims["mc"] - 2 * pny
+            ta = nc * (nc + 1) // 2 + nc + 1
+            g = 2 * nc * pr + 6 * pr + 2 * 4 * nc
+            gt = 3 * nc * pr + 3 * pr + 2 * 4 * nc
+            # normal matrix: Theta's rows scaled by w once (pr nc), then
+            # one multiply-add per lower-triangle entry and row
+            it = (pr * nc + 2 * ta * pr + 3 * (g + gt) + nn ** 3 / 3
+                  + 4 * nn ** 2 + 40 * (2 * pr + nsp) + 2 * nn ** 2)
+            total += nit * (step + (lp + s2) * it + 2 * g + 20 * pr)
+        else:
+            mc = 4 * nc + 1
+            sq = 6 * nc * nc  # sum of squared row nonzeros of the u rows
+            if engine == "closed_sim_pdip":
+                it = (3 * sq + 12 * nnz + 2 * nn ** 2 + nn ** 3 / 3
+                      + 4 * nn ** 2 + 30 * mc)
+            else:
+                it = 2 * nn ** 2 + 4 * nnz + 10 * mc
+            total += nit * (step + iters * it)
+    return total
+
+
 def sim_inputs(problem, caps, B, nit, dtype, engine, seed, N=None, Nu=None):
     """Whole-sim kernel inputs for B random Wood-Berry candidates that
-    span the capacity bucket ``caps``."""
+    span the capacity bucket ``caps``; returns (inputs, N, Nu)."""
     rng = np.random.default_rng(seed)
     p_cap, m_cap = caps
     if N is None:
@@ -91,7 +180,7 @@ def sim_inputs(problem, caps, B, nit, dtype, engine, seed, N=None, Nu=None):
     lam = rng.uniform(0.02, 0.5, size=(B, 2))
     r_b = np.broadcast_to(problem.r[:nit], (B, nit, 2))
     return problem.loop.sim_inputs(r_b, problem.v, N, Nu, delta, lam, nit,
-                                   dtype, engine, "cuda", caps=caps)
+                                   dtype, engine, "cuda", caps=caps), N, Nu
 
 
 def phase_env():
@@ -115,30 +204,31 @@ def phase_env():
 
 
 def lane_errors(a, b):
-    """Per-lane max |a - b| of Y and of U, each (B,), for (Y, U) pairs in
-    (nit, rows, B) layout."""
-    (Ya, Ua), (Yb, Ub) = a, b
-    return (Ya - Yb).abs().amax((0, 1)), (Ua - Ub).abs().amax((0, 1))
-
-
-PLAIN = {"closed_sim_admm": "closed_sim_admm_plain",
-         "closed_sim_pdip": "closed_sim_pdip_plain"}
+    """Per-lane max |a - b| of Y and of U, each (B,), for (Y, U, ...)
+    tuples in (nit, rows, B) layout."""
+    return ((a[0] - b[0]).abs().amax((0, 1)),
+            (a[1] - b[1]).abs().amax((0, 1)))
 
 
 def follow_plain(name, args, kwargs, out_k):
     """The plain version of whole-sim kernel `name` on the same inputs,
     stepping the plant and model on the kernel's U (see ops/kernels.py):
     each step's QP is then solved from the state the kernel solved it in.
-    Returns the per-lane (dY, dU) against the kernel's output."""
+    Returns the per-lane (dY, dU) against the kernel's output; for the band
+    kernel, tools/band_spread.band_lane_errors."""
     from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.tools.band_spread import band_lane_errors
 
     out_p = getattr(K, PLAIN[name])(*args, **kwargs, u_follow=out_k[1])
     torch.cuda.synchronize()
+    if name == "closed_sim_band":
+        return band_lane_errors(out_k, out_p)
     return lane_errors(out_k, out_p)
 
 
 def phase_kernels(problem):
-    """Kernel vs plain on the card; returns {name: max_abs_err (f64)}.
+    """2a. Wood-Berry kernels vs plain on the card; returns {name:
+    max_abs_err (f64)}.
 
     The whole-sim kernels are held step by step: the plain version follows
     the kernel's inputs (``follow_plain``).  Run side by side instead, two
@@ -152,16 +242,17 @@ def phase_kernels(problem):
     F32_SIM_GATE on every lane in phase 3."""
     from mpc_tuning_tpu_torch.ops import kernels as K
 
-    B, nit = 1024, 400
-    err64 = {k: 0.0 for k in SOURCES}
+    t0 = time.perf_counter()
+    B, nit = 1024, 200
+    err64 = {}
     rows = []
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
         tag = "f64" if f64 else "f32"
         for caps in ((64, 8), (127, 15)):
             for engine, iters in (("admm_sim", 40), ("pdip_sim", 30)):
-                t, lc, Hm, r_l, dims = sim_inputs(problem, caps, B, nit,
-                                                  dtype, engine, seed=caps[0])
+                (t, lc, Hm, r_l, dims), _, _ = sim_inputs(
+                    problem, caps, B, nit, dtype, engine, seed=caps[0])
                 name = "closed_sim_" + engine[:4]
                 args = (t, lc, Hm, r_l, nit, iters)
                 kwargs = dict(dims=dims)
@@ -177,7 +268,7 @@ def phase_kernels(problem):
                 rows.append(f"{name}{caps}:{tag}=Y {ey:.3e} U {eu:.3e} "
                             f"(median lane {med:.3e})")
                 if f64:
-                    err64[name] = max(err64[name], ey, eu)
+                    err64[name] = max(err64.get(name, 0.0), ey, eu)
                     ok = max(ey, eu) <= F64_SIM_GATE
                 elif engine == "admm_sim":
                     ok = max(ey, eu) <= F32_SIM_GATE
@@ -198,19 +289,59 @@ def phase_kernels(problem):
             torch.cuda.synchronize()
             eL, ex = maxabs(Lk, Lp), maxabs(xk, xp)
             if f64:
-                err64["spd_factor"] = max(err64["spd_factor"], eL)
-                err64["spd_factor_solve"] = max(err64["spd_factor_solve"], ex)
+                err64["spd_factor"] = max(err64.get("spd_factor", 0.0), eL)
+                err64["spd_factor_solve"] = max(
+                    err64.get("spd_factor_solve", 0.0), ex)
             else:
                 eL /= float(Lp.abs().max())
                 ex /= float(xp.abs().max())
             rows.append(f"spd(n={n}):{tag}=L {eL:.3e} x {ex:.3e}")
             if max(eL, ex) > (F64_SPD_GATE if f64 else F32_SPD_GATE):
                 fail(f"spd n={n} {dtype}: dL {eL:.3e} dx {ex:.3e}")
-    print(f"[2 kernels] B={B} nit={nit}, whole sims with the plain version "
-          f"following the kernel's U; gates: f64 {F64_SIM_GATE:g}, f32 "
-          f"{F32_SIM_GATE:g} (f32 PDIP U: median lane {F32_SIM_GATE:g}, "
-          f"every lane {F32_PDIP_U_CAP:g}); spd f64 {F64_SPD_GATE:g}, f32 "
-          f"{F32_SPD_GATE:g} relative | " + " | ".join(rows), flush=True)
+    print(f"[2a kernels] B={B} nit={nit} (the case's 400 steps cut to 200), "
+          f"whole sims with the plain version following the kernel's U; "
+          f"gates: f64 {F64_SIM_GATE:g}, f32 {F32_SIM_GATE:g} (f32 PDIP U: "
+          f"median lane {F32_SIM_GATE:g}, every lane {F32_PDIP_U_CAP:g}); "
+          f"spd f64 {F64_SPD_GATE:g}, f32 {F32_SPD_GATE:g} relative | "
+          + " | ".join(rows) + f" | wall_s={time.perf_counter() - t0:.1f}",
+          flush=True)
+    return err64
+
+
+def phase_band_kernels(band_problem):
+    """2b. The band kernel vs its plain version, step by step, at float64;
+    returns the max |dY|, |dU| over the rows.  Every row prints before
+    the limits are applied."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.tools.band_spread import (BAND_CAPS, band_gate,
+                                                        band_inputs)
+
+    t0 = time.perf_counter()
+    B, nit = 256, 200
+    err64 = 0.0
+    rows, bad = [], []
+    for caps in BAND_CAPS:
+        (t, lc, Hp, r_l, dims), _, _ = band_inputs(
+            band_problem, caps, B, nit, torch.float64, caps[0])
+        args = (t, lc, Hp, r_l, nit, 20, 12)
+        kwargs = dict(dims=dims)
+        out_k = K.closed_sim_band(*args, **kwargs)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(x).all() for x in out_k):
+            fail(f"closed_sim_band {caps}: non-finite output")
+        errs = follow_plain("closed_sim_band", args, kwargs, out_k)
+        ok, txt = band_gate(errs, caps)
+        rows.append(f"band{caps}: {txt}")
+        err64 = max(err64, float(errs["y"].max()), float(errs["u"].max()))
+        if not ok:
+            bad.append(rows[-1])
+    print(f"[2b band kernel] Shell7x5 f64 B={B} nit={nit}, the plain version "
+          f"following the kernel's U; per-lane statistics, lane quantiles "
+          f"p50/p90/p99/max (limits: tools/band_spread.BAND_LIMITS) | "
+          + " | ".join(rows)
+          + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
+    if bad:
+        fail("band rows above their limits: " + " | ".join(bad))
     return err64
 
 
@@ -235,7 +366,8 @@ def keep_last_launches(store):
 
 
 def phase_main_path():
-    """The seeded hybrid tune on the card; returns the launch counts."""
+    """3. The seeded Wood-Berry hybrid tune on the card; returns the
+    launch counts."""
     from mpc_tuning_tpu_torch.cases import woodberry
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.tuning.api import build_problem, mpc_tuning
@@ -258,7 +390,9 @@ def phase_main_path():
           and (weights > 0).all() and np.isfinite([res.Fvns, res.Fgam]).all())
     if not ok:
         fail(f"invalid tuning result N={res.N} Nu={Nu} weights={weights}")
-    if min(launches.values()) <= 0:
+    wb_kernels = ("spd_factor", "spd_factor_solve", "closed_sim_admm",
+                  "closed_sim_pdip")
+    if min(launches[k] for k in wb_kernels) <= 0:
         fail(f"a kernel of the main path was never launched: {launches}")
 
     # the tune's last batch of each whole-sim kernel (the last GAM
@@ -297,64 +431,168 @@ def phase_main_path():
     return launches
 
 
-def phase_throughput(problem):
-    """Kernel and plain times at the bench shapes; returns {name: (ms,
-    plain_ms)}."""
+def phase_band_main_path():
+    """3b. The seeded Shell7x5 band tune on the card at float64; returns
+    the launch counts."""
+    from mpc_tuning_tpu_torch.cases import shell7x5
     from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.tools.band_spread import band_gate
+    from mpc_tuning_tpu_torch.tuning.api import mpc_tuning
 
-    f32 = torch.float32
-    t, lc, Hm, r_l, dims = sim_inputs(problem, (64, 8), 8192, 400, f32,
-                                      "admm_sim", seed=1)
-    args = (t, lc, Hm, r_l, 400, 40, 1e-6, 1.6, dims)
-    admm = (timed(lambda: K.closed_sim_admm(*args), 3)[0],
-            timed(lambda: K.closed_sim_admm_plain(*args))[0])
-    # a VNS-neighbourhood-sized batch (9 candidates x 2 selectors): one
-    # thread per lane, so this is the per-lane latency the tuner waits for
-    t, lc, Hm, r_l, dims = sim_inputs(problem, (64, 8), 18, 400, f32,
-                                      "admm_sim", seed=3)
-    args = (t, lc, Hm, r_l, 400, 40, 1e-6, 1.6, dims)
-    admm18 = timed(lambda: K.closed_sim_admm(*args), 3)[0]
-    t, lc, Hm, r_l, dims = sim_inputs(problem, (32, 4), 2048, 400, f32,
-                                      "pdip_sim", seed=2, N=20, Nu=4)
-    args = (t, lc, Hm, r_l, 400, 15, dims)
-    pdip = (timed(lambda: K.closed_sim_pdip(*args), 3)[0],
-            timed(lambda: K.closed_sim_pdip_plain(*args))[0])
+    case = shell7x5.make_case()
+    last = {}
+    undo = keep_last_launches(last)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    res = mpc_tuning(case, dtype=torch.float64, device="cuda", qp_iters=60,
+                     gam_popsize=8, gam_generations=3, max_alternations=1,
+                     seed=0, checkpoint_dir=None, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    undo()
+    band_kernels = ("closed_sim_band", "spd_factor", "spd_factor_solve")
+    if min(launches[k] for k in band_kernels) <= 0:
+        fail(f"a kernel of the band path was never launched: {launches}")
+    Nu = np.asarray(res.Nu)
+    lam = np.asarray(res.lam)
+    if not (np.all(np.asarray(res.delta) == 0.0) and res.N > Nu.max()
+            and Nu.max() >= 2 and np.isfinite(lam).all() and (lam > 0).all()):
+        fail(f"invalid band tuning result N={res.N} Nu={Nu} "
+             f"delta={res.delta} lam={lam}")
+
+    args, kwargs, out_k = last["closed_sim_band"]
+    dims = kwargs["dims"]
+    caps = (args[0]["SxF"].shape[0] // dims["ny"], dims["m_max"])
+    ok, held = band_gate(follow_plain("closed_sim_band", args, kwargs, out_k),
+                         caps)
+    held = f"B={out_k[0].shape[2]} caps={caps}: {held}"
+    if not ok:
+        fail(f"band main path's last batch {held}: above its gate")
+
+    t1 = time.perf_counter()
+    y, u = shell7x5.final_simulation(case, res)
+    sim_s = time.perf_counter() - t1
+    umax = float(np.abs(u).max())
+    if not (np.isfinite(y).all() and np.isfinite(u).all()
+            and umax <= U_BOUND + 1e-6):
+        fail(f"band final simulation: max |u| {umax:.6g} (limit {U_BOUND})")
+    print(f"[3b band path] mpc_tuning(Shell7x5 nit=200 nbp/nbc=7/4 f64 cuda "
+          f"popsize=8 gens=3 alts=1 qp_iters=60) N={res.N} Nu={Nu.tolist()} "
+          f"delta={np.asarray(res.delta).tolist()} "
+          f"lam={np.round(lam, 6).tolist()} Fvns={res.Fvns:.6g} "
+          f"Fgam={res.Fgam:.6g} wall_s={wall:.2f} launches={launches} | "
+          f"last band batch vs plain: {held} | final_simulation "
+          f"(card, f64, {sim_s:.2f} s): max|u| {umax:.6f} |y1| end "
+          f"{abs(y[-1, 0]):.6f} |y2| end {abs(y[-1, 1]):.6f}", flush=True)
+    return launches
+
+
+def phase_throughput(problem, band_problem):
+    """4. Kernel, plain and library times at the bench shapes; returns
+    {name: dict(ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.tools.band_spread import band_inputs
+
+    t0 = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    rec, txt = {}, []
+
+    def sim_record(name, dtype, inputs, N, Nu, call, plain, iters, **fl):
+        t, lc, Hm, r_l, dims = inputs
+        ms, out = timed(call, 3)
+        pm = timed(plain, 1, warm=False)[0]
+        read = {k: v for k, v in t.items() if k != "T2T"}  # plain's table
+        b, by = bound_ms(nbytes(read, lc, Hm, r_l, out),
+                         sim_flops(name, t, dims, r_l.shape[0], iters, N, Nu,
+                                   **fl), dtype)
+        return dict(ms=ms, plain_ms=pm, bound_ms=b, bound_by=by,
+                    library_ms=None)
+
+    inp, N, Nu = sim_inputs(problem, (64, 8), 8192, 400, f32, "admm_sim", 1)
+    args = (*inp[:4], 400, 40, 1e-6, 1.6, inp[4])
+    rec["closed_sim_admm"] = sim_record(
+        "closed_sim_admm", f32, inp, N, Nu, lambda: K.closed_sim_admm(*args),
+        lambda: K.closed_sim_admm_plain(*args), 40)
+    # a VNS-neighbourhood-sized batch (9 candidates x 2 selectors)
+    inp18, _, _ = sim_inputs(problem, (64, 8), 18, 400, f32, "admm_sim", 3)
+    args18 = (*inp18[:4], 400, 40, 1e-6, 1.6, inp18[4])
+    admm18 = timed(lambda: K.closed_sim_admm(*args18), 3)[0]
+    inp, N, Nu = sim_inputs(problem, (32, 4), 2048, 400, f32, "pdip_sim", 2,
+                            N=20, Nu=4)
+    args = (*inp[:4], 400, 15, inp[4])
+    rec["closed_sim_pdip"] = sim_record(
+        "closed_sim_pdip", f32, inp, N, Nu, lambda: K.closed_sim_pdip(*args),
+        lambda: K.closed_sim_pdip_plain(*args), 15)
+    txt.append(
+        f"f32 headline admm_sim B=8192 caps=(64,8) nit=400 iters=40: kernel "
+        f"{rec['closed_sim_admm']['ms']:.1f} ms = "
+        f"{8192e3 / rec['closed_sim_admm']['ms']:.0f} sims/s, plain "
+        f"{rec['closed_sim_admm']['plain_ms']:.1f} ms; B=18 kernel "
+        f"{admm18:.1f} ms | GAM pdip_sim B=2048 (N,Nu)=(20,4) caps=(32,4) "
+        f"iters=15: kernel {rec['closed_sim_pdip']['ms']:.1f} ms = "
+        f"{2048e3 / rec['closed_sim_pdip']['ms']:.0f} sims/s, plain "
+        f"{rec['closed_sim_pdip']['plain_ms']:.1f} ms")
+
     g = torch.Generator(device="cuda").manual_seed(0)
     A = torch.randn((1024, 17, 17), generator=g, device="cuda", dtype=f32)
     M = A @ A.transpose(1, 2) + 17 * torch.eye(17, device="cuda", dtype=f32)
     rhs = torch.randn((1024, 17), generator=g, device="cuda", dtype=f32)
     L = K.spd_factor_plain(M)
-    fac = (timed(lambda: K.spd_factor(M), 20)[0],
-           timed(lambda: K.spd_factor_plain(M), 20)[0])
-    sol = (timed(lambda: K.spd_factor_solve(L, rhs), 20)[0],
-           timed(lambda: K.spd_factor_solve_plain(L, rhs), 20)[0])
-    print(f"[4 throughput] f32 headline admm_sim B=8192 caps=(64,8) nit=400 "
-          f"iters=40: kernel {admm[0]:.1f} ms = {8192e3 / admm[0]:.0f} sims/s,"
-          f" plain {admm[1]:.1f} ms = {8192e3 / admm[1]:.0f} sims/s; B=18: "
-          f"kernel {admm18:.1f} ms | "
-          f"GAM pdip_sim B=2048 (N,Nu)=(20,4) caps=(32,4) iters=15: kernel "
-          f"{pdip[0]:.1f} ms = {2048e3 / pdip[0]:.0f} sims/s, plain "
-          f"{pdip[1]:.1f} ms = {2048e3 / pdip[1]:.0f} sims/s | spd B=1024 "
-          f"n=17: factor {fac[0]:.4f} ms (plain {fac[1]:.4f}), solve "
-          f"{sol[0]:.4f} ms (plain {sol[1]:.4f})", flush=True)
-    return {"closed_sim_admm": admm, "closed_sim_pdip": pdip,
-            "spd_factor": fac, "spd_factor_solve": sol}
+    fac = dict(ms=timed(lambda: K.spd_factor(M), 20)[0],
+               plain_ms=timed(lambda: K.spd_factor_plain(M), 20)[0],
+               library_ms=timed(lambda: torch.linalg.cholesky_ex(M), 20)[0])
+    fac["bound_ms"], fac["bound_by"] = bound_ms(
+        2 * nbytes(M), 1024 * 17 ** 3 / 3, f32)
+    sol = dict(ms=timed(lambda: K.spd_factor_solve(L, rhs), 20)[0],
+               plain_ms=timed(lambda: K.spd_factor_solve_plain(L, rhs), 20)[0],
+               library_ms=timed(lambda: torch.cholesky_solve(rhs[:, :, None],
+                                                             L), 20)[0])
+    sol["bound_ms"], sol["bound_by"] = bound_ms(
+        nbytes(L) + 2 * nbytes(rhs), 1024 * 2 * 2 * 17 ** 2, f32)
+    rec["spd_factor"], rec["spd_factor_solve"] = fac, sol
+    txt.append(f"spd B=1024 n=17 f32: factor {fac['ms']:.4f} ms (plain "
+               f"{fac['plain_ms']:.4f}, cholesky_ex {fac['library_ms']:.4f}), "
+               f"solve {sol['ms']:.4f} ms (plain {sol['plain_ms']:.4f}, "
+               f"cholesky_solve {sol['library_ms']:.4f})")
+
+    band = []
+    for caps, B in (((127, 2), 1), ((127, 2), 8), ((48, 4), 256)):
+        inp, N, Nu = band_inputs(band_problem, caps, B, 200, f64, 7)
+        args = (*inp[:4], 200, 20, 12, inp[4])
+        r = sim_record("closed_sim_band", f64, inp, N, Nu,
+                       lambda: K.closed_sim_band(*args),
+                       lambda: K.closed_sim_band_plain(*args), 0, lp=20,
+                       s2=12)
+        band.append(f"B={B} caps={caps}: kernel {r['ms']:.1f} ms, plain "
+                    f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']})")
+        rec["closed_sim_band"] = r  # the last: B = 256, caps (48, 4)
+    txt.append("band f64 nit=200 lp/s2=20/12: " + "; ".join(band))
+    print("[4 throughput] " + " | ".join(txt)
+          + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
+    return rec
 
 
 def main():
+    t_start = time.perf_counter()
     card = phase_env()
-    from mpc_tuning_tpu_torch.cases import woodberry
+    from mpc_tuning_tpu_torch.cases import shell7x5, woodberry
     from mpc_tuning_tpu_torch.tuning.api import build_problem
 
     problem, _ = build_problem(woodberry.make_case(), device="cuda")
+    band_problem, _ = build_problem(shell7x5.make_case(), device="cuda")
     err64 = phase_kernels(problem)
+    err64["closed_sim_band"] = phase_band_kernels(band_problem)
     launches = phase_main_path()
-    times = phase_throughput(problem)
+    band_launches = phase_band_main_path()
+    rec = phase_throughput(problem, band_problem)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": err64[k],
-         "ms": times[k][0], "plain_ms": times[k][1]}
+         "launches": launches[k] + band_launches[k],
+         "max_abs_err": err64[k], **rec[k]}
         for k, (src, rep) in SOURCES.items()]}), flush=True)
+    print(f"[total] wall_s={time.perf_counter() - t_start:.1f}", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

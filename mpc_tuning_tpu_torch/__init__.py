@@ -11,7 +11,7 @@ Layer map (mirrors the JAX package):
   ops/      controller math (conditioning, observer, QP, kernels)
   sim/      closed-loop and open-loop evaluators
   tuning/   hybrid GAM <-> VNS auto-tuning
-  cases/    benchmark case studies (Wood-Berry)
+  cases/    benchmark case studies (Wood-Berry, Shell7x5)
   utils/    checkpointing
   convert   state carried over from the JAX package
 """

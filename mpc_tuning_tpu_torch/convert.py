@@ -13,9 +13,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mpc_tuning_tpu_torch.ops.kernels import require_device
+
 __all__ = ["arrays_from_numpy"]
 
 
-def arrays_from_numpy(c: dict, dtype=torch.float64, device="cpu") -> dict:
+def arrays_from_numpy(c: dict, dtype=torch.float64, device="cuda") -> dict:
+    require_device(device)
     return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
             for k, v in c.items()}

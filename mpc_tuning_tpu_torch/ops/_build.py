@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``ops/csrc/`` are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
+(``sm_90a``), one ``nvcc`` per ``.cu`` file, all started together, then
+linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The library is built at first use into
 ``mpc_tuning_tpu_torch/_build/``, keyed on a hash of the sources, so a
 fresh checkout builds it once and later processes reuse it.  A failed
@@ -22,10 +23,10 @@ __all__ = ["library", "build_seconds"]
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC")
+               "-O3", "-Xcompiler", "-fPIC")
 
 _lib = None
-build_seconds = None  # wall seconds of the last nvcc run in this process
+build_seconds = None  # wall seconds of the last build in this process
 
 
 def _sources():
@@ -55,7 +56,45 @@ def _bind(lib):
     lib.mpc_closed_sim.argtypes = [i, i, ctypes.POINTER(vp), d,
                                    ctypes.POINTER(ctypes.c_double), vp]
     lib.mpc_closed_sim.restype = i
+    lib.mpc_closed_sim_band_ptr_count.restype = i
+    lib.mpc_closed_sim_band_dim_count.restype = i
+    lib.mpc_closed_sim_band_max_n.restype = i
+    lib.mpc_closed_sim_band_work_per_lane.argtypes = [d]
+    lib.mpc_closed_sim_band_work_per_lane.restype = ctypes.c_longlong
+    lib.mpc_closed_sim_band.argtypes = [ctypes.POINTER(vp), d,
+                                        ctypes.POINTER(ctypes.c_double), vp]
+    lib.mpc_closed_sim_band.restype = i
     return lib
+
+
+def _compile(srcs, so):
+    """nvcc each source to an object in parallel, then link; raises with
+    nvcc's output on failure."""
+    tmp = so.with_suffix(f".{os.getpid()}.d")
+    tmp.mkdir(parents=True, exist_ok=True)
+    objs, procs = [], []
+    for src in srcs:
+        obj = tmp / (src.stem + ".o")
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+        objs.append(str(obj))
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    lib_tmp = tmp / so.name
+    cmd = [_nvcc(), "-shared", "-o", str(lib_tmp), *objs]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}): "
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(lib_tmp, so)
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def library():
@@ -74,17 +113,9 @@ def library():
     so = _BUILD / f"libmpc_kernels_{h.hexdigest()[:16]}.so"
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in srcs if p.suffix == ".cu"]]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        _compile([p for p in srcs if p.suffix == ".cu"], so)
         build_seconds = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, so)
     _lib = _bind(ctypes.CDLL(str(so)))
     return _lib
 

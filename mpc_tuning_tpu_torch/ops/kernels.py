@@ -1,7 +1,7 @@
 """The port's hand-written Hopper kernels, each beside its plain PyTorch
 version (the counterpart of ``mpc_tuning_tpu/ops/pallas_kernels.py``).
 
-Every public function here is a wrapper:
+Every kernel's public function here is a wrapper:
   * for tensors on the CPU it runs the plain version (the CPU tests use it);
   * for CUDA tensors it checks dtype, shape and contiguity, launches the
     CUDA kernel (ops/csrc/, built by ops/_build.py) on the current stream,
@@ -12,8 +12,9 @@ launch adds to it.
 Layouts follow the JAX package: ``spd_factor`` / ``spd_factor_solve`` take
 the public batch-major (B, n, n) / (B, n) layout; the whole-sim kernels
 take lane-major inputs, the candidate batch B on the last axis
-(``sim/mpc_loop.py`` builds them).  Unlike the TPU kernels, nothing is
-padded to (8, 128) tiles.
+(``sim/mpc_loop.py`` builds them; the band wrapper hands its block-per-lane
+kernel the per-lane inputs batch-major).  Unlike the TPU kernels, nothing
+is padded to (8, 128) tiles.
 """
 
 from __future__ import annotations
@@ -25,9 +26,11 @@ import torch
 from mpc_tuning_tpu_torch.ops import _build
 
 __all__ = ["spd_factor", "spd_factor_solve", "closed_sim_admm",
-           "closed_sim_pdip", "spd_factor_plain", "spd_factor_solve_plain",
-           "closed_sim_admm_plain", "closed_sim_pdip_plain", "reset_launches",
-           "launch_counts"]
+           "closed_sim_pdip", "closed_sim_band", "spd_factor_plain",
+           "spd_factor_solve_plain", "closed_sim_admm_plain",
+           "closed_sim_pdip_plain", "closed_sim_band_plain",
+           "band_envelope", "reset_launches", "launch_counts",
+           "require_device"]
 
 _SIM_TABLES = ("Cpl", "Apl", "Bplu", "C", "Mk", "A", "Bu", "SxF", "SstF",
                "ThT", "Vt")
@@ -38,6 +41,18 @@ _SIM_PTRS = _SIM_TABLES + (
     "Hm", "Y", "U", "work")
 _SIM_DIMS = ("B", "nit", "iters", "ny", "nu", "nxa", "nxp", "pny", "n", "mc",
              "m_max")
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device on a host without one
+    raises (the port's entry points default to the card and never carry on
+    on the CPU unless it is asked for)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain PyTorch versions")
+    return dev
 
 
 def _on_cpu(*ts) -> bool:
@@ -140,7 +155,7 @@ spd_factor_solve.launches = 0
 
 # ------------------------------------------------------- whole-sim loops
 #
-# Shared inputs of both whole-sim kernels (lane-major, B = candidates):
+# Shared inputs of the whole-sim kernels (lane-major, B = candidates):
 #   tables:  Cpl (ny, nxp), Apl (nxp, nxp), Bplu (nxp, nu), C (ny, nxa),
 #            Mk (nxa, ny), A (nxa, nxa), Bu (nxa, nu), SxF (pny, nxa),
 #            SstF (pny, nu), ThT (n, pny), G0 (mc, n), Vt (nv, nit) with
@@ -170,7 +185,8 @@ def _vcols(Vt, k, ny, nxa, nxp):
 
 
 def _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny):
-    """Plant output, Kalman update, weighted tracking error for step k."""
+    """Plant output, Kalman update, free response and weighted tracking
+    error for step k."""
     nxa, nxp = t["A"].shape[0], t["Apl"].shape[0]
     dv, _, _, sv = _vcols(t["Vt"], k, ny, nxa, nxp)
     y = t["Cpl"] @ x_pl
@@ -179,7 +195,7 @@ def _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny):
     free = t["SxF"] @ x_hat + t["SstF"] @ u_prev + sv
     p = t["SxF"].shape[0] // ny
     err = lc["q"] * (r_l[k].repeat(p, 1) - free)
-    return y, x_hat, err
+    return y, x_hat, free, err
 
 
 def _sim_post(t, lc, k, x_hat, x_pl, u_s, ny, u_follow):
@@ -229,7 +245,7 @@ def closed_sim_admm_plain(tables, lane_consts, Minv_t, r_l, nit, iters,
     zc = torch.zeros((mc, B), dtype=r_l.dtype, device=r_l.device)
     yd = torch.zeros_like(zc)
     for k in range(nit):
-        y, x_hat, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
+        y, x_hat, _, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
         Y[k] = y
         fs = -2.0 * (t["ThT"] @ err) * Dinv
         hs = (lc["hbase"] + lc["su"] * _u_rows(u_prev, m_max, mc)) * ev
@@ -261,7 +277,7 @@ def closed_sim_pdip_plain(tables, lane_consts, Hp_t, r_l, nit, iters, dims,
     rmask, cmask = lc["rmask"], lc["cmask"]
     warm = (torch.zeros((n, B), **kw), torch.ones((mc, B), **kw))
     for k in range(nit):
-        y, x_hat, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
+        y, x_hat, _, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
         Y[k] = y
         f = cmask * (-2.0 * (t["ThT"] @ err))
         h = lc["hbase"] + lc["su"] * _u_rows(u_prev, m_max, mc)
@@ -386,7 +402,193 @@ def closed_sim_pdip(tables, lane_consts, Hp_t, r_l, nit, iters, dims):
 
 closed_sim_pdip.launches = 0
 
-_WRAPPERS = (spd_factor, spd_factor_solve, closed_sim_admm, closed_sim_pdip)
+# ------------------------------------------------------- whole band loop
+#
+# Replaces closed_sim_band_lanes / _closed_sim_band_kernel
+# (mpc_tuning_tpu/ops/pallas_kernels.py); see ops/csrc/closed_sim_band.cu
+# for what bounds it and the design.  Inputs as for closed_sim_pdip, with
+# the band lane constants in place of hbase / su: hbu, su (4 m nu, B) for
+# the move and input rows, hbyh, rmyh, hbyl, rmyl (p ny, B) for the band
+# rows (h = hbyh - rmyh * free, hbyl + rmyl * free), cmask2 (n, B) = cmask
+# with the slack masked, lpd (n, B) = diag(H_lp).
+
+
+def closed_sim_band_plain(tables, lane_consts, Hp_t, r_l, nit, lp_iters,
+                          s2_iters, dims, u_follow=None):
+    """Plain version of ``closed_sim_band``: per step the slack seeding,
+    the stage-0 slack LP and the slack-frozen stage 2, each a
+    ``ops/qp.pdip_lanes`` solve with the plain factor and solve; the LP's
+    best (z, lam) is the next step's warm pair.  Returns (Y, U, E)."""
+    from mpc_tuning_tpu_torch.ops.qp import pdip_lanes, seed_slack, split_stage2
+
+    t, lc = tables, lane_consts
+    ny, nu, n, mc, m_max = (dims[k] for k in ("ny", "nu", "n", "mc", "m_max"))
+    B = r_l.shape[2]
+    kw = dict(dtype=r_l.dtype, device=r_l.device)
+    Y, U, x_pl, xhp, u_prev = _sim_state(t, r_l, nu)
+    G0, T2T, rmask, cmask = t["G0"], t["T2T"], lc["rmask"], lc["cmask"]
+    H_lp = torch.diag_embed(lc["lpd"].T).permute(1, 2, 0)
+    f_lp = torch.zeros((n, B), **kw)
+    f_lp[-1] = 1.0
+    plain = dict(factor=spd_factor_plain, solve=spd_factor_solve_plain)
+    zero1 = torch.zeros((1, B), **kw)
+    warm = (torch.zeros((n, B), **kw), torch.ones((mc, B), **kw))
+    E = torch.empty((nit, B), **kw)
+    for k in range(nit):
+        y, x_hat, free, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
+        Y[k] = y
+        f = cmask * (-2.0 * (t["ThT"] @ err))
+        h = torch.cat([lc["hbu"] + lc["su"] * u_prev.repeat(4 * m_max, 1),
+                       lc["hbyh"] - lc["rmyh"] * free,
+                       lc["hbyl"] + lc["rmyl"] * free, zero1])
+        z0, lam0 = seed_slack(*warm, G0, rmask, cmask, h)
+        warm = pdip_lanes(H_lp, f_lp, G0, T2T, rmask, cmask, h, lp_iters,
+                          (z0, lam0), **plain)[:2]
+        h2, _, z2, ehat = split_stage2(warm[0], G0, rmask, cmask, h)
+        E[k] = ehat[0]
+        z = pdip_lanes(Hp_t, f, G0, T2T, rmask, lc["cmask2"], h2, s2_iters,
+                       (z2, warm[1]), **plain)[0]
+        u_s = u_prev + z[:nu]
+        U[k], u_prev, xhp, x_pl = _sim_post(t, lc, k, x_hat, x_pl, u_s, ny,
+                                            u_follow)
+    return Y, U, E
+
+
+_BAND_TABLES = ("Cpl", "Apl", "Bplu", "C", "Mk", "A", "Bu", "SxF", "SstF",
+                "ThT", "Vt")
+_BAND_LANES = ("q", "hbu", "su", "hbyh", "rmyh", "hbyl", "rmyl", "rmask",
+               "cmask", "cmask2", "lpd", "sfy", "sfu")
+# argument order of the C launcher (ops/csrc/closed_sim_band.cu, enum BP_*)
+_BAND_PTRS = _BAND_TABLES + (
+    "s_ptr", "s_col", "s_val", "st_ptr", "st_row", "st_val", "e_ptr", "e_row",
+    "e_coef", "GbT", "scol") + _BAND_LANES + ("Hp", "r", "Y", "U", "E", "work")
+_BAND_DIMS = ("B", "nit", "lp_iters", "s2_iters", "ny", "nu", "nxa", "nxp",
+              "pny", "n", "mc", "nmv")
+BAND_MAX_N = 64  # = kBandMaxN of ops/csrc/closed_sim_band.cu
+
+
+def band_envelope(G0, dims, pny):
+    """The band kernel's envelope, checked before a launch: G0 laid out as
+    [4 m nu move/input rows | p ny y_hi | p ny y_lo | slack], the y_lo rows
+    the negated y_hi rows outside the slack column (true when every output
+    has both bands or neither), and n <= BAND_MAX_N variables.  Raises
+    ValueError outside it; returns the first band row."""
+    n, mc, nu, m_max = dims["n"], dims["mc"], dims["nu"], dims["m_max"]
+    nmv = 4 * m_max * nu
+    if n > BAND_MAX_N:
+        raise ValueError(f"band kernel: n = {n} variables, at most "
+                         f"{BAND_MAX_N} (the kernel's register tiling)")
+    if mc != nmv + 2 * pny + 1 or tuple(G0.shape) != (mc, n):
+        raise ValueError(f"band kernel: G0 {tuple(G0.shape)} is not laid out "
+                         f"as {nmv} move/input rows, 2 x {pny} band rows and "
+                         "a slack row")
+    hi, lo = G0[nmv:nmv + pny, :-1], G0[nmv + pny:nmv + 2 * pny, :-1]
+    if not torch.equal(lo, -hi):
+        raise ValueError("band kernel: the y_lo rows of G0 are not the "
+                         "negated y_hi rows (one-sided output bands)")
+    return nmv
+
+
+def _band_sparse(G0, nmv, pny):
+    """G0 without its band rows as CSR and CSC, and per lower-triangle
+    entry (a, b) of the normal matrix the list of those rows' terms
+    G0[r, a] G0[r, b] (CSR over entries a (a + 1) / 2 + b)."""
+    Gs = G0.clone()
+    Gs[nmv:nmv + 2 * pny] = 0.0
+    n = G0.shape[1]
+    rows = torch.nonzero(Gs.abs().sum(1)).flatten()
+    P = Gs[rows][:, :, None] * Gs[rows][:, None, :]        # (rows, n, n)
+    a_idx, b_idx = torch.tril_indices(n, n, device=G0.device)
+    terms = P[:, a_idx, b_idx].T                           # (entries, rows)
+    nz = terms != 0
+    e_ptr = torch.zeros(terms.shape[0] + 1, dtype=torch.int32,
+                        device=G0.device)
+    e_ptr[1:] = torch.cumsum(nz.sum(1), 0)
+    e_i, r_i = nz.nonzero(as_tuple=True)
+    return (_csr(Gs) + _csr(Gs.T.contiguous())
+            + (e_ptr, rows[r_i].to(torch.int32).contiguous(),
+               terms[e_i, r_i].contiguous()))
+
+
+def closed_sim_band(tables, lane_consts, Hp_t, r_l, nit, lp_iters, s2_iters,
+                    dims):
+    """Whole band closed loop: per step the slack seeding, an `lp_iters`
+    stage-0 slack LP and an `s2_iters` slack-frozen stage-2 PDIP against
+    the per-lane Hessians Hp_t (n, n, B).  Returns (Y, U, E), E (nit, B)
+    each step's frozen ECR slack ehat.  Float64 only: float32 band loops
+    leave the hard input bounds (PERF.md), so float32 inputs raise."""
+    if r_l.dtype != torch.float64:
+        raise ValueError(f"closed_sim_band runs at float64 only, got "
+                         f"{r_l.dtype}: float32 band loops leave the hard "
+                         "input bounds")
+    if _on_cpu(r_l, Hp_t):
+        return closed_sim_band_plain(tables, lane_consts, Hp_t, r_l, nit,
+                                     lp_iters, s2_iters, dims)
+    from mpc_tuning_tpu_torch.ops.qp import (WS_EPS, pdip_constants,
+                                             split_margins)
+
+    t, lc = tables, lane_consts
+    ny, nu, n, mc, m_max = (dims[k] for k in ("ny", "nu", "n", "mc", "m_max"))
+    dtype = torch.float64
+    B = r_l.shape[2]
+    nxa, nxp = t["A"].shape[0], t["Apl"].shape[0]
+    pny = t["SxF"].shape[0]
+    nmv = band_envelope(t["G0"], dims, pny)
+    shapes = {
+        "Cpl": (ny, nxp), "Apl": (nxp, nxp), "Bplu": (nxp, nu), "C": (ny, nxa),
+        "Mk": (nxa, ny), "A": (nxa, nxa), "Bu": (nxa, nu), "SxF": (pny, nxa),
+        "SstF": (pny, nu), "ThT": (n, pny), "Vt": (ny + nxa + nxp + pny, nit),
+        "G0": (mc, n)}
+    for k, shp in shapes.items():
+        _require(t[k], shp, dtype, k)
+    rows = dict(q=pny, hbu=nmv, su=nmv, hbyh=pny, rmyh=pny, hbyl=pny,
+                rmyl=pny, rmask=mc, cmask=n, cmask2=n, lpd=n, sfy=ny, sfu=nu)
+    for k, nr in rows.items():
+        _require(lc[k], (nr, B), dtype, k)
+    _require(Hp_t, (n, n, B), dtype, "Hp")
+    _require(r_l, (nit, ny, B), dtype, "r_l")
+
+    lib = _build.library()
+    if (lib.mpc_closed_sim_band_ptr_count() != len(_BAND_PTRS)
+            or lib.mpc_closed_sim_band_dim_count() != len(_BAND_DIMS)
+            or lib.mpc_closed_sim_band_max_n() != BAND_MAX_N):
+        raise RuntimeError("closed_sim_band argument layout mismatch")
+    G0 = t["G0"]
+    sparse = dict(zip(("s_ptr", "s_col", "s_val", "st_ptr", "st_row", "st_val",
+                       "e_ptr", "e_row", "e_coef"),
+                      _band_sparse(G0, nmv, pny)))
+    dim_vals = dict(B=B, nit=nit, lp_iters=lp_iters, s2_iters=s2_iters, ny=ny,
+                    nu=nu, nxa=nxa, nxp=nxp, pny=pny, n=n, mc=mc, nmv=nmv)
+    dims_c = (ctypes.c_int * len(_BAND_DIMS))(*[dim_vals[k] for k in _BAND_DIMS])
+    per_lane = lib.mpc_closed_sim_band_work_per_lane(dims_c)
+    kw = dict(dtype=dtype, device=r_l.device)
+    Y = torch.empty((nit, ny, B), **kw)
+    U = torch.empty((nit, nu, B), **kw)
+    E = torch.empty((nit, B), **kw)
+    bufs = dict({k: t[k] for k in _BAND_TABLES}, **sparse,
+                GbT=G0[nmv:nmv + pny, :-1].T.contiguous(),
+                scol=G0[:, -1].contiguous(),
+                Hp=Hp_t.permute(2, 0, 1).contiguous(), r=r_l, Y=Y, U=U, E=E,
+                work=torch.empty((max(per_lane, 1) * B,), **kw))
+    bufs.update({k: lc[k].T.contiguous() for k in _BAND_LANES})
+    for k, v in bufs.items():
+        if v.device != r_l.device:
+            raise ValueError(f"{k}: on {v.device}, expected {r_l.device}")
+    ptrs = (ctypes.c_void_p * len(_BAND_PTRS))(
+        *[bufs[k].data_ptr() if bufs[k].numel() else None for k in _BAND_PTRS])
+    ridge, w_cap = pdip_constants(dtype)
+    m_rel, m_abs = split_margins(dtype)
+    scal_c = (ctypes.c_double * 5)(WS_EPS, ridge, w_cap, m_rel, m_abs)
+    _build.check(lib.mpc_closed_sim_band(ptrs, dims_c, scal_c, _stream(r_l)),
+                 "closed_sim_band")
+    closed_sim_band.launches += 1
+    return Y, U, E
+
+
+closed_sim_band.launches = 0
+
+_WRAPPERS = (spd_factor, spd_factor_solve, closed_sim_admm, closed_sim_pdip,
+             closed_sim_band)
 
 
 def reset_launches():

@@ -167,8 +167,7 @@ def pin_precision():
     torch.set_float32_matmul_precision("highest")
 
 
-def controller_arrays(ctl: MPCController, dtype=torch.float64,
-                      device="cpu") -> dict:
+def controller_arrays(ctl: MPCController, dtype, device) -> dict:
     """Device-ready constant dict (the JAX ``controller_arrays`` keys)."""
     spec = ctl.spec
 
@@ -229,16 +228,16 @@ def controller_arrays(ctl: MPCController, dtype=torch.float64,
 
 
 def assemble_candidate(c: dict, N, Nu, delta, lam, p_max: int, m_max: int,
-                       ny: int, nu: int, rho_eps: float):
+                       ny: int, nu: int, rho_eps: float, with_y: bool = False):
     """Per-candidate QP data for a batch.
 
     N, Nu: (B,) integer tensors (shared horizon maxima per candidate, as the
     reference applies max(N)/max(Nu), closedloop_toolbox.m:39-43); delta
     (B, ny), lam (B, nu).  Returns a dict of (B, ...) tensors: H (n, n),
-    G (mc, n), QTheta (p_max*ny, m_max*nu), the masks and the ADMM
-    precompute.  Tracking cases only: the y-constrained (band) rows and
-    the band stage-0 LP fields (H_lp, f_lp) are not ported, and
-    MPCLoop raises for such cases before it gets here.
+    G (mc, n), QTheta (p_max*ny, m_max*nu), the masks, the stage-0 slack
+    LP of the band solve (H_lp, f_lp) and, for tracking cases, the ADMM
+    precompute.  ``with_y`` adds the soft output-band rows (band cases;
+    they never run ADMM, so the precompute is skipped for them).
     """
     from mpc_tuning_tpu_torch.ops.qp import admm_precompute
 
@@ -272,35 +271,61 @@ def assemble_candidate(c: dict, N, Nu, delta, lam, p_max: int, m_max: int,
     I_du = torch.eye(m_max * nu, dtype=dtype, device=dev).expand(B, -1, -1)
     Tcum = c["Tcum"][None] * cmask_flat[:, None, :]
     zero_col = torch.zeros((B, m_max * nu, 1), dtype=dtype, device=dev)
-    eps_row = torch.zeros((B, 1, n), dtype=dtype, device=dev)
-    eps_row[:, 0, -1] = -1.0
-    G = torch.cat([
+    blocks = [
         torch.cat([I_du, zero_col], 2) * en_du_hi[:, :, None],    # du <= dumax
         torch.cat([-I_du, zero_col], 2) * en_du_lo[:, :, None],   # -du <= -dumin
         torch.cat([Tcum, zero_col], 2) * en_u_hi[:, :, None],     # u <= umax
         torch.cat([-Tcum, zero_col], 2) * en_u_lo[:, :, None],    # -u <= -umin
-        eps_row,                                                 # -eps <= 0
-    ], dim=1)
+    ]
+    one = torch.ones((B, 1), dtype=dtype, device=dev)
+    rparts = [cmask_flat] * 4
+    if with_y:
+        # soft bands  y <= ymax + eps*Vmax,  -y <= -ymin + eps*Vmin
+        rm_rep = row_mask.repeat_interleave(ny, dim=1)           # (B, p*ny)
+        en_y_hi = (rm_rep * c["en_y_hi"].repeat(p_max))[:, :, None]
+        en_y_lo = (rm_rep * c["en_y_lo"].repeat(p_max))[:, :, None]
+        vmax_col = c["vymax"].repeat(p_max)[None, :, None].expand(B, -1, 1)
+        vmin_col = c["vymin"].repeat(p_max)[None, :, None].expand(B, -1, 1)
+        blocks.append(torch.cat([Theta, -vmax_col], 2) * en_y_hi)
+        blocks.append(torch.cat([-Theta, -vmin_col], 2) * en_y_lo)
+        rparts += [rm_rep] * 2
+    eps_row = torch.zeros((B, 1, n), dtype=dtype, device=dev)
+    eps_row[:, 0, -1] = -1.0
+    blocks.append(eps_row)                                       # -eps <= 0
+    G = torch.cat(blocks, dim=1)
 
     # masks of the shared-G0 structured solver: G == diag(rmask) G0
     # diag(cmask_z) exactly
-    one = torch.ones((B, 1), dtype=dtype, device=dev)
-    rmask = torch.cat([cmask_flat] * 4 + [one], dim=1)
+    rmask = torch.cat(rparts + [one], dim=1)
     cmask_z = torch.cat([cmask_flat, one], dim=1)
 
-    admm = admm_precompute(H, G, cmask=cmask_z)
+    # Stage-0 slack LP of the band solve: minimize eps + (sigma/2)||du||^2
+    # over the same constraint set (the JAX package's assemble_candidate
+    # notes).  sigma sits at the precision's noise floor: it biases the
+    # LP's du by ~sigma, and 1e-6 clears the band oracle's 1e-6 gate at f64.
+    sigma_lp = 1e-6 if dtype == torch.float64 else 1e-4
+    sig = torch.full((B, 1), sigma_lp, dtype=dtype, device=dev)
+    lp_diag = torch.cat([2.0 * (sigma_lp * cmask_flat + (1.0 - cmask_flat)),
+                         2.0 * sig], dim=1)
+    f_lp = torch.zeros((B, n), dtype=dtype, device=dev)
+    f_lp[:, -1] = 1.0
 
-    return {
-        "admm": admm, "H": H, "G": G, "Theta": Theta, "QTheta": QTheta,
+    out = {
+        "H_lp": torch.diag_embed(lp_diag), "f_lp": f_lp,
+        "H": H, "G": G, "Theta": Theta, "QTheta": QTheta,
         "row_mask": row_mask, "col_mask": col_mask,
         "cmask_flat": cmask_flat, "rmask": rmask, "cmask_z": cmask_z,
         "en_du_hi": en_du_hi, "en_du_lo": en_du_lo,
         "en_u_hi": en_u_hi, "en_u_lo": en_u_lo,
     }
+    if not with_y:
+        out["admm"] = admm_precompute(H, G, cmask=cmask_z)
+    return out
 
 
 def qp_step_data(c: dict, cand: dict, x_hat, u_prev, r_s, v_s,
-                 p_max: int, m_max: int, ny: int, nu: int):
+                 p_max: int, m_max: int, ny: int, nu: int,
+                 with_y: bool = False):
     """Per-timestep QP linear term f (B, n) and rhs h (B, mc) for a batch:
     x_hat (B, nxa), u_prev (B, nu), r_s (B, ny), v_s (nd,) shared.
 
@@ -317,13 +342,19 @@ def qp_step_data(c: dict, cand: dict, x_hat, u_prev, r_s, v_s,
     zero = torch.zeros((B, 1), dtype=dtype, device=x_hat.device)
     f = torch.cat([f_du, zero], dim=1)
 
-    h = torch.cat([
+    h = [
         c["dumax"].repeat(m_max) * cand["en_du_hi"] + (1.0 - cand["en_du_hi"]),
         -c["dumin"].repeat(m_max) * cand["en_du_lo"] + (1.0 - cand["en_du_lo"]),
         (c["umax"][None] - u_prev).repeat(1, m_max) * cand["en_u_hi"]
         + (1.0 - cand["en_u_hi"]),
         (u_prev - c["umin"][None]).repeat(1, m_max) * cand["en_u_lo"]
         + (1.0 - cand["en_u_lo"]),
-        zero,
-    ], dim=1)
-    return f, h, free
+    ]
+    if with_y:
+        rm_rep = cand["row_mask"].repeat_interleave(ny, dim=1)
+        rm_hi = rm_rep * c["en_y_hi"].repeat(p_max)
+        rm_lo = rm_rep * c["en_y_lo"].repeat(p_max)
+        free_flat = free.reshape(B, -1)
+        h.append((c["ymax"].repeat(p_max) - free_flat) * rm_hi + (1.0 - rm_hi))
+        h.append((free_flat - c["ymin"].repeat(p_max)) * rm_lo + (1.0 - rm_lo))
+    return f, torch.cat(h + [zero], dim=1), free

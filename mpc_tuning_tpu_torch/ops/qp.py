@@ -11,6 +11,9 @@ the JAX package's ``ops/qp.py``.
   which the whole-sim plain version also runs at every step.  The
   reduced-system Cholesky factor and solves go through the hand-written
   ``spd_factor`` / ``spd_factor_solve`` kernels (ops/kernels.py).
+* ``seed_slack`` / ``split_stage2`` — the band cases' eps-split around
+  two ``pdip_lanes`` solves: the stage-0 slack LP's warm start and the
+  slack-frozen stage 2.
 * ``admm_precompute`` — per-candidate equilibration and the inverse
   Minv = (Hs + sigma I + rho Gs'Gs)^{-1} that the whole-sim ADMM kernel
   reuses at every step.
@@ -27,7 +30,8 @@ import torch
 from mpc_tuning_tpu_torch.ops.kernels import spd_factor, spd_factor_solve
 
 __all__ = ["solve_qp_masked", "pdip_lanes", "admm_precompute", "WS_EPS",
-           "pdip_constants"]
+           "pdip_constants", "seed_slack", "split_margins",
+           "split_stage2"]
 
 # warm-start re-centering: slacks/duals are floored at WS_EPS so a stale
 # active set cannot start the Newton iteration nearly singular
@@ -153,6 +157,57 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
     take = residuals(z, lam, s)[3] < mb
     return (torch.where(take, z, zb), torch.where(take, lam, lamb),
             torch.where(take, s, sb))
+
+
+# The band solve's slack seeding and stage-2 set-up (the JAX package's
+# sim/mpc_loop _seed_slack and _eps_split_stage2), lane-major: constraint
+# rows or variables on axis 0, the candidate batch on axis 1.
+
+
+def _slack_violation(z, G0, rmask, cmask, h):
+    """(1, B): each lane's largest soft-row violation G z - h per unit of
+    its ECR slack coefficient (NaN propagates, as jnp.max does)."""
+    viol = torch.clamp_min(rmask * (G0 @ (cmask * z)) - h, 0.0)
+    V = torch.clamp_min(-G0[:, -1:], 0.0)
+    ratio = torch.where(V > 1e-12, viol / torch.clamp_min(V, 1e-12), 0.0)
+    return ratio.amax(0, keepdim=True)
+
+
+def seed_slack(z, lam, G0, rmask, cmask, h):
+    """Warm start of the stage-0 slack LP: raise the carried slack to this
+    step's own violation level and cold-restart the duals of lanes whose
+    slack scale jumped (a disturbance entry moves the optimal slack
+    discontinuously; a warm interior point spends ~30 iterations escaping
+    the stale scale)."""
+    extra = _slack_violation(z, G0, rmask, cmask, h)
+    eps_w = torch.clamp_min(z[-1:], 0.0)
+    z = torch.cat([z[:-1], eps_w + extra + 1e-6])
+    jumped = extra > 1e-3 * (1.0 + eps_w)
+    return z, torch.where(jumped, torch.ones_like(lam), lam)
+
+
+def split_margins(dtype):
+    """(relative, absolute) feasibility margin of the frozen slack."""
+    return (1e-9, 1e-11) if dtype == torch.float64 else (1e-6, 1e-8)
+
+
+def split_stage2(z1, G0, rmask, cmask, h):
+    """Stage 2 of the eps-split band solve: (h2, cmask2, z start, ehat).  The
+    slack is frozen at ehat = stage-0 slack + its residual soft-row
+    violation + a margin at the precision's noise floor, folded into the
+    rhs through G0's slack column, and masked out as a variable; so the
+    stage-0 point is feasible for stage 2 by construction.  The margin
+    feeds the frozen band rows' rhs directly, so it is the stage-2 du
+    error floor (1e-9 relative clears the band oracle's gate at f64).
+    No dual-based slack refinement: the JAX package records it as a dead
+    end (non-unique duals on the degenerate band steps)."""
+    extra = _slack_violation(z1, G0, rmask, cmask, h)
+    m_rel, m_abs = split_margins(z1.dtype)
+    ehat = (torch.clamp_min(z1[-1:], 0.0) + extra) * (1.0 + m_rel) + m_abs
+    h2 = h - G0[:, -1:] * rmask * ehat
+    cmask2 = torch.cat([cmask[:-1], torch.zeros_like(cmask[-1:])])
+    z2 = torch.cat([z1[:-1], torch.zeros_like(z1[-1:])])
+    return h2, cmask2, z2, ehat
 
 
 def admm_precompute(H, G, sigma: float = 1e-6, cmask=None):

@@ -4,12 +4,19 @@ the JAX package's ``sim/mpc_loop.py``).
 * closed loop = per step [Kalman update -> condensed QP -> first move ->
   plant step] (the reference's toolbox ``sim(mpcobj, nit, r, v)``,
   MPC-Tuning/MPC_Tuning/closedloop_toolbox.m:50), run for a whole candidate
-  batch by one of two whole-sim engines:
+  batch by one of three whole-sim engines:
     'admm_sim' — warm equilibrated ADMM per step (ops/kernels.closed_sim_admm);
     'pdip_sim' — warm masked Mehrotra PDIP per step
                  (ops/kernels.closed_sim_pdip);
+    'band_sim' — the band (y-constrained) cases' eps-split solve per step:
+                 slack seeding, a BAND_LP_ITERS stage-0 slack LP, then a
+                 BAND_S2_ITERS slack-frozen stage-2 PDIP (the JAX package's
+                 '+lp20+split12'; ops/kernels.closed_sim_band).
+  Tracking cases run 'admm_sim' or 'pdip_sim', band cases only 'band_sim'
+  and only at float64; any other pairing raises.
 * open loop = solve the QP once from rest with the final setpoint and play
-  the optimal sequence through the model (closedloop_toolbox.m:83-100).
+  the optimal sequence through the model (closedloop_toolbox.m:83-100); band
+  cases solve it as the cold slack LP plus a stage 2 of ``qp_iters``.
 
 All signals are in CONDITIONED units.  Candidates form the leading batch
 axis; each batch runs at the smallest capacity bucket covering its
@@ -24,7 +31,8 @@ import numpy as np
 import torch
 
 from mpc_tuning_tpu_torch.models.lti import DiscreteSS
-from mpc_tuning_tpu_torch.ops.kernels import closed_sim_admm, closed_sim_pdip
+from mpc_tuning_tpu_torch.ops.kernels import (closed_sim_admm, closed_sim_band,
+                                              closed_sim_pdip, require_device)
 from mpc_tuning_tpu_torch.ops.mpc_qp import (
     MPCController,
     assemble_candidate,
@@ -32,11 +40,16 @@ from mpc_tuning_tpu_torch.ops.mpc_qp import (
     pin_precision,
     qp_step_data,
 )
-from mpc_tuning_tpu_torch.ops.qp import solve_qp_masked
+from mpc_tuning_tpu_torch.ops.qp import solve_qp_masked, split_stage2
 
-__all__ = ["MPCLoop", "horizon_caps", "ENGINES", "sim_inputs", "run_whole_sim"]
+__all__ = ["MPCLoop", "horizon_caps", "ENGINES", "sim_inputs", "run_whole_sim",
+           "BAND_LP_ITERS", "BAND_S2_ITERS", "require_band_dtype"]
 
-ENGINES = ("admm_sim", "pdip_sim")
+ENGINES = ("admm_sim", "pdip_sim", "band_sim")
+
+# iteration counts of the band engine's two stages (JAX '+lp20+split12')
+BAND_LP_ITERS = 20
+BAND_S2_ITERS = 12
 
 # Capacity buckets: a candidate batch whose horizons all fit (p_cap, m_cap)
 # is simulated with the controller tensors SLICED to that capacity — the
@@ -44,6 +57,16 @@ ENGINES = ("admm_sim", "pdip_sim")
 # result is unchanged while the per-step QP cost scales with the bucket.
 _P_BUCKETS = (8, 16, 32, 48, 64, 96)
 _M_BUCKETS = (2, 4, 8)
+
+
+def require_band_dtype(dtype):
+    """Band (y-constrained) cases run at float64 only, where the JAX
+    package takes its band decisions: float32 band loops leave the hard
+    input bounds on some candidates.  Raises for any other dtype."""
+    if dtype != torch.float64:
+        raise ValueError(f"band (y-constrained) cases run at float64 only, "
+                         f"got {dtype}: float32 band loops leave the hard "
+                         "input bounds")
 
 
 def horizon_caps(p_max, m_max, N_b, Nu_b):
@@ -103,7 +126,8 @@ class MPCLoop:
             self._cap_cache[key] = hit
         return hit
 
-    def arrays(self, dtype=torch.float64, device="cpu"):
+    def arrays(self, dtype=torch.float64, device="cuda"):
+        require_device(device)
         c = controller_arrays(self.ctl, dtype, device)
         mss = self.ctl.spec.model  # conditioned internal model (playback)
         for key, arr in (("A_pl", self.plant_ss.A), ("B_pl", self.plant_ss.B),
@@ -115,11 +139,10 @@ class MPCLoop:
 
     def _batch(self, N_b, Nu_b, caps, dtype, device, *vals):
         """Capped loop, its arrays and the batch as device tensors."""
-        if self.ctl.spec.has_y_constraints:
-            raise NotImplementedError(
-                "y-constrained (band) cases are not ported yet")
         pin_precision()
         s = self.ctl.spec
+        if s.has_y_constraints:
+            require_band_dtype(dtype)
         if caps is None:
             caps = horizon_caps(s.p_max, s.m_max, N_b, Nu_b)
         loop = self.capped(*caps)
@@ -132,11 +155,18 @@ class MPCLoop:
 
     # ------------------------------------------------- batched tuning API
     def sim_inputs(self, r_b, v, N_b, Nu_b, delta_b, lam_b, nit, dtype,
-                   engine: str = "pdip_sim", device="cpu", caps=None):
+                   engine: str = "pdip_sim", device="cuda", caps=None):
         """Inputs of the whole-sim kernel of ``engine`` for a candidate
         batch: (tables, lane_consts, Minv_t or Hp_t, r_l, dims)."""
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
+        band = self.ctl.spec.has_y_constraints
+        if band != (engine == "band_sim"):
+            raise ValueError(
+                f"engine {engine!r} does not run "
+                f"{'y-constrained (band)' if band else 'tracking'} cases: "
+                "band cases run 'band_sim' only (the joint PDIP stalls on "
+                "band steps), tracking cases 'admm_sim' or 'pdip_sim'")
         loop, c, N_t, Nu_t, (r_t, v_t, d_t, l_t) = self._batch(
             N_b, Nu_b, caps, dtype, device, np.asarray(r_b)[:, :nit],
             np.asarray(v)[:nit], delta_b, lam_b)
@@ -145,18 +175,19 @@ class MPCLoop:
                           d["p_max"], d["m_max"], d["ny"], d["nu"], d["rho"])
 
     def closed_batch(self, r_b, v, N_b, Nu_b, delta_b, lam_b, nit, dtype,
-                     qp_iters, engine: str = "pdip_sim", device="cpu",
+                     qp_iters, engine: str = "pdip_sim", device="cuda",
                      caps=None):
         """Closed loops of a candidate batch: r_b (B, nit, ny), v (nit, nd),
         N_b / Nu_b (B,), delta_b (B, ny), lam_b (B, nu).  ``qp_iters`` is
-        the engine's iteration count (ADMM or PDIP).  Returns (Y (B, nit,
-        ny), U (B, nit, nu)) tensors on ``device``."""
+        the engine's iteration count (ADMM or PDIP; 'band_sim' runs its
+        fixed BAND_LP_ITERS + BAND_S2_ITERS).  Returns (Y (B, nit, ny),
+        U (B, nit, nu)) tensors on ``device``."""
         inputs = self.sim_inputs(r_b, v, N_b, Nu_b, delta_b, lam_b, nit,
                                  dtype, engine, device, caps)
         return run_whole_sim(engine, *inputs, qp_iters)
 
     def open_batch(self, rfin_b, v, N_b, Nu_b, delta_b, lam_b, nit, dtype,
-                   qp_iters, device="cpu", caps=None):
+                   qp_iters, device="cuda", caps=None):
         """Open-loop playback of a candidate batch: rfin_b (B, ny) final
         setpoints.  Returns (Y (B, nit, ny), U (B, nit, nu)) tensors."""
         v = np.asarray(v)
@@ -166,11 +197,11 @@ class MPCLoop:
         d = loop.dims
         return open_loop_batch(c, r_t, vf_t, v_t, N_t, Nu_t, d_t, l_t,
                                d["p_max"], d["m_max"], d["ny"], d["nu"],
-                               d["rho"], qp_iters)
+                               d["rho"], qp_iters, d["with_y"])
 
     # -------------------------------------------------------------- API
     def simulate(self, r, v, nit, N, Nu, delta, lam, dtype=torch.float64,
-                 qp_iters: int = 30, engine: str = "pdip_sim", device="cpu"):
+                 qp_iters: int = 30, engine: str = "pdip_sim", device="cuda"):
         """Closed loop of one candidate (a B = 1 ``closed_batch``).
         Returns (y, u) conditioned NumPy arrays (nit, ny), (nit, nu)."""
         Y, U = self.closed_batch(
@@ -179,7 +210,7 @@ class MPCLoop:
         return Y[0].cpu().numpy(), U[0].cpu().numpy()
 
     def open_loop(self, r_final, v, nit, N, Nu, delta, lam,
-                  dtype=torch.float64, qp_iters: int = 30, device="cpu"):
+                  dtype=torch.float64, qp_iters: int = 30, device="cuda"):
         """Single-shot optimal sequence from rest played through the model
         (a B = 1 ``open_batch``).  Returns (ys, uopt) NumPy arrays."""
         Y, U = self.open_batch(
@@ -192,14 +223,15 @@ class MPCLoop:
 
 
 def open_loop_batch(c, r_final, v_final, v_traj, N, Nu, delta, lam,
-                    p_max, m_max, ny, nu, rho, qp_iters):
+                    p_max, m_max, ny, nu, rho, qp_iters, with_y):
     """From rest (all case setpoints are zero at k=0): one cold masked PDIP
-    per candidate, the optimal du sequence held after the control horizon
-    and played through the conditioned model."""
+    per candidate (band cases: a cold BAND_LP_ITERS slack LP, then the
+    slack-frozen stage 2 of ``qp_iters``), the optimal du sequence held
+    after the control horizon and played through the conditioned model."""
     dtype, dev = r_final.dtype, r_final.device
     B = r_final.shape[0]
     cand = assemble_candidate(c, N, Nu, delta, lam, p_max, m_max, ny, nu,
-                              rho)
+                              rho, with_y)
     nxa = c["A"].shape[0]
     nit = v_traj.shape[0]
     nd = v_traj.shape[1]
@@ -208,9 +240,18 @@ def open_loop_batch(c, r_final, v_final, v_traj, N, Nu, delta, lam,
     r_s = r_final / c["sf_y"]
     v_s = v_final / c["sf_v"] if nd else v_final
     f, h, _ = qp_step_data(c, cand, x_hat, u_prev, r_s, v_s, p_max, m_max,
-                           ny, nu)
-    z, _, _ = solve_qp_masked(cand["H"], f, c["G0"], c["T2"], cand["rmask"],
-                              cand["cmask_z"], h, iters=qp_iters)
+                           ny, nu, with_y)
+    G0, T2, rmask, cmask = c["G0"], c["T2"], cand["rmask"], cand["cmask_z"]
+    if with_y:
+        z1, lam1, _ = solve_qp_masked(cand["H_lp"], cand["f_lp"], G0, T2,
+                                      rmask, cmask, h, iters=BAND_LP_ITERS)
+        h2, cmask2, z2, _ = split_stage2(z1.T, G0, rmask.T, cmask.T, h.T)
+        z, _, _ = solve_qp_masked(cand["H"], f, G0, T2, rmask, cmask2.T,
+                                  h2.T, iters=qp_iters,
+                                  init=(z2.T, lam1, None))
+    else:
+        z, _, _ = solve_qp_masked(cand["H"], f, G0, T2, rmask, cmask, h,
+                                  iters=qp_iters)
     du_seq = (z[:, :-1] * cand["cmask_flat"]).reshape(B, m_max, nu)
     u_seq = torch.cumsum(du_seq, dim=1) * c["sf_u"]
     idx = torch.clamp(torch.arange(nit, device=dev), 0, m_max - 1)
@@ -230,17 +271,18 @@ def sim_inputs(engine, c, r_b, v, N_b, Nu_b, delta_b, lam_b, p_max, m_max,
                ny, nu, rho):
     """Shared tables, lane constants, per-lane matrices and scaled
     setpoints of the whole-sim kernel of ``engine`` (the table-building
-    half of the JAX wrappers _closed_sim_fused_body /
-    closed_loop_batch_sim_pdip, without the TPU tile padding).  Returns
-    (tables, lane_consts, Minv_t or Hp_t (n, n, B), r_l (nit, ny, B),
-    dims)."""
+    half of the JAX wrappers _closed_sim_fused_body,
+    closed_loop_batch_sim_pdip and closed_loop_batch_sim_band, without the
+    TPU tile padding).  Returns (tables, lane_consts, Minv_t or Hp_t
+    (n, n, B), r_l (nit, ny, B), dims)."""
     dtype, dev = r_b.dtype, r_b.device
     B, nit = r_b.shape[:2]
     n = m_max * nu + 1
     pny = p_max * ny
     kw = dict(dtype=dtype, device=dev)
+    band = engine == "band_sim"
     cand = assemble_candidate(c, N_b, Nu_b, delta_b, lam_b, p_max, m_max, ny,
-                              nu, rho)
+                              nu, rho, band)
 
     def lanes(x):  # (B, rows) -> lane-major (rows, B)
         return x.T.contiguous()
@@ -251,16 +293,35 @@ def sim_inputs(engine, c, r_b, v, N_b, Nu_b, delta_b, lam_b, p_max, m_max,
     h2 = -cand["en_du_lo"] * c["dumin"].repeat(m_max) + (1.0 - cand["en_du_lo"])
     h3 = cand["en_u_hi"] * c["umax"].repeat(m_max) + (1.0 - cand["en_u_hi"])
     h4 = -cand["en_u_lo"] * c["umin"].repeat(m_max) + (1.0 - cand["en_u_lo"])
-    zero1 = torch.zeros((B, 1), **kw)
     zeros_mu = torch.zeros_like(h1)
+    hbu = torch.cat([h1, h2, h3, h4], dim=1)
+    su = torch.cat([zeros_mu, zeros_mu, -cand["en_u_hi"], cand["en_u_lo"]],
+                   dim=1)
     lc = {
         "q": lanes(q_b),
-        "hbase": lanes(torch.cat([h1, h2, h3, h4, zero1], dim=1)),
-        "su": lanes(torch.cat([zeros_mu, zeros_mu, -cand["en_u_hi"],
-                               cand["en_u_lo"], zero1], dim=1)),
         "sfy": c["sf_y"][:, None].expand(ny, B).contiguous(),
         "sfu": c["sf_u"][:, None].expand(nu, B).contiguous(),
     }
+    if band:
+        # band rows' rhs: hb - rm * free (y_hi) and hb + rm * free (y_lo),
+        # the enable masks and ymax / ymin tiles folded into hb
+        rm_rep = cand["row_mask"].repeat_interleave(ny, dim=1)
+        rmyh = rm_rep * c["en_y_hi"].repeat(p_max)
+        rmyl = rm_rep * c["en_y_lo"].repeat(p_max)
+        cmask2 = cand["cmask_z"].clone()
+        cmask2[:, -1] = 0.0
+        lc.update(
+            hbu=lanes(hbu), su=lanes(su),
+            hbyh=lanes(rmyh * c["ymax"].repeat(p_max) + (1.0 - rmyh)),
+            rmyh=lanes(rmyh),
+            hbyl=lanes(-rmyl * c["ymin"].repeat(p_max) + (1.0 - rmyl)),
+            rmyl=lanes(rmyl),
+            cmask2=lanes(cmask2),
+            lpd=lanes(torch.diagonal(cand["H_lp"], dim1=1, dim2=2)))
+    else:
+        zero1 = torch.zeros((B, 1), **kw)
+        lc.update(hbase=lanes(torch.cat([hbu, zero1], dim=1)),
+                  su=lanes(torch.cat([su, zero1], dim=1)))
 
     # shared tables; per-step v-dependent columns packed into Vt (nv, nit)
     nd = v.shape[1]
@@ -305,13 +366,20 @@ def run_whole_sim(engine, tables, lane_consts, Hm, r_l, dims, qp_iters):
                    (sigma 1e-6, over-relaxation 1.6) against Minv_t;
       'pdip_sim' — a warm-started masked PDIP of `qp_iters` iterations per
                    step against Hp_t; the best iterate (z, lam) is the next
-                   step's warm pair.
+                   step's warm pair;
+      'band_sim' — the eps-split band solve per step (BAND_LP_ITERS,
+                   BAND_S2_ITERS; `qp_iters` unused); the stage-0 LP's
+                   (z, lam) is the next step's warm pair.
     Returns (Y (B, nit, ny), U (B, nit, nu))."""
     nit = r_l.shape[0]
     if engine == "admm_sim":
         Y, U = closed_sim_admm(tables, lane_consts, Hm, r_l, nit=nit,
                                iters=qp_iters, sigma=1e-6, over_relax=1.6,
                                dims=dims)
+    elif engine == "band_sim":
+        Y, U, _ = closed_sim_band(tables, lane_consts, Hm, r_l, nit=nit,
+                                  lp_iters=BAND_LP_ITERS,
+                                  s2_iters=BAND_S2_ITERS, dims=dims)
     else:
         Y, U = closed_sim_pdip(tables, lane_consts, Hm, r_l, nit=nit,
                                iters=qp_iters, dims=dims)

@@ -25,6 +25,7 @@ import torch
 
 from mpc_tuning_tpu_torch.models.lti import TransferFunction
 from mpc_tuning_tpu_torch.ops.condmin import condmin
+from mpc_tuning_tpu_torch.ops.kernels import require_device
 from mpc_tuning_tpu_torch.ops.mpc_qp import MPCSpec, build_controller, pin_precision
 from mpc_tuning_tpu_torch.sim.mpc_loop import MPCLoop
 from mpc_tuning_tpu_torch.tuning.gam import gam_solve
@@ -100,11 +101,13 @@ def _condition_case(case: LinearCase):
 
 
 def build_problem(case: LinearCase, dtype=torch.float64, qp_iters: int = 30,
-                  L=None, R=None, device="cpu", mesh=None):
+                  L=None, R=None, device="cuda", mesh=None):
     """Condition + assemble the TuningProblem (device-side evaluators).
 
-    ``device`` is where every candidate evaluation runs ("cpu" or "cuda").
+    ``device`` is where every candidate evaluation runs: the card by
+    default (a host without one raises), "cpu" for the plain versions.
     ``mesh`` (candidate sharding over devices) is not ported."""
+    require_device(device)
     if mesh is not None:
         raise NotImplementedError("candidate sharding (mesh) is not ported")
     if L is None or R is None:
@@ -455,14 +458,16 @@ def mpc_tuning(
     R=None,
     state_path: str | None = None,
     resume: bool = False,
-    device="cpu",
+    device="cuda",
     mesh=None,
 ) -> TuningResult:
     """The hybrid tune of one linear case.
 
-    ``device``: where every candidate evaluation runs — CPU tensors take
-    the kernels' plain versions, CUDA tensors the hand-written kernels.
-    ``dtype``: float64 is the decision-grade path; float32 the speed path.
+    ``device``: where every candidate evaluation runs — the card by
+    default, through the hand-written kernels (a host without one raises);
+    "cpu" takes the kernels' plain versions.
+    ``dtype``: float64 is the decision-grade path; float32 the speed path
+    of tracking cases (band cases run at float64 only and raise at float32).
     L/R override pins the conditioning scale (e.g. the reference's
     committed L/R for frame-identical tuning-outcome parity runs).
 

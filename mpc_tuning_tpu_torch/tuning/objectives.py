@@ -25,31 +25,39 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpc_tuning_tpu_torch.sim.mpc_loop import ENGINES, MPCLoop, horizon_caps
+from mpc_tuning_tpu_torch.ops.kernels import require_device
+from mpc_tuning_tpu_torch.sim.mpc_loop import (ENGINES, MPCLoop, horizon_caps,
+                                               require_band_dtype)
 
 __all__ = ["TuningProblem", "gam_sse_batch", "vns_objective_batch",
            "resolve_qp_method"]
 
 
-def resolve_qp_method(method: str, stage: str = "gam",
-                      f64: bool = False) -> str:
+def resolve_qp_method(method: str, stage: str = "gam", f64: bool = False,
+                      band: bool = False) -> str:
     """'auto' -> the closed-loop engine for this tuning stage; an explicit
-    engine name ('admm_sim' or 'pdip_sim') passes through.
+    engine name (one of ENGINES) passes through, and MPCLoop raises if it
+    does not run the case.
 
     The policy follows the JAX package's accelerator policy and is the
     same on every device; only the executor differs (plain torch for CPU
     tensors, the CUDA kernels for CUDA tensors):
+      * band (y-constrained) cases: 'band_sim' at every stage (the JAX
+        '+lp20+split12'; ADMM stalls on the ECR band QP and the joint PDIP
+        stalls ~5e-2 off the optimum on band steps), at float64 only: a
+        float32 band case raises (its loops leave the hard input bounds);
       * float32, tracking case: GAM -> 'pdip_sim' (ADMM rank-flips the GAM
         objective on extreme CMA weight vectors), VNS -> 'admm_sim' (warm
         40-iteration ADMM preserves the VNS argmin on the WB grid);
-      * float64 (the decision-grade path): both stages -> 'pdip_sim'.
-    Band (y-constrained) cases are not ported; MPCLoop.closed_batch raises
-    for them."""
+      * float64 (the decision-grade path): both stages -> 'pdip_sim'."""
     if method != "auto":
         if method not in ENGINES:
             raise ValueError(f"unknown engine {method!r}; use 'auto' or one "
                              f"of {ENGINES}")
         return method
+    if band:
+        require_band_dtype(torch.float64 if f64 else torch.float32)
+        return "band_sim"
     if stage == "vns" and not f64:
         return "admm_sim"
     return "pdip_sim"
@@ -72,13 +80,18 @@ class TuningProblem:
     inK: int = 10
     goal: float = 0.001
     dtype: torch.dtype = torch.float64
-    device: str = "cpu"
+    device: str = "cuda"
     qp_iters: int = 30
     # 'auto' = the stage policy of resolve_qp_method; an explicit engine
     # name overrides it (GAM stage and open leg / VNS closed leg)
     qp_method: str = "auto"
     vns_qp_method: str = "auto"
     admm_iters: int = 40  # warm ADMM iterations when 'admm_sim' runs
+
+    def __post_init__(self):
+        require_device(self.device)
+        if self.loop.ctl.spec.has_y_constraints:
+            require_band_dtype(self.dtype)
 
     @property
     def my(self) -> int:
@@ -100,7 +113,8 @@ class TuningProblem:
         """Batched closed loops; returns NumPy (Y, U) in ``dtype``."""
         raw = self.vns_qp_method if stage == "vns" else self.qp_method
         engine = resolve_qp_method(raw, stage=stage,
-                                   f64=self.dtype == torch.float64)
+                                   f64=self.dtype == torch.float64,
+                                   band=self.loop.ctl.spec.has_y_constraints)
         iters = self.admm_iters if engine == "admm_sim" else self.qp_iters
         Y, U = self.loop.closed_batch(
             np.asarray(r_b, dtype=np.float64), self.v, N_b, Nu_b, delta_b,
@@ -109,7 +123,11 @@ class TuningProblem:
         return Y.cpu().numpy(), U.cpu().numpy()
 
     def open_batch(self, rfin_b, N_b, Nu_b, delta_b, lam_b):
-        """Batched open-loop playbacks; returns NumPy (Y, U) in ``dtype``."""
+        """Batched open-loop playbacks; returns NumPy (Y, U) in ``dtype``.
+        Band cases take the closed loop's eps-split (a cold slack LP, then
+        the slack-frozen stage 2 at ``qp_iters``), as the JAX package's
+        qp_split / qp_lp flags do: MPCLoop.open_batch reads it off the
+        case, so the open leg never runs the stalling joint solve."""
         Y, U = self.loop.open_batch(
             np.asarray(rfin_b, dtype=np.float64), self.v, N_b, Nu_b, delta_b,
             lam_b, self.nit, self.dtype, self.qp_iters, device=self.device,

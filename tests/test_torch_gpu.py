@@ -1,13 +1,16 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(float64, small Wood-Berry shapes).  Skipped on hosts without a CUDA
-device; on a GPU host run ``python -m pytest tests/test_torch_gpu.py``."""
+(small Wood-Berry and Shell7x5 shapes).  Skipped on hosts without a CUDA
+device; on a GPU host run
+``python -m pytest --noconftest tests/test_torch_gpu.py``."""
 
 import numpy as np
 import pytest
 import torch
 
-from mpc_tuning_tpu_torch.cases import woodberry
+from mpc_tuning_tpu_torch.cases import shell7x5, woodberry
 from mpc_tuning_tpu_torch.ops import kernels as K
+from mpc_tuning_tpu_torch.tools.band_spread import (band_gate, band_inputs,
+                                                    band_lane_errors)
 from mpc_tuning_tpu_torch.tuning.api import build_problem
 
 pytestmark = pytest.mark.gpu
@@ -62,6 +65,36 @@ def test_closed_sim_pdip_matches_plain(cuda):
     args = (t, lc, Hp, r_l, r_l.shape[0], 15, dims)
     for a, b in zip(K.closed_sim_pdip(*args), K.closed_sim_pdip_plain(*args)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-9)
+
+
+def _band_inputs(cuda, caps, B=4, nit=30):
+    problem, _ = build_problem(shell7x5.make_case(nit=nit), device=cuda)
+    (t, lc, Hp, r_l, dims), _, _ = band_inputs(problem, caps, B, nit, F64,
+                                               caps[0], device=cuda)
+    return t, lc, Hp, r_l, nit, 20, 12, dims
+
+
+@pytest.mark.parametrize("caps", [(32, 4), (127, 15)])
+def test_closed_sim_band_matches_plain(cuda, caps):
+    """Step by step (the plain version follows the kernel's U), at the
+    limits of chip_smoke.py's band rows (tools/band_spread.BAND_LIMITS).
+    (127, 15) keeps the per-lane vectors in global scratch, (32, 4) in
+    shared memory."""
+    args = _band_inputs(cuda, caps)
+    before = K.closed_sim_band.launches
+    out_k = K.closed_sim_band(*args)
+    assert K.closed_sim_band.launches == before + 1
+    assert all(torch.isfinite(x).all() for x in out_k)
+    out_p = K.closed_sim_band_plain(*args, u_follow=out_k[1])
+    ok, txt = band_gate(band_lane_errors(out_k, out_p), caps)
+    assert ok, txt
+
+
+def test_closed_sim_band_refuses_float32(cuda):
+    t, lc, Hp, r_l, *rest = _band_inputs(cuda, (32, 4))
+    f32 = lambda d: {k: v.float() for k, v in d.items()}
+    with pytest.raises(ValueError, match="float64 only"):
+        K.closed_sim_band(f32(t), f32(lc), Hp.float(), r_l.float(), *rest)
 
 
 def test_wrong_dtype_or_layout_raises(cuda):

@@ -28,7 +28,7 @@ F64 = torch.float64
 @pytest.fixture(scope="module")
 def loops():
     pj, _ = build_jax(wb_jax.make_case(), dtype=jnp.float64)
-    pt, _ = build_torch(wb_torch.make_case(), dtype=F64)
+    pt, _ = build_torch(wb_torch.make_case(), dtype=F64, device="cpu")
     return pj.loop, pt.loop
 
 
@@ -50,7 +50,7 @@ def _assemble_both(loops, caps, seed, B=5):
         cj, jnp.asarray(N), jnp.asarray(Nu), jnp.asarray(delta),
         jnp.asarray(lam), d["p_max"], d["m_max"], d["ny"], d["nu"], d["rho"],
         False)
-    ct = lt.arrays(F64)
+    ct = lt.arrays(F64, "cpu")
     cand_t = mq_torch.assemble_candidate(
         ct, torch.as_tensor(N), torch.as_tensor(Nu), torch.as_tensor(delta),
         torch.as_tensor(lam), d["p_max"], d["m_max"], d["ny"], d["nu"],

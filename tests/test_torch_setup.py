@@ -24,7 +24,8 @@ CTL_FIELDS = ("A", "Bu", "Bv", "C", "Dv", "M", "Sx", "Sstep", "Sv", "Theta",
 @pytest.fixture(scope="module")
 def problems():
     pj, info_j = build_jax(wb_jax.make_case(), dtype=jnp.float64)
-    pt, info_t = build_torch(wb_torch.make_case(), dtype=torch.float64)
+    pt, info_t = build_torch(wb_torch.make_case(), dtype=torch.float64,
+                              device="cpu")
     return pj, info_j, pt, info_t
 
 
@@ -53,7 +54,7 @@ def test_controller_tables_exact(problems, caps):
     if caps is not None:
         lj, lt = lj.capped(*caps), lt.capped(*caps)
     cj = {k: np.asarray(v) for k, v in lj.arrays(jnp.float64).items()}
-    ct = {k: v.numpy() for k, v in lt.arrays(torch.float64).items()}
+    ct = {k: v.numpy() for k, v in lt.arrays(torch.float64, "cpu").items()}
     assert cj.keys() == ct.keys()
     for k in cj:
         assert np.array_equal(cj[k], ct[k]), k
@@ -70,12 +71,30 @@ def test_arrays_from_numpy_matches_port_arrays(problems):
         assert torch.equal(conv[k], own[k]), k
 
 
+def test_entry_points_default_to_the_card():
+    """Without an explicit device the port runs on the card; on a host
+    without one the entry points raise instead of carrying on on the CPU."""
+    case = wb_torch.make_case(nit=20)
+    if torch.cuda.is_available():
+        problem, _ = build_torch(case)
+        assert torch.device(problem.device).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_torch(case)
+    problem, _ = build_torch(case, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        problem.loop.arrays()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.arrays_from_numpy({"A": np.eye(2)})
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "before = set(sys.modules)\n"
         "import mpc_tuning_tpu_torch.tuning.api, mpc_tuning_tpu_torch.convert\n"
         "import mpc_tuning_tpu_torch.cases.woodberry\n"
+        "import mpc_tuning_tpu_torch.cases.shell7x5\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mpc_tuning_tpu'))\n"

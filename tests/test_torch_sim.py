@@ -24,7 +24,8 @@ NIT, B = 60, 4
 
 def _problems(**case_kw):
     pj, _ = build_jax(wb_jax.make_case(nit=NIT, **case_kw), dtype=jnp.float64)
-    pt, _ = build_torch(wb_torch.make_case(nit=NIT, **case_kw), dtype=F64)
+    pt, _ = build_torch(wb_torch.make_case(nit=NIT, **case_kw), dtype=F64,
+                        device="cpu")
     return pj, pt
 
 
@@ -54,7 +55,7 @@ def test_admm_sim_matches_jax_whole_sim(wb):
         jnp.asarray(lam), d["p_max"], d["m_max"], d["ny"], d["nu"],
         d["with_y"], d["rho"], 40, block_lanes=128)
     Yt, Ut = pt.loop.closed_batch(r_b, pt.v, N, Nu, delta, lam, NIT, F64, 40,
-                                  engine="admm_sim")
+                                  engine="admm_sim", device="cpu")
     np.testing.assert_allclose(Yt.numpy(), np.asarray(Yj), rtol=0, atol=1e-10)
     np.testing.assert_allclose(Ut.numpy(), np.asarray(Uj), rtol=0, atol=1e-10)
 
@@ -68,7 +69,7 @@ def test_pdip_sim_matches_jax_whole_sim():
     Yj, Uj = pj.loop.closed_batch(r_b, pj.v, *args, NIT, jnp.float64, 15,
                                   qp_method="pdip_sim_fused@128")
     Yt, Ut = pt.loop.closed_batch(r_b, pt.v, *args, NIT, F64, 15,
-                                  engine="pdip_sim")
+                                  engine="pdip_sim", device="cpu")
     np.testing.assert_allclose(Yt.numpy(), np.asarray(Yj), rtol=0, atol=1e-10)
     np.testing.assert_allclose(Ut.numpy(), np.asarray(Uj), rtol=0, atol=1e-10)
 
@@ -79,7 +80,8 @@ def test_open_batch_matches_jax(wb):
     rfin = np.array([[1.0, 0.0], [0.0, 1.0], [1.0, 0.0], [0.0, 1.0]])
     Yj, Uj = pj.loop.open_batch(rfin, pj.v, N, Nu, delta, lam, NIT,
                                 jnp.float64, 30, use_pallas=False)
-    Yt, Ut = pt.loop.open_batch(rfin, pt.v, N, Nu, delta, lam, NIT, F64, 30)
+    Yt, Ut = pt.loop.open_batch(rfin, pt.v, N, Nu, delta, lam, NIT, F64, 30,
+                                device="cpu")
     np.testing.assert_allclose(Yt.numpy(), np.asarray(Yj), rtol=0, atol=1e-10)
     np.testing.assert_allclose(Ut.numpy(), np.asarray(Uj), rtol=0, atol=1e-10)
 
@@ -93,7 +95,7 @@ def test_capacity_bucketing_exact(wb, engine):
     r_b = np.broadcast_to(pt.r[:NIT], (B, NIT, 2))
     iters = 40 if engine == "admm_sim" else 10
     out = [pt.loop.closed_batch(r_b, pt.v, N, Nu, delta, lam, NIT, F64, iters,
-                                engine=engine, caps=caps)
+                                engine=engine, caps=caps, device="cpu")
            for caps in ((64, 8), (127, 15))]
     for a, b in zip(*out):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-12)
@@ -104,7 +106,7 @@ def test_open_batch_capacity_bucketing_exact(wb):
     N, Nu, delta, lam = _mixed_candidates(3)
     rfin = np.tile([1.0, 0.0], (B, 1))
     out = [pt.loop.open_batch(rfin, pt.v, N, Nu, delta, lam, NIT, F64, 30,
-                              caps=caps) for caps in ((64, 8), (127, 15))]
+                              caps=caps, device="cpu") for caps in ((64, 8), (127, 15))]
     for a, b in zip(*out):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-12)
 
@@ -118,7 +120,7 @@ def test_plain_sim_follows_given_inputs(wb, engine):
     N, Nu, delta, lam = _mixed_candidates(5)
     r_b = np.broadcast_to(pt.r[:NIT], (B, NIT, 2))
     t, lc, Hm, r_l, dims = pt.loop.sim_inputs(r_b, pt.v, N, Nu, delta, lam,
-                                              NIT, F64, engine)
+                                              NIT, F64, engine, "cpu")
     if engine == "admm_sim":
         run = lambda **kw: kernels.closed_sim_admm_plain(
             t, lc, Hm, r_l, NIT, 40, 1e-6, 1.6, dims, **kw)
@@ -151,15 +153,16 @@ def test_cpu_tensors_never_launch_and_cuda_request_raises(wb):
     kernels.reset_launches()
     for engine in ("admm_sim", "pdip_sim"):
         pt.loop.closed_batch(r_b, pt.v, N, Nu, delta, lam, NIT, F64, 5,
-                             engine=engine)
-    pt.loop.open_batch(np.ones((B, 2)), pt.v, N, Nu, delta, lam, NIT, F64, 5)
+                             engine=engine, device="cpu")
+    pt.loop.open_batch(np.ones((B, 2)), pt.v, N, Nu, delta, lam, NIT, F64, 5,
+                       device="cpu")
     assert kernels.launch_counts() == {
         "spd_factor": 0, "spd_factor_solve": 0, "closed_sim_admm": 0,
-        "closed_sim_pdip": 0}
+        "closed_sim_pdip": 0, "closed_sim_band": 0}
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             pt.loop.closed_batch(r_b, pt.v, N, Nu, delta, lam, NIT, F64, 5,
                                  engine="admm_sim", device="cuda")
     with pytest.raises(ValueError):
         pt.loop.closed_batch(r_b, pt.v, N, Nu, delta, lam, NIT, F64, 5,
-                             engine="pdip_ws_fused")
+                             engine="pdip_ws_fused", device="cpu")

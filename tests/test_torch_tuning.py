@@ -31,7 +31,8 @@ def _problems():
     pj, _ = api_jax.build_problem(wb_jax.make_case(**CASE_KW),
                                   dtype=jnp.float64, qp_iters=QP_ITERS)
     pt, _ = api_torch.build_problem(wb_torch.make_case(**CASE_KW),
-                                    dtype=torch.float64, qp_iters=QP_ITERS)
+                                    dtype=torch.float64, qp_iters=QP_ITERS,
+                                    device="cpu")
     return pj, pt
 
 
