@@ -1,21 +1,27 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # needs one card; about 9 minutes
+    python3 chip_smoke.py            # needs one card; about 15 minutes
 
 Phases, each printing one line (with its wall time):
  1. environment: the card (nvidia-smi name and power limit), torch and CUDA
     versions, and the build of the port's CUDA kernels (one nvcc per
     source, started together);
- 2. every kernel of the two main paths against its plain PyTorch version on
-    the card, the whole-sim kernels step by step (the plain version
+ 2. every kernel of the three main paths against its plain PyTorch version
+    on the card, the whole-sim kernels step by step (the plain version
     following the kernel's inputs, ``follow_plain``):
     2a the Wood-Berry kernels in float64 and float32 (caps (64,8) and
-       (127,15), B=1024, nit=200, cut from the case's 400 steps to make
-       room for the band rows; SPD factor/solve at n = 5, 17, 31);
+       (127,15), B=1024, nit=120, cut from the case's 400 steps to make
+       room for the band and Shell3x3 rows; SPD factor/solve at n = 5, 17,
+       31);
     2b the band kernel on Shell7x5 in float64, the only dtype band cases
        run at (caps (32,4), (127,2), (127,15), B=256, nit=200, the seeded
        candidates of tools/band_spread.band_inputs), held at the limits
        that tools/band_spread.py derives from two correct runs;
+    2c the per-step engines' kernels in float64 and float32: the lane-major
+       factor/solve at n = 7, 17, 46 and the single-solve PDIP and ADMM
+       kernels on one real Shell3x3 step's QPs (caps (32,4), (127,15),
+       B=1024), held at QP_LIMITS, fixed from what two correct runs differ
+       by;
  3. the first main path: a seeded Wood-Berry hybrid tune in float32 on the
     card through ``mpc_tuning``, with every kernel's launch count, the
     tune's last batch of each whole-sim kernel against the plain version,
@@ -25,8 +31,19 @@ Phases, each printing one line (with its wall time):
     card (the full case: nit 200, nbp/nbc 7/4), launch counts, its last
     band batch against the plain version, a validity check of the result
     and of ``shell7x5.final_simulation`` on the card;
+ 3c. the per-step engines' path: a seeded Shell3x3 hybrid tune in float32
+    on the card (the full case: nit 500, nbp/nbc 7/4) through
+    ``hybrid_tune`` with GAM 'pdip_ws_fused' and VNS 'admm_fused' (no
+    joint weight polish), ``shell3x3.final_simulation`` on the card at
+    float64 inside the input bounds, the tuned incumbent's VNS
+    neighbourhood re-scored at float64 through 'pdip_ws_lanes' on the card
+    against the same on the CPU, launch counts, and the tune's last batch
+    of each engine against the plain step loop, as it ran (float32) and
+    on its inputs cast to float64;
  4. throughput of each kernel, its plain version and, where one PyTorch
-    call computes the same function, that call (recorded, not gated).
+    call computes the same function, that call (recorded, not gated), and
+    one evaluation through each per-step engine beside the whole-sim
+    kernel of the same algorithm.
 Then one JSON line with the per-kernel record, the card's line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero before that line.
@@ -57,6 +74,26 @@ LOOP_GATE = 1e-2         # tuned closed loop y: float32 card vs float64 CPU
 # above what two correct runs differ by, per lane statistic and lane
 # quantile, as tools/band_spread.py measured it.
 U_BOUND = 0.5            # Shell7x5 |u| limit (raw units)
+# Single QP solves (phase 2c) on identical inputs, the kernel against its
+# plain version on the card: per-lane max |dz| and max |dlam| /
+# max(1, |lam|) (ADMM: x and its duals y), held at lane quantiles p50 /
+# p90 / p99 / max.  Each limit is twice the largest of what two correct
+# runs differ by (the plain version on the card against the same on the
+# CPU; the plain version on the card with the constraint rhs one ulp up
+# against one ulp down) over both buckets, rounded up to two digits, as
+# phase 2c printed them on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# §6).  The first move du, which the loop applies, is held at
+# F64_SIM_GATE on every lane at float64.
+QP_LIMITS = {
+    ("pdip_fused", "f64"): dict(z=(1.3e-12, 2.6e-10, 1.1e-9, 2.0e-9),
+                                lam=(1.3e-7, 5.2e-5, 2.2e-4, 4.0e-4)),
+    ("admm_fused", "f64"): dict(z=(5.9e-14, 2.8e-13, 4.7e-13, 6.0e-13),
+                                lam=(5.2e-17, 3.4e-15, 9.6e-15, 4.2e-14)),
+    ("pdip_fused", "f32"): dict(z=(2.4e-4, 1.9e-3, 6.8e-3, 1.6e-2),
+                                lam=(1.2e-2, 0.26, 1.3, 2.7)),
+    ("admm_fused", "f32"): dict(z=(3.0e-5, 1.4e-4, 2.5e-4, 3.4e-4),
+                                lam=(2.9e-8, 1.7e-6, 4.5e-6, 8.7e-6)),
+}
 
 # peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s; FLOP/s in
 # float32 (outside the tensor cores) and float64 (the FP64 tensor cores,
@@ -76,10 +113,24 @@ SOURCES = {
                         "mpc_tuning_tpu/ops/pallas_kernels.py:1248"),
     "closed_sim_band": ("mpc_tuning_tpu_torch/ops/csrc/closed_sim_band.cu",
                         "mpc_tuning_tpu/ops/pallas_kernels.py:1611"),
+    "factor_lanes": ("mpc_tuning_tpu_torch/ops/csrc/spd.cu",
+                     "mpc_tuning_tpu/ops/pallas_kernels.py:284"),
+    "solve_lanes": ("mpc_tuning_tpu_torch/ops/csrc/spd.cu",
+                    "mpc_tuning_tpu/ops/pallas_kernels.py:302"),
+    "pdip_fused": ("mpc_tuning_tpu_torch/ops/csrc/qp_fused.cu",
+                   "mpc_tuning_tpu/ops/pallas_kernels.py:568"),
+    "admm_fused": ("mpc_tuning_tpu_torch/ops/csrc/qp_fused.cu",
+                   "mpc_tuning_tpu/ops/pallas_kernels.py:697"),
 }
+# the plain version of each whole-sim kernel and per-step engine: the
+# per-step engines' plain version is the plain step loop of the whole-sim
+# kernel that runs the same algorithm
 PLAIN = {"closed_sim_admm": "closed_sim_admm_plain",
          "closed_sim_pdip": "closed_sim_pdip_plain",
-         "closed_sim_band": "closed_sim_band_plain"}
+         "closed_sim_band": "closed_sim_band_plain",
+         "pdip_ws_fused": "closed_sim_pdip_plain",
+         "pdip_ws_lanes": "closed_sim_pdip_plain",
+         "admm_fused": "closed_sim_admm_plain"}
 
 
 def fail(msg: str):
@@ -126,17 +177,19 @@ def bound_ms(bytes_moved: float, flops: float, dtype):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def sim_flops(engine, t, dims, nit, iters, N, Nu, lp=0, s2=0):
+def sim_flops(engine, t, dims, nit, iters, N, Nu, lp=0, s2=0,
+              loop=True):
     """Floating-point operations of one whole-sim launch on these inputs:
     per step the estimator and plant products, per QP iteration the
     constraint products, normal matrix, factor and solves on each lane's
     active rows and columns (the kernels skip masked ones; the band kernel
-    works on +-row pairs)."""
+    works on +-row pairs).  ``loop=False``: one step's QP solve alone (the
+    single-solve kernels; nit = 1)."""
     ny, nu, n = dims["ny"], dims["nu"], dims["n"]
     nxa, nxp = t["A"].shape[0], t["Apl"].shape[0]
     pny = t["SxF"].shape[0]
-    step = 2 * (ny * nxp + ny * nxa + nxa * ny + pny * (nxa + nu) + n * pny
-                + nxa * (nxa + nu) + nxp * (nxp + nu))
+    step = loop * 2 * (ny * nxp + ny * nxa + nxa * ny + pny * (nxa + nu)
+                       + n * pny + nxa * (nxa + nu) + nxp * (nxp + nu))
     total = 0.0
     nnz = int((t["G0"] != 0).sum())
     for Nb, Nub in zip(np.asarray(N), np.asarray(Nu)):
@@ -166,8 +219,9 @@ def sim_flops(engine, t, dims, nit, iters, N, Nu, lp=0, s2=0):
 
 
 def sim_inputs(problem, caps, B, nit, dtype, engine, seed, N=None, Nu=None):
-    """Whole-sim kernel inputs for B random Wood-Berry candidates that
-    span the capacity bucket ``caps``; returns (inputs, N, Nu)."""
+    """Engine inputs for B random candidates of a tracking case
+    (Wood-Berry, Shell3x3) that span the capacity bucket ``caps``; returns
+    (inputs, N, Nu)."""
     rng = np.random.default_rng(seed)
     p_cap, m_cap = caps
     if N is None:
@@ -176,9 +230,9 @@ def sim_inputs(problem, caps, B, nit, dtype, engine, seed, N=None, Nu=None):
         N[0], Nu[0] = p_cap, m_cap
     else:
         N, Nu = np.full(B, N), np.full(B, Nu)
-    delta = rng.uniform(0.2, 2.0, size=(B, 2))
-    lam = rng.uniform(0.02, 0.5, size=(B, 2))
-    r_b = np.broadcast_to(problem.r[:nit], (B, nit, 2))
+    delta = rng.uniform(0.2, 2.0, size=(B, problem.my))
+    lam = rng.uniform(0.02, 0.5, size=(B, problem.nu))
+    r_b = np.broadcast_to(problem.r[:nit], (B, nit, problem.my))
     return problem.loop.sim_inputs(r_b, problem.v, N, Nu, delta, lam, nit,
                                    dtype, engine, "cuda", caps=caps), N, Nu
 
@@ -211,7 +265,8 @@ def lane_errors(a, b):
 
 
 def follow_plain(name, args, kwargs, out_k):
-    """The plain version of whole-sim kernel `name` on the same inputs,
+    """The plain version of whole-sim kernel or per-step engine `name` on
+    the same inputs,
     stepping the plant and model on the kernel's U (see ops/kernels.py):
     each step's QP is then solved from the state the kernel solved it in.
     Returns the per-lane (dY, dU) against the kernel's output; for the band
@@ -243,7 +298,7 @@ def phase_kernels(problem):
     from mpc_tuning_tpu_torch.ops import kernels as K
 
     t0 = time.perf_counter()
-    B, nit = 1024, 200
+    B, nit = 1024, 120
     err64 = {}
     rows = []
     for dtype in (torch.float64, torch.float32):
@@ -298,7 +353,7 @@ def phase_kernels(problem):
             rows.append(f"spd(n={n}):{tag}=L {eL:.3e} x {ex:.3e}")
             if max(eL, ex) > (F64_SPD_GATE if f64 else F32_SPD_GATE):
                 fail(f"spd n={n} {dtype}: dL {eL:.3e} dx {ex:.3e}")
-    print(f"[2a kernels] B={B} nit={nit} (the case's 400 steps cut to 200), "
+    print(f"[2a kernels] B={B} nit={nit} (the case's 400 steps cut to {nit}), "
           f"whole sims with the plain version following the kernel's U; "
           f"gates: f64 {F64_SIM_GATE:g}, f32 {F32_SIM_GATE:g} (f32 PDIP U: "
           f"median lane {F32_SIM_GATE:g}, every lane {F32_PDIP_U_CAP:g}); "
@@ -345,18 +400,180 @@ def phase_band_kernels(band_problem):
     return err64
 
 
-def keep_last_launches(store):
-    """Route the evaluators' whole-sim calls through recorders that keep
-    each engine's last call (inputs and the kernel's output) in `store`;
-    returns a function that undoes it.  The wrappers still count."""
+STEP_TAKE = 85  # the Shell3x3 step whose QPs phase 2c solves (after the
+                # setpoint change at step 80)
+
+
+def to_cpu(x, fn=lambda t: t.cpu()):
+    """x with ``fn`` (by default: move to the CPU) applied to every tensor
+    in it (dicts, tuples)."""
+    if isinstance(x, dict):
+        return {k: to_cpu(v, fn) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_cpu(v, fn) for v in x)
+    return fn(x) if isinstance(x, torch.Tensor) else x
+
+
+def to_f64(x):
+    """x with every floating tensor in it cast to float64."""
+    return to_cpu(x, lambda t: t.double() if t.is_floating_point() else t)
+
+
+def step_qp_args(problem, caps, B, dtype, engine, seed, take=STEP_TAKE,
+                 N=None, Nu=None):
+    """The arguments of the single-solve kernel of per-step engine
+    ``engine`` at step ``take`` of its closed loop on B seeded candidates:
+    a real step's QPs, warm start included.  Returns (args, N, Nu, tables,
+    dims)."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.sim import mpc_loop
 
-    saved = {name: getattr(mpc_loop, name) for name in PLAIN}
+    (t, lc, Hm, r_l, dims), N, Nu = sim_inputs(problem, caps, B, take + 1,
+                                               dtype, engine, seed, N, Nu)
+    G = K.g_shared(t["G0"], t.get("T2T"))
+    kernel = K.admm_fused if engine == "admm_fused" else K.pdip_fused
+    seen = {}
+
+    def qp(*args):
+        seen["args"] = args
+        return kernel(*args)
+
+    if engine == "admm_fused":
+        step = K.admm_step(t, lc, Hm, dims, G, 40, mpc_loop.ADMM_SIGMA,
+                           mpc_loop.ADMM_OVER_RELAX, qp)
+    else:
+        step = K.pdip_step(t, lc, Hm, dims, G, 15, qp)
+    K.step_loop(t, lc, r_l, dims, *step)
+    torch.cuda.synchronize()
+    return seen["args"], N, Nu, t, dims
+
+
+def qp_lane_errors(name, args, a, b, nu):
+    """Per-lane errors of the single QP solve ``a`` against ``b`` by the
+    kernel ``name`` (its arguments ``args``; outputs lane-major (rows, B):
+    PDIP (z, lam, s), ADMM (x, zc, y) in scaled coordinates): 'du' max
+    |d first move| (what the loop applies); 'z' max |dz| (ADMM: dx); 'lam'
+    max |dlam| / max(1, |lam|) (ADMM: the duals y)."""
+    dual, scale = (1, 1.0) if name == "pdip_fused" else (2, args[4][:nu])
+    a, b = to_cpu(a), to_cpu(b)
+    scale = to_cpu(scale)
+    return dict(du=((a[0][:nu] - b[0][:nu]) * scale).abs().amax(0),
+                z=(a[0] - b[0]).abs().amax(0),
+                lam=((a[dual] - b[dual]).abs()
+                     / b[dual].abs().clamp_min(1.0)).amax(0))
+
+
+def phase_step_kernels(s3_problem):
+    """2c. The per-step engines' kernels vs their plain versions on the
+    card; returns {name: max_abs_err (f64)}.  The QP rows print the lane
+    quantiles of the kernel against the plain version on the card and of
+    two witnesses (two correct runs: the plain version on the card against
+    the same on the CPU, and with the constraint rhs one ulp up against
+    one ulp down) and are held at QP_LIMITS."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.tools.band_spread import lane_quantiles
+
+    t0 = time.perf_counter()
+    B = 1024
+    err64, rows, bad = {}, [], []
+    fmt = lambda x: "/".join(f"{v:.3e}" for v in lane_quantiles(x))
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        tag = "f64" if f64 else "f32"
+        for n in (7, 17, 46):
+            g = torch.Generator(device="cuda").manual_seed(n)
+            A = torch.randn((B, n, n), generator=g, device="cuda", dtype=dtype)
+            M = (A @ A.transpose(1, 2) + n * torch.eye(n, device="cuda",
+                                                       dtype=dtype))
+            M = M.permute(1, 2, 0).contiguous()
+            rhs = torch.randn((n, B), generator=g, device="cuda", dtype=dtype)
+            Lk, Lp = K.factor_lanes(M), K.factor_lanes_plain(M)
+            xk = K.solve_lanes(Lk, rhs)
+            xp = K.solve_lanes_plain(Lp, rhs)
+            torch.cuda.synchronize()
+            eL, ex = maxabs(Lk, Lp), maxabs(xk, xp)
+            if f64:
+                err64["factor_lanes"] = max(err64.get("factor_lanes", 0.0), eL)
+                err64["solve_lanes"] = max(err64.get("solve_lanes", 0.0), ex)
+            else:
+                eL /= float(Lp.abs().max())
+                ex /= float(xp.abs().max())
+            rows.append(f"lanes(n={n}):{tag}=L {eL:.3e} x {ex:.3e}")
+            if max(eL, ex) > (F64_SPD_GATE if f64 else F32_SPD_GATE):
+                bad.append(rows[-1])
+        for caps in ((32, 4), (127, 15)):
+            for engine, name in (("pdip_ws_fused", "pdip_fused"),
+                                 ("admm_fused", "admm_fused")):
+                args, _, _, _, dims = step_qp_args(s3_problem, caps, B, dtype,
+                                                   engine, caps[0])
+                out_k = getattr(K, name)(*args)
+                plain = getattr(K, name + "_plain")
+                out_p = plain(*args)
+                torch.cuda.synchronize()
+                if not all(torch.isfinite(x).all() for x in out_k):
+                    fail(f"{name} {caps} {tag}: non-finite output")
+                errs = qp_lane_errors(name, args, out_k, out_p, dims["nu"])
+                # two correct runs: the plain version on the CPU, and on
+                # the card with the constraint rhs one ulp up vs down
+                inf = torch.tensor(float("inf"), dtype=dtype, device="cuda")
+                nudged = [plain(*args[:2], torch.nextafter(args[2], s * inf),
+                                *args[3:]) for s in (1, -1)]
+                wits = (qp_lane_errors(name, args, to_cpu(out_p),
+                                       plain(*to_cpu(args)), dims["nu"]),
+                        qp_lane_errors(name, args, *nudged, dims["nu"]))
+                lim = QP_LIMITS[(name, tag)]
+                head = f"{name}{caps} n={dims['n']} mc={dims['mc']}:{tag}="
+                du = float(errs["du"].max())
+                rows.append(head + f"du {du:.3e} " + " ".join(
+                    f"{k} kernel {fmt(errs[k])} (limits "
+                    f"{'/'.join(f'{v:g}' for v in lim[k])}; witnesses cpu "
+                    f"{fmt(wits[0][k])}, ulp {fmt(wits[1][k])})"
+                    for k in ("z", "lam")))
+                if f64:
+                    err64[name] = max(err64.get(name, 0.0),
+                                      float(errs["z"].max()))
+                if ((f64 and du > F64_SIM_GATE)
+                        or any(q > l for k in ("z", "lam")
+                               for q, l in zip(lane_quantiles(errs[k]),
+                                               lim[k]))):
+                    bad.append(rows[-1])
+    print(f"[2c step kernels] B={B}; Shell3x3 QPs of step {STEP_TAKE}; "
+          f"gates: lanes f64 {F64_SPD_GATE:g}, f32 {F32_SPD_GATE:g} "
+          f"relative; QPs: f64 first move du {F64_SIM_GATE:g} on every "
+          f"lane, z and lam at QP_LIMITS (lane quantiles p50/p90/p99/max) | "
+          + " | ".join(rows)
+          + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
+    if bad:
+        fail("step kernel rows above their gates: " + " | ".join(bad))
+    return err64
+
+
+WHOLE_SIM = ("closed_sim_admm", "closed_sim_pdip", "closed_sim_band")
+
+
+def keep_last_launches(store):
+    """Route the evaluators' whole-sim calls and per-step engine runs
+    through recorders that keep each one's last call (the plain version's
+    arguments and the kernels' output) in `store`, under the kernel's or
+    the engine's name; returns a function that undoes it.  The wrappers
+    still count."""
+    from mpc_tuning_tpu_torch.sim import mpc_loop
+
+    names = WHOLE_SIM + ("step_engine",)
+    saved = {name: getattr(mpc_loop, name) for name in names}
 
     def recorder(name, fn):
         def call(*args, **kwargs):
             out = fn(*args, **kwargs)
-            store[name] = (args, kwargs, out)
+            key = name
+            if name == "step_engine":  # as the plain step loop takes them
+                key, t, lc, Hm, r_l, dims, iters = args
+                args, kwargs = (t, lc, Hm, r_l, r_l.shape[0], iters), {}
+                if key == "admm_fused":
+                    kwargs.update(sigma=mpc_loop.ADMM_SIGMA,
+                                  over_relax=mpc_loop.ADMM_OVER_RELAX)
+                kwargs["dims"] = dims
+            store[key] = (args, kwargs, out)
             return out
         return call
 
@@ -488,6 +705,158 @@ def phase_band_main_path():
     return launches
 
 
+def vns_neighbours(best, dmin_max):
+    """The distinct (N, max Nu) pairs of the valid order-1 VNS neighbours
+    of the incumbent bits (tuning/vns.py's neighbourhood and validity
+    gate; the objective sees only N and the largest Nu, so neighbours that
+    flip a bit of a smaller Nu repeat a pair and would tie)."""
+    from mpc_tuning_tpu_torch.tuning.vns import _neighborhood, bits_to_int
+
+    pairs = set()
+    for x1, x2 in _neighborhood(best["Xv1"], best["Xv2"], 1):
+        N = bits_to_int(x1)
+        Nu = np.array([bits_to_int(row) for row in x2])
+        if N > Nu.max() and N > dmin_max and (Nu > 1).all():
+            pairs.add((N, int(Nu.max())))
+    Ns, Nus = zip(*sorted(pairs))
+    return np.array(Ns), np.array(Nus)
+
+
+def phase_step_path():
+    """3c. The seeded Shell3x3 hybrid tune on the card through the
+    per-step engines, the f64 final simulation and the f64 re-score of the
+    incumbent's neighbourhood; returns the launch counts."""
+    from mpc_tuning_tpu_torch.cases import shell3x3
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.sim import mpc_loop
+    from mpc_tuning_tpu_torch.tools.band_spread import lane_quantiles
+    from mpc_tuning_tpu_torch.tuning import api
+    from mpc_tuning_tpu_torch.tuning.objectives import vns_objective_batch
+
+    case = shell3x3.make_case()
+    problem, info = api.build_problem(case, dtype=torch.float32, qp_iters=15,
+                                      device="cuda")
+    problem.qp_method, problem.vns_qp_method = "pdip_ws_fused", "admm_fused"
+    problem.admm_iters = 40
+    x0 = np.concatenate([case.ov_weight0, case.mvrate_weight0])
+    last = {}
+    undo = keep_last_launches(last)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    # no joint (Chebyshev) weight polish: its ~250 single-candidate
+    # evaluations at nit 500 would take most of the script's time limit
+    best, delta, lam, Fvns, Fgam, hist = api.hybrid_tune(
+        problem, case.nbp, case.nbc, x0, gam_popsize=8, gam_generations=3,
+        max_alternations=1, seed=0, verbose=False, joint_polish=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    undo()
+    N, Nu = int(best["N"]), np.asarray(best["Nu"])
+    weights = np.concatenate([delta, lam])
+    if not (N > Nu.max() and (Nu >= 2).all() and np.isfinite(weights).all()
+            and (weights > 0).all() and np.isfinite([Fvns, Fgam]).all()):
+        fail(f"invalid Shell3x3 tuning result N={N} Nu={Nu} "
+             f"weights={weights}")
+
+    bad = []
+    L, R, Ru, Rv, S, cond_before = info
+    res = api.TuningResult(N=N, Nu=Nu, delta=delta, lam=lam, L=L, R=R, Ru=Ru,
+                           Rv=Rv, Fvns=Fvns, Fgam=Fgam,
+                           cond_before=cond_before, cond_after=S,
+                           problem=problem, checkpoint=None, history=hist)
+    t1 = time.perf_counter()
+    y, u = shell3x3.final_simulation(case, res)
+    sim_s = time.perf_counter() - t1
+    excess = max(0.0, float(np.maximum(u - case.umax, case.umin - u).max()))
+    if not (np.isfinite(y).all() and np.isfinite(u).all()
+            and excess <= 1e-6):
+        bad.append(f"final simulation outside the input bounds by "
+                   f"{excess:.3e}")
+
+    # the incumbent's VNS neighbourhood re-scored at float64 through the
+    # decision-grade 'pdip_ws_lanes': on the card (factor_lanes /
+    # solve_lanes) against the plain version on the CPU
+    Ns, Nus = vns_neighbours(best, int(np.max(problem.dmin)))
+    F = {}
+    for dev in ("cuda", "cpu"):
+        p64, _ = api.build_problem(case, dtype=torch.float64, qp_iters=15,
+                                   L=L, R=R, device=dev)
+        p64.qp_method = p64.vns_qp_method = "pdip_ws_lanes"
+        t2 = time.perf_counter()
+        F[dev] = vns_objective_batch(p64, Ns, Nus, delta, lam)
+        F[dev + "_s"] = time.perf_counter() - t2
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = K.launch_counts()
+    gap = float(np.max(np.abs(F["cuda"] - F["cpu"]) / np.abs(F["cpu"])))
+    i = int(np.argmin(F["cpu"]))
+    if not (np.isfinite(F["cuda"]).all() and np.argmin(F["cuda"]) == i):
+        bad.append(f"f64 re-score: card argmin {np.argmin(F['cuda'])} vs "
+                   f"cpu {np.argmin(F['cpu'])} (F card {F['cuda']}, cpu "
+                   f"{F['cpu']})")
+    path = ("pdip_fused", "admm_fused", "factor_lanes", "solve_lanes")
+    if min(launches[k] for k in path) <= 0:
+        bad.append(f"a kernel of the Shell3x3 path was never launched: "
+                   f"{launches}")
+
+    # the tune's last batch of each engine, held step by step against the
+    # plain step loop (launches made here do not count).  At float32: Y at
+    # F32_SIM_GATE on every lane, U at F32_SIM_GATE (ADMM) or within
+    # F32_PDIP_U_CAP (PDIP) on every lane; float32 PDIP answers scatter on
+    # degenerate steps (phase 2c), and the median-lane limit phase 2a sets
+    # over 1024 random candidates is no statistic over the last GAM
+    # batch's 8.  Beside it: the per-step |dU| quantiles over all steps and
+    # lanes, and what the plain loop on the card and on the CPU differ by.
+    # The same batch's inputs, cast to float64, then hold each engine's
+    # kernel at F64_SIM_GATE on every lane.
+    held = []
+    fmt = lambda x: "/".join(f"{v:.3e}" for v in lane_quantiles(x))
+    for engine in ("pdip_ws_fused", "admm_fused"):
+        if engine not in last:
+            fail(f"the Shell3x3 tune never ran engine {engine}")
+        args, kwargs, out_k = last[engine]
+        plain = getattr(K, PLAIN[engine])
+        out_p = plain(*args, **kwargs, u_follow=out_k[1])
+        out_c = plain(*to_cpu(args), **kwargs, u_follow=out_k[1].cpu())
+        dy, du = lane_errors(out_k, out_p)
+        steps = (out_k[1] - out_p[1]).abs().amax(1).flatten()
+        wit = (to_cpu(out_p)[1] - out_c[1]).abs().amax(1).flatten()
+        ey, eu = float(dy.max()), float(du.max())
+        ok = ey <= F32_SIM_GATE and eu <= (
+            F32_SIM_GATE if engine == "admm_fused" else F32_PDIP_U_CAP)
+        t64, lc64, Hm64, r64 = (to_f64(x) for x in args[:4])
+        Y64, U64 = mpc_loop.step_engine(engine, t64, lc64, Hm64, r64,
+                                        kwargs["dims"], args[5])
+        d64 = lane_errors((Y64, U64), plain(t64, lc64, Hm64, r64,
+                                           *args[4:], **kwargs, u_follow=U64))
+        e64 = max(float(d64[0].max()), float(d64[1].max()))
+        ok = ok and e64 <= F64_SIM_GATE
+        held.append(f"{engine}(B={out_k[0].shape[2]}, n={kwargs['dims']['n']}"
+                    f"): f32 Y {ey:.3e} U {eu:.3e} (per step p50/p90/p99/max "
+                    f"{fmt(steps)}; plain card vs cpu {fmt(wit)}), the same "
+                    f"inputs at f64 Y, U {e64:.3e}")
+        if not ok:
+            bad.append(held[-1])
+    print(f"[3c step engines] hybrid_tune(Shell3x3 nit=500 nbp/nbc=7/4 f32 "
+          f"cuda GAM pdip_ws_fused VNS admm_fused popsize=8 gens=3 alts=1 "
+          f"qp_iters=15 admm_iters=40, no joint polish) N={N} "
+          f"Nu={Nu.tolist()} "
+          f"delta={np.round(delta, 6).tolist()} "
+          f"lam={np.round(lam, 6).tolist()} Fvns={Fvns:.6g} Fgam={Fgam:.6g} "
+          f"wall_s={wall:.2f} launches={launches} | last batches vs plain: "
+          f"{'; '.join(held)} | final_simulation (card, f64, {sim_s:.2f} s): "
+          f"outside the input bounds by {excess:.3e} | f64 re-score of the "
+          f"{len(Ns)} distinct neighbours through pdip_ws_lanes: argmin "
+          f"(N, Nu) card ({Ns[np.argmin(F['cuda'])]}, "
+          f"{Nus[np.argmin(F['cuda'])]}), cpu ({Ns[i]}, {Nus[i]}), F "
+          f"{F['cpu'][i]:.9g}, max relative "
+          f"F gap card vs cpu {gap:.3e} (card {F['cuda_s']:.1f} s, cpu "
+          f"{F['cpu_s']:.1f} s)", flush=True)
+    if bad:
+        fail("Shell3x3 path: " + " | ".join(bad))
+    return launches
+
+
 def phase_throughput(problem, band_problem):
     """4. Kernel, plain and library times at the bench shapes; returns
     {name: dict(ms, plain_ms, bound_ms, bound_by, library_ms)}."""
@@ -574,22 +943,108 @@ def phase_throughput(problem, band_problem):
     return rec
 
 
+def phase_step_throughput(problem):
+    """4, the per-step engines: kernel, plain and library times of their
+    kernels at the bench shapes, and one evaluation through each per-step
+    engine beside the whole-sim kernel of the same algorithm; returns
+    {name: dict(ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.sim import mpc_loop
+
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    rec, txt = {}, []
+    g = torch.Generator(device="cuda").manual_seed(0)
+    A = torch.randn((1024, 17, 17), generator=g, device="cuda", dtype=f32)
+    M = A @ A.transpose(1, 2) + 17 * torch.eye(17, device="cuda", dtype=f32)
+    rhs = torch.randn((1024, 17), generator=g, device="cuda", dtype=f32)
+    Mt, rt = M.permute(1, 2, 0).contiguous(), rhs.T.contiguous()
+    Lt = K.factor_lanes_plain(Mt).contiguous()
+    fac = dict(ms=timed(lambda: K.factor_lanes(Mt), 20)[0],
+               plain_ms=timed(lambda: K.factor_lanes_plain(Mt), 20)[0],
+               library_ms=timed(lambda: torch.linalg.cholesky_ex(
+                   Mt.permute(2, 0, 1)), 20)[0])
+    fac["bound_ms"], fac["bound_by"] = bound_ms(
+        2 * nbytes(Mt), 1024 * 17 ** 3 / 3, f32)
+    sol = dict(ms=timed(lambda: K.solve_lanes(Lt, rt), 20)[0],
+               plain_ms=timed(lambda: K.solve_lanes_plain(Lt, rt), 20)[0],
+               library_ms=timed(lambda: torch.cholesky_solve(
+                   rt.T[:, :, None], Lt.permute(2, 0, 1)), 20)[0])
+    sol["bound_ms"], sol["bound_by"] = bound_ms(
+        nbytes(Lt) + 2 * nbytes(rt), 1024 * 2 * 2 * 17 ** 2, f32)
+    rec["factor_lanes"], rec["solve_lanes"] = fac, sol
+    txt.append(f"lanes B=1024 n=17 f32: factor {fac['ms']:.4f} ms (plain "
+               f"{fac['plain_ms']:.4f}, cholesky_ex {fac['library_ms']:.4f}), "
+               f"solve {sol['ms']:.4f} ms (plain {sol['plain_ms']:.4f}, "
+               f"cholesky_solve {sol['library_ms']:.4f})")
+
+    # one step's QP solve at the GAM shape (PDIP) and the VNS headline
+    # shape (ADMM), the inputs of a real Wood-Berry step
+    shapes = (("pdip_fused", "pdip_ws_fused", "pdip_sim", (32, 4), 2048, 15,
+               dict(N=20, Nu=4, seed=2)),
+              ("admm_fused", "admm_fused", "admm_sim", (64, 8), 8192, 40,
+               dict(seed=1)))
+    for name, engine, whole, caps, B, iters, kw in shapes:
+        seed = kw.pop("seed")
+        args, N, Nu, t, dims = step_qp_args(problem, caps, B, f32, engine,
+                                            seed, take=40, **kw)
+        ms, out = timed(lambda: getattr(K, name)(*args), 20)
+        pm = timed(lambda: getattr(K, name + "_plain")(*args), 1,
+                   warm=False)[0]
+        G = args[6] if name == "pdip_fused" else args[7]
+        read = [a for a in args if isinstance(a, torch.Tensor)]
+        read += [args[5] if name == "pdip_fused" else args[6]]
+        read += [G[k] for k in ("g_ptr", "g_col", "g_val", "gt_ptr",
+                                "gt_row", "gt_val")]
+        b, by = bound_ms(nbytes(read, out),
+                         sim_flops("closed_sim_" + whole[:4], t, dims, 1,
+                                   iters, N, Nu, loop=False), f32)
+        rec[name] = dict(ms=ms, plain_ms=pm, bound_ms=b, bound_by=by,
+                         library_ms=None)
+        # one whole evaluation (nit 400) through the per-step engine and
+        # through the whole-sim kernel of the same algorithm
+        inp, _, _ = sim_inputs(problem, caps, B, 400, f32, engine, seed,
+                               **kw)
+        step_ms = timed(lambda: mpc_loop.run_engine(engine, *inp, iters), 1,
+                        warm=False)[0]
+        whole_ms = timed(lambda: mpc_loop.run_engine(whole, *inp, iters), 1,
+                         warm=False)[0]
+        txt.append(f"{name} B={B} caps={caps} iters={iters} f32, step 40 "
+                   f"of a WB loop: kernel "
+                   f"{ms:.3f} ms, plain {pm:.1f} ms, bound {b:.5f} ms ({by}); "
+                   f"one nit-400 evaluation: engine {engine} {step_ms:.1f} ms "
+                   f"vs whole-sim {whole_ms:.1f} ms")
+    for B in (8, 18):
+        inp, _, _ = sim_inputs(problem, (64, 8), B, 400, f32, "admm_fused", 3)
+        e_ms = timed(lambda: mpc_loop.run_engine("admm_fused", *inp, 40), 1,
+                     warm=False)[0]
+        w_ms = timed(lambda: mpc_loop.run_engine("admm_sim", *inp, 40), 1,
+                     warm=False)[0]
+        txt.append(f"B={B} (64,8) nit 400: admm_fused engine {e_ms:.1f} ms "
+                   f"vs admm_sim {w_ms:.1f} ms")
+    print("[4 step throughput] " + " | ".join(txt)
+          + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
+    return rec
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_env()
-    from mpc_tuning_tpu_torch.cases import shell7x5, woodberry
+    from mpc_tuning_tpu_torch.cases import shell3x3, shell7x5, woodberry
     from mpc_tuning_tpu_torch.tuning.api import build_problem
 
     problem, _ = build_problem(woodberry.make_case(), device="cuda")
     band_problem, _ = build_problem(shell7x5.make_case(), device="cuda")
+    s3_problem, _ = build_problem(shell3x3.make_case(), device="cuda")
     err64 = phase_kernels(problem)
     err64["closed_sim_band"] = phase_band_kernels(band_problem)
-    launches = phase_main_path()
-    band_launches = phase_band_main_path()
+    err64.update(phase_step_kernels(s3_problem))
+    paths = [phase_main_path(), phase_band_main_path(), phase_step_path()]
     rec = phase_throughput(problem, band_problem)
+    rec.update(phase_step_throughput(problem))
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k] + band_launches[k],
+         "launches": sum(launches[k] for launches in paths),
          "max_abs_err": err64[k], **rec[k]}
         for k, (src, rep) in SOURCES.items()]}), flush=True)
     print(f"[total] wall_s={time.perf_counter() - t_start:.1f}", flush=True)

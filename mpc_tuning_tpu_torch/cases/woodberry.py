@@ -59,8 +59,9 @@ def final_simulation(case: LinearCase, res: TuningResult, nominal: bool = True,
                      nit: int | None = None):
     """Closed loop of the tuned controller against the (possibly mismatched)
     real plant (WoodBerry.m:266-285: options.Model = L*Ps*R with Ps != model
-    when nominal=false), at the tuner's own dtype, device and QP budget.
-    Returns (y, u) in raw units."""
+    when nominal=false), at float64 on the tuner's device and at its QP
+    budget (as the JAX package's, whose MPCLoop.simulate defaults to
+    float64).  Returns (y, u) in raw units."""
     nit = nit or case.nit
     real = plants.wood_berry() if nominal else plants.wood_berry(deltak=0.2, deltaL=1.0)
     prob = res.problem
@@ -69,8 +70,8 @@ def final_simulation(case: LinearCase, res: TuningResult, nominal: bool = True,
 
     loop = MPCLoop(ctl=prob.loop.ctl, plant_ss=plant_c)
     y_c, u_c = loop.simulate(prob.r, prob.v, nit, res.N, int(np.max(res.Nu)),
-                             res.delta, res.lam, dtype=prob.dtype,
-                             qp_iters=prob.qp_iters, device=prob.device)
+                             res.delta, res.lam, qp_iters=prob.qp_iters,
+                             device=prob.device)
     Linv = np.linalg.inv(res.L)
     y = (Linv @ y_c.T).T
     u = u_c * res.Ru[None, :]

@@ -43,9 +43,9 @@ def _nvcc() -> str:
 
 def _bind(lib):
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    lib.mpc_spd_factor.argtypes = [i, vp, vp, i, i, vp]
+    lib.mpc_spd_factor.argtypes = [i, i, vp, vp, i, i, vp]
     lib.mpc_spd_factor.restype = i
-    lib.mpc_spd_factor_solve.argtypes = [i, vp, vp, vp, i, i, vp]
+    lib.mpc_spd_factor_solve.argtypes = [i, i, vp, vp, vp, i, i, vp]
     lib.mpc_spd_factor_solve.restype = i
     lib.mpc_error_string.argtypes = [i]
     lib.mpc_error_string.restype = ctypes.c_char_p
@@ -64,6 +64,15 @@ def _bind(lib):
     lib.mpc_closed_sim_band.argtypes = [ctypes.POINTER(vp), d,
                                         ctypes.POINTER(ctypes.c_double), vp]
     lib.mpc_closed_sim_band.restype = i
+    lib.mpc_pdip_fused_ptr_count.restype = i
+    lib.mpc_admm_fused_ptr_count.restype = i
+    lib.mpc_qp_fused_dim_count.restype = i
+    lib.mpc_pdip_fused_work_rows.argtypes = [i, i]
+    lib.mpc_pdip_fused_work_rows.restype = ctypes.c_longlong
+    for fn in (lib.mpc_pdip_fused, lib.mpc_admm_fused):
+        fn.argtypes = [i, ctypes.POINTER(vp), d,
+                       ctypes.POINTER(ctypes.c_double), vp]
+        fn.restype = i
     return lib
 
 

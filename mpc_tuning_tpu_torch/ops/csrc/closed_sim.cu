@@ -13,15 +13,14 @@
 //    (row * B + lane), so each load of a warp is one coalesced line that
 //    stays in L1/L2;
 //  * reads the shared tables through uniform (broadcast) loads;
-//  * visits only the structural nonzeros of the shared constraint matrix
-//    G0 (CSR by rows and by columns, built by the wrapper): G products and
-//    the normal matrix G'WG cost O(nnz) and O(sum of squared row nnz)
-//    instead of the dense O(mc n) and O(mc n^2) of the TPU's T2T table;
+//  * solves each step's QP with the per-lane device code of lane_qp.cuh,
+//    which the single-solve kernels (qp_fused.cu) share: CSR visits of the
+//    shared constraint matrix G0's nonzeros in place of the TPU's T2T;
 //  * runs 32 threads per block so that a batch spreads over many SMs.
 // Padding to the TPU's (8, 128) tiles is dropped throughout: padded rows
 // were exact no-ops there.
 
-#include "common.cuh"
+#include "lane_qp.cuh"
 
 namespace mpc {
 
@@ -41,12 +40,7 @@ struct SimArgs {
   const T* __restrict__ SstF;  // (pny, nu)
   const T* __restrict__ ThT;   // (n, pny)
   const T* __restrict__ Vt;    // (ny + nxa + nxp + pny, nit)
-  const int* __restrict__ g_ptr;   // G0 by rows: (mc + 1)
-  const int* __restrict__ g_col;
-  const T* __restrict__ g_val;
-  const int* __restrict__ gt_ptr;  // G0 by columns: (n + 1)
-  const int* __restrict__ gt_row;
-  const T* __restrict__ gt_val;
+  Csr<T> g;                    // G0 (mc, n) by rows and by columns
   // per-lane, lane-major (rows, B)
   const T* __restrict__ r;      // (nit, ny, B) setpoints / sf_y
   const T* __restrict__ q;      // (pny, B)
@@ -216,30 +210,6 @@ __device__ void post_step(const SimArgs<T>& a, int k, int lane,
   for (int i = 0; i < a.nxp; ++i) st.xpl[i] = st.xpl2[i];
 }
 
-// (G x)_r = rowm_r * sum_j G0[r, j] colm_j x_j over the nonzeros of row r.
-template <typename T, typename V>
-__device__ __forceinline__ T g_row(const SimArgs<T>& a, int r,
-                                   const CLane<T>& rowm, const CLane<T>& colm,
-                                   const V& x) {
-  T acc = T(0);
-  for (int p = a.g_ptr[r]; p < a.g_ptr[r + 1]; ++p) {
-    const int j = a.g_col[p];
-    acc += a.g_val[p] * (colm[j] * x[j]);
-  }
-  return rowm[r] * acc;
-}
-
-// (G' y)_i = colm_i * sum_r G0[r, i] y_r over the nonzeros of column i
-// (y already multiplied by rowm).
-template <typename T, typename V>
-__device__ __forceinline__ T gt_col(const SimArgs<T>& a, int i,
-                                    const CLane<T>& colm, const V& y) {
-  T acc = T(0);
-  for (int p = a.gt_ptr[i]; p < a.gt_ptr[i + 1]; ++p)
-    acc += a.gt_val[p] * y[a.gt_row[p]];
-  return colm[i] * acc;
-}
-
 // ----------------------------------------------------------------- ADMM
 
 template <typename T>
@@ -250,118 +220,34 @@ closed_sim_admm_kernel(const SimArgs<T> a) {
   const int B = a.B, n = a.n, mc = a.mc;
   const Offsets o(a.ny, a.nu, a.nxa, a.nxp, a.pny, n, mc, false);
   const LoopState<T> st = loop_state(a, o, lane);
-  const Lane<T> fs = lane_at(a.work, o.f, B, lane);
-  const Lane<T> hs = lane_at(a.work, o.h, B, lane);
-  const Lane<T> rhs = lane_at(a.work, o.rhs, B, lane);
-  const Lane<T> x = lane_at(a.work, o.z, B, lane);
-  const Lane<T> zc = lane_at(a.work, o.lam, B, lane);
-  const Lane<T> y = lane_at(a.work, o.s, B, lane);
-  const CLane<T> arow = clane_at(a.rowm, B, lane);
-  const CLane<T> acol = clane_at(a.colm, B, lane);
+  AdmmLane<T> v;
+  v.fs = lane_at(a.work, o.f, B, lane);
+  v.hs = lane_at(a.work, o.h, B, lane);
+  v.rhs = lane_at(a.work, o.rhs, B, lane);
+  v.x = lane_at(a.work, o.z, B, lane);
+  v.zc = lane_at(a.work, o.lam, B, lane);
+  v.y = lane_at(a.work, o.s, B, lane);
+  v.arow = clane_at(a.rowm, B, lane);
+  v.acol = clane_at(a.colm, B, lane);
+  v.Minv = clane_at(a.Hm, B, lane);
+  v.rho = a.par[lane];
+  v.rho_inv = a.par[(size_t)B + lane];
   const CLane<T> Dinv = clane_at(a.Dinv, B, lane);
   const CLane<T> ev = clane_at(a.e, B, lane);
-  const CLane<T> Minv = clane_at(a.Hm, B, lane);
-  const T rho = a.par[lane];
-  const T rho_inv = a.par[(size_t)B + lane];
-  const T sigma = a.c0, alpha = a.c1;
-  for (int i = 0; i < n; ++i) x[i] = T(0);
-  for (int r = 0; r < mc; ++r) { zc[r] = T(0); y[r] = T(0); }
+  for (int i = 0; i < n; ++i) v.x[i] = T(0);
+  for (int r = 0; r < mc; ++r) { v.zc[r] = T(0); v.y[r] = T(0); }
 
   for (int k = 0; k < a.nit; ++k) {
     pre_step(a, k, lane, st);
-    for (int i = 0; i < n; ++i) fs[i] = lin_term(a, i, st) * Dinv[i];
-    for (int r = 0; r < mc; ++r) hs[r] = rhs_row(a, r, lane, st) * ev[r];
-
-    for (int it = 0; it < a.iters; ++it) {
-      // rhs = sigma x - fs + Gs'(rho zc - y)
-      for (int i = 0; i < n; ++i) {
-        T acc = T(0);
-        for (int p = a.gt_ptr[i]; p < a.gt_ptr[i + 1]; ++p) {
-          const int rr = a.gt_row[p];
-          acc += a.gt_val[p] * (arow[rr] * (rho * zc[rr] - y[rr]));
-        }
-        rhs[i] = sigma * x[i] - fs[i] + acol[i] * acc;
-      }
-      for (int i = 0; i < n; ++i) {  // x = Minv rhs
-        T acc = T(0);
-        for (int j = 0; j < n; ++j) acc += Minv[i * n + j] * rhs[j];
-        x[i] = acc;
-      }
-      for (int r = 0; r < mc; ++r) {
-        const T gx = g_row(a, r, arow, acol, x);
-        const T gxr = alpha * gx + (T(1) - alpha) * zc[r];
-        const T zn = nmin(gxr + y[r] * rho_inv, hs[r]);
-        y[r] = y[r] + rho * (gxr - zn);
-        zc[r] = zn;
-      }
-    }
-    for (int j = 0; j < a.nu; ++j) st.uprev[j] = st.uprev[j] + x[j] * Dinv[j];
+    for (int i = 0; i < n; ++i) v.fs[i] = lin_term(a, i, st) * Dinv[i];
+    for (int r = 0; r < mc; ++r) v.hs[r] = rhs_row(a, r, lane, st) * ev[r];
+    admm_iterations(a.g, v, n, mc, a.iters, a.c0, a.c1);
+    for (int j = 0; j < a.nu; ++j) st.uprev[j] = st.uprev[j] + v.x[j] * Dinv[j];
     post_step(a, k, lane, st);
   }
 }
 
 // ----------------------------------------------------------------- PDIP
-
-template <typename T>
-struct PdipLane {
-  Lane<T> f, h, rhs, dz, z, lam, s, bz, rd, blam, rp, w, t, ds, dl, dsa, dla,
-      L;
-  CLane<T> rmask, cmask, H;
-};
-
-// Residuals r_d = H z + f + G' lam, r_p = G z + s - h; returns the merit
-// ||r_d|| + ||r_p|| + lam's and the gap lam's.
-template <typename T>
-__device__ T pdip_residuals(const SimArgs<T>& a, const PdipLane<T>& v,
-                            T& gap) {
-  const int n = a.n, mc = a.mc;
-  for (int r = 0; r < mc; ++r) v.t[r] = v.rmask[r] * v.lam[r];
-  T nd = T(0);
-  for (int i = 0; i < n; ++i) {
-    T hz = T(0);
-    for (int j = 0; j < n; ++j) hz += v.H[i * n + j] * v.z[j];
-    const T rd = hz + v.f[i] + gt_col(a, i, v.cmask, v.t);
-    v.rd[i] = rd;
-    nd += rd * rd;
-  }
-  T np = T(0), g = T(0);
-  for (int r = 0; r < mc; ++r) {
-    const T rp = g_row(a, r, v.rmask, v.cmask, v.z) + v.s[r] - v.h[r];
-    v.rp[r] = rp;
-    np += rp * rp;
-    g += v.lam[r] * v.s[r];
-  }
-  gap = g;
-  return sqrt(nd) + sqrt(np) + g;
-}
-
-template <typename T>
-__device__ __forceinline__ T max_step(const Lane<T>& x, const Lane<T>& dx,
-                                      int m) {
-  const T inf = inf_value<T>();
-  T mn = inf;
-  for (int r = 0; r < m; ++r) {
-    const T ratio = dx[r] < T(0) ? -x[r] / dx[r] : inf;
-    mn = nmin(mn, ratio);
-  }
-  return nmin(T(1), T(0.995) * mn);
-}
-
-// L L' x = rhs by forward and back substitution (x may not alias rhs).
-template <typename T>
-__device__ void chol_solve(const Lane<T>& L, const Lane<T>& rhs,
-                           const Lane<T>& x, int n) {
-  for (int i = 0; i < n; ++i) {
-    T v = rhs[i];
-    for (int k = 0; k < i; ++k) v -= L[i * n + k] * x[k];
-    x[i] = v / L[i * n + i];
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    T v = x[i];
-    for (int k = i + 1; k < n; ++k) v -= L[k * n + i] * x[k];
-    x[i] = v / L[i * n + i];
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kSimThreads)
@@ -382,6 +268,7 @@ closed_sim_pdip_kernel(const SimArgs<T> a) {
   v.bz = lane_at(a.work, o.bz, B, lane);
   v.rd = lane_at(a.work, o.rd, B, lane);
   v.blam = lane_at(a.work, o.blam, B, lane);
+  v.bs = Lane<T>{nullptr, B};  // s is recomputed at every step
   v.rp = lane_at(a.work, o.rp, B, lane);
   v.w = lane_at(a.work, o.w, B, lane);
   v.t = lane_at(a.work, o.t, B, lane);
@@ -393,11 +280,7 @@ closed_sim_pdip_kernel(const SimArgs<T> a) {
   v.rmask = clane_at(a.rowm, B, lane);
   v.cmask = clane_at(a.colm, B, lane);
   v.H = clane_at(a.Hm, B, lane);
-  const T eps_c = a.c0, ridge = a.c1, w_cap = a.c2;
 
-  T nact = T(0);
-  for (int r = 0; r < mc; ++r) nact += v.rmask[r];
-  nact = nmax(nact, T(1));
   // warm pair (z, lam) carried across steps: z = 0, lam = 1 initially
   for (int i = 0; i < n; ++i) v.z[i] = T(0);
   for (int r = 0; r < mc; ++r) v.lam[r] = T(1);
@@ -406,105 +289,7 @@ closed_sim_pdip_kernel(const SimArgs<T> a) {
     pre_step(a, k, lane, st);
     for (int i = 0; i < n; ++i) v.f[i] = v.cmask[i] * lin_term(a, i, st);
     for (int r = 0; r < mc; ++r) v.h[r] = rhs_row(a, r, lane, st);
-
-    // warm start: re-centre the carried pair; s from this step's h
-    for (int r = 0; r < mc; ++r) v.lam[r] = nmax(v.lam[r], eps_c) * v.rmask[r];
-    for (int r = 0; r < mc; ++r)
-      v.s[r] = nmax(v.h[r] - g_row(a, r, v.rmask, v.cmask, v.z), eps_c);
-    for (int i = 0; i < n; ++i) v.bz[i] = v.z[i];
-    for (int r = 0; r < mc; ++r) v.blam[r] = v.lam[r];
-    T bm = inf_value<T>();
-
-    for (int it = 0; it < a.iters; ++it) {
-      T gap;
-      const T mnew = pdip_residuals(a, v, gap);
-      const T mu = gap / nact;
-      if (mnew < bm) {  // NaN never wins
-        for (int i = 0; i < n; ++i) v.bz[i] = v.z[i];
-        for (int r = 0; r < mc; ++r) v.blam[r] = v.lam[r];
-        bm = mnew;
-      }
-      for (int r = 0; r < mc; ++r)
-        v.w[r] = nmin(v.lam[r] / v.s[r], w_cap) * v.rmask[r];
-
-      // normal matrix H + (G0' W G0) o cc + ridge I, lower triangle
-      for (int i = 0; i < n; ++i)
-        for (int j = 0; j <= i; ++j) v.L[i * n + j] = T(0);
-      for (int r = 0; r < mc; ++r) {
-        const T wr = v.w[r];
-        for (int p = a.g_ptr[r]; p < a.g_ptr[r + 1]; ++p) {
-          const int ca = a.g_col[p];
-          const T ga = a.g_val[p] * v.cmask[ca];
-          for (int qq = a.g_ptr[r]; qq <= p; ++qq) {
-            const int cb = a.g_col[qq];
-            v.L[ca * n + cb] += wr * (ga * (a.g_val[qq] * v.cmask[cb]));
-          }
-        }
-      }
-      for (int i = 0; i < n; ++i) {
-        for (int j = 0; j < i; ++j)
-          v.L[i * n + j] = v.H[i * n + j] + v.L[i * n + j];
-        v.L[i * n + i] = v.H[i * n + i] + v.L[i * n + i] + ridge;
-      }
-      // Cholesky in place (lower)
-      for (int j = 0; j < n; ++j) {
-        T d = v.L[j * n + j];
-        for (int kk = 0; kk < j; ++kk) d -= v.L[j * n + kk] * v.L[j * n + kk];
-        const T ljj = sqrt(d);
-        v.L[j * n + j] = ljj;
-        for (int i = j + 1; i < n; ++i) {
-          T x = v.L[i * n + j];
-          for (int kk = 0; kk < j; ++kk) x -= v.L[i * n + kk] * v.L[j * n + kk];
-          v.L[i * n + j] = x / ljj;
-        }
-      }
-
-      // predictor
-      for (int r = 0; r < mc; ++r)
-        v.t[r] = v.rmask[r] * (v.lam[r] - v.w[r] * v.rp[r]);
-      for (int i = 0; i < n; ++i)
-        v.rhs[i] = -v.rd[i] + gt_col(a, i, v.cmask, v.t);
-      chol_solve(v.L, v.rhs, v.dz, n);
-      for (int r = 0; r < mc; ++r) {
-        v.dsa[r] = -(v.rp[r] + g_row(a, r, v.rmask, v.cmask, v.dz));
-        v.dla[r] = -(v.lam[r] * v.s[r] + v.lam[r] * v.dsa[r]) / v.s[r] *
-                   v.rmask[r];
-      }
-      const T a_aff = nmin(max_step(v.s, v.dsa, mc), max_step(v.lam, v.dla, mc));
-      T mu_aff = T(0);
-      for (int r = 0; r < mc; ++r)
-        mu_aff += (v.lam[r] + a_aff * v.dla[r]) * (v.s[r] + a_aff * v.dsa[r]);
-      mu_aff = mu_aff / nact;
-      const T sig_r = mu_aff / (mu + T(1e-30));
-      const T sigma = sig_r * sig_r * sig_r;
-
-      // corrector; r_cent overwrites dla
-      for (int r = 0; r < mc; ++r) {
-        const T rc = (v.lam[r] * v.s[r] - sigma * mu + v.dla[r] * v.dsa[r]) *
-                     v.rmask[r];
-        v.dla[r] = rc;
-        v.t[r] = v.rmask[r] * (rc / v.s[r] - v.w[r] * v.rp[r]);
-      }
-      for (int i = 0; i < n; ++i)
-        v.rhs[i] = -v.rd[i] + gt_col(a, i, v.cmask, v.t);
-      chol_solve(v.L, v.rhs, v.dz, n);
-      for (int r = 0; r < mc; ++r) {
-        v.ds[r] = -(v.rp[r] + g_row(a, r, v.rmask, v.cmask, v.dz));
-        v.dl[r] = -(v.dla[r] + v.lam[r] * v.ds[r]) / v.s[r] * v.rmask[r];
-      }
-      const T step = nmin(max_step(v.s, v.ds, mc), max_step(v.lam, v.dl, mc));
-      for (int i = 0; i < n; ++i) v.z[i] = v.z[i] + step * v.dz[i];
-      for (int r = 0; r < mc; ++r) {
-        v.lam[r] = v.lam[r] + step * v.dl[r];
-        v.s[r] = v.s[r] + step * v.ds[r];
-      }
-    }
-    T gap;
-    const T mlast = pdip_residuals(a, v, gap);
-    if (!(mlast < bm)) {  // keep the best iterate as the warm pair
-      for (int i = 0; i < n; ++i) v.z[i] = v.bz[i];
-      for (int r = 0; r < mc; ++r) v.lam[r] = v.blam[r];
-    }
+    pdip_solve(a.g, v, n, mc, a.iters, a.c0, a.c1, a.c2);
     for (int j = 0; j < a.nu; ++j) st.uprev[j] = st.uprev[j] + v.z[j];
     post_step(a, k, lane, st);
   }
@@ -536,12 +321,12 @@ SimArgs<T> make_args(void* const* p, const int* d, const double* c) {
   a.SstF = static_cast<const T*>(p[P_SSTF]);
   a.ThT = static_cast<const T*>(p[P_THT]);
   a.Vt = static_cast<const T*>(p[P_VT]);
-  a.g_ptr = static_cast<const int*>(p[P_GPTR]);
-  a.g_col = static_cast<const int*>(p[P_GCOL]);
-  a.g_val = static_cast<const T*>(p[P_GVAL]);
-  a.gt_ptr = static_cast<const int*>(p[P_GTPTR]);
-  a.gt_row = static_cast<const int*>(p[P_GTROW]);
-  a.gt_val = static_cast<const T*>(p[P_GTVAL]);
+  a.g = Csr<T>{static_cast<const int*>(p[P_GPTR]),
+               static_cast<const int*>(p[P_GCOL]),
+               static_cast<const T*>(p[P_GVAL]),
+               static_cast<const int*>(p[P_GTPTR]),
+               static_cast<const int*>(p[P_GTROW]),
+               static_cast<const T*>(p[P_GTVAL])};
   a.r = static_cast<const T*>(p[P_R]);
   a.q = static_cast<const T*>(p[P_Q]);
   a.hbase = static_cast<const T*>(p[P_HBASE]);

@@ -10,11 +10,16 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``; only a
 launch adds to it.
 
 Layouts follow the JAX package: ``spd_factor`` / ``spd_factor_solve`` take
-the public batch-major (B, n, n) / (B, n) layout; the whole-sim kernels
-take lane-major inputs, the candidate batch B on the last axis
-(``sim/mpc_loop.py`` builds them; the band wrapper hands its block-per-lane
-kernel the per-lane inputs batch-major).  Unlike the TPU kernels, nothing
-is padded to (8, 128) tiles.
+the public batch-major (B, n, n) / (B, n) layout; ``factor_lanes`` /
+``solve_lanes``, the single-solve kernels ``pdip_fused`` / ``admm_fused``
+and the whole-sim kernels take lane-major inputs, the candidate batch B on
+the last axis (``sim/mpc_loop.py`` builds them; the band wrapper hands its
+block-per-lane kernel the per-lane inputs batch-major).  Unlike the TPU
+kernels, nothing is padded to (8, 128) tiles.
+
+The closed loop of the per-step engines and of the whole-sim plain
+versions is one Python loop over steps, ``step_loop``, around a per-step
+QP solve (``pdip_step`` / ``admm_step``).
 """
 
 from __future__ import annotations
@@ -25,12 +30,14 @@ import torch
 
 from mpc_tuning_tpu_torch.ops import _build
 
-__all__ = ["spd_factor", "spd_factor_solve", "closed_sim_admm",
-           "closed_sim_pdip", "closed_sim_band", "spd_factor_plain",
-           "spd_factor_solve_plain", "closed_sim_admm_plain",
-           "closed_sim_pdip_plain", "closed_sim_band_plain",
-           "band_envelope", "reset_launches", "launch_counts",
-           "require_device"]
+__all__ = ["spd_factor", "spd_factor_solve", "factor_lanes", "solve_lanes",
+           "pdip_fused", "admm_fused", "closed_sim_admm", "closed_sim_pdip",
+           "closed_sim_band", "spd_factor_plain", "spd_factor_solve_plain",
+           "factor_lanes_plain", "solve_lanes_plain", "pdip_fused_plain",
+           "admm_fused_plain", "closed_sim_admm_plain",
+           "closed_sim_pdip_plain", "closed_sim_band_plain", "g_shared",
+           "step_loop", "pdip_step", "admm_step", "band_envelope",
+           "reset_launches", "launch_counts", "require_device"]
 
 _SIM_TABLES = ("Cpl", "Apl", "Bplu", "C", "Mk", "A", "Bu", "SxF", "SstF",
                "ThT", "Vt")
@@ -111,7 +118,7 @@ def spd_factor(M):
     _require(M, (B, n, n), dtype, "M")
     L = torch.empty_like(M)
     _build.check(_build.library().mpc_spd_factor(
-        int(dtype == torch.float64), M.data_ptr(), L.data_ptr(), B, n,
+        int(dtype == torch.float64), 0, M.data_ptr(), L.data_ptr(), B, n,
         _stream(M)), "spd_factor")
     spd_factor.launches += 1
     return L
@@ -144,7 +151,7 @@ def spd_factor_solve(L, rhs):
     _require(rhs, (B, n), dtype, "rhs")
     x = torch.empty_like(rhs)
     _build.check(_build.library().mpc_spd_factor_solve(
-        int(dtype == torch.float64), L.data_ptr(), rhs.data_ptr(),
+        int(dtype == torch.float64), 0, L.data_ptr(), rhs.data_ptr(),
         x.data_ptr(), B, n, _stream(L)), "spd_factor_solve")
     spd_factor_solve.launches += 1
     return x
@@ -153,9 +160,216 @@ def spd_factor_solve(L, rhs):
 spd_factor_solve.launches = 0
 
 
-# ------------------------------------------------------- whole-sim loops
+# -------------------------------------------------- factor_lanes / solve_lanes
 #
-# Shared inputs of the whole-sim kernels (lane-major, B = candidates):
+# Replace factor_lanes / solve_lanes (mpc_tuning_tpu/ops/pallas_kernels.py,
+# _factor_kernel / _solve_kernel on lane-major blocks), the factor and solve
+# of the per-step engine 'pdip_ws_lanes' (ops/qp.pdip_lanes).  The same
+# one-thread-per-matrix arithmetic as spd_factor / spd_factor_solve, in the
+# lane-major layout (n, n, B) / (n, B): a warp's loads coalesce and the
+# PDIP loop around them needs no transposes (ops/csrc/spd.cu).
+
+
+def factor_lanes_plain(M):
+    """Lower Cholesky factor of a lane-major (n, n, B) SPD batch; a failed
+    factor is all NaN."""
+    return spd_factor_plain(M.permute(2, 0, 1)).permute(1, 2, 0)
+
+
+def factor_lanes(M):
+    """(n, n, B) SPD -> lower factor L (n, n, B), upper triangle zero."""
+    if _on_cpu(M):
+        return factor_lanes_plain(M)
+    dtype = _float_dtype(M)
+    n, B = M.shape[0], M.shape[-1]
+    M = M.contiguous()  # the PDIP's M and rhs may come as strided views
+    _require(M, (n, n, B), dtype, "M")
+    L = torch.empty_like(M)
+    _build.check(_build.library().mpc_spd_factor(
+        int(dtype == torch.float64), 1, M.data_ptr(), L.data_ptr(), B, n,
+        _stream(M)), "factor_lanes")
+    factor_lanes.launches += 1
+    return L
+
+
+factor_lanes.launches = 0
+
+
+def solve_lanes_plain(L, rhs):
+    """x (n, B) with L L' x = rhs; L (n, n, B) lower, rhs (n, B)."""
+    return spd_factor_solve_plain(L.permute(2, 0, 1), rhs.T).T
+
+
+def solve_lanes(L, rhs):
+    """(n, n, B) lower factor, (n, B) rhs -> x (n, B) with L L' x = rhs."""
+    if _on_cpu(L, rhs):
+        return solve_lanes_plain(L, rhs)
+    dtype = _float_dtype(L)
+    n, B = L.shape[0], L.shape[-1]
+    L, rhs = L.contiguous(), rhs.contiguous()
+    _require(L, (n, n, B), dtype, "L")
+    _require(rhs, (n, B), dtype, "rhs")
+    x = torch.empty_like(rhs)
+    _build.check(_build.library().mpc_spd_factor_solve(
+        int(dtype == torch.float64), 1, L.data_ptr(), rhs.data_ptr(),
+        x.data_ptr(), B, n, _stream(L)), "solve_lanes")
+    solve_lanes.launches += 1
+    return x
+
+
+solve_lanes.launches = 0
+
+
+# ------------------------------------------------- single-solve QP kernels
+#
+# One closed-loop step's QP for every candidate lane in one launch, lane-major:
+#   pdip_fused — replaces pdip_fused_lanes / _pdip_fused_kernel: `iters`
+#                warm-started masked Mehrotra iterations (engine
+#                'pdip_ws_fused');
+#   admm_fused — replaces admm_fused_lanes / _admm_fused_kernel: `iters`
+#                warm equilibrated ADMM iterations (engine 'admm_fused').
+# Both run the per-lane device code that the whole-sim kernels run at every
+# step (ops/csrc/lane_qp.cuh; see ops/csrc/qp_fused.cu for what bounds
+# them).  The shared constraint matrix comes as ``g_shared(G0, T2T)``,
+# built once per evaluation.
+
+_QP_CSR = ("g_ptr", "g_col", "g_val", "gt_ptr", "gt_row", "gt_val")
+# argument order of the C launchers (ops/csrc/qp_fused.cu, enums PF_* / AF_*)
+_PDIP_PTRS = _QP_CSR + ("Hp", "f", "h", "rmask", "cmask", "z0", "lam0", "z",
+                        "lam", "s", "work")
+_ADMM_PTRS = _QP_CSR + ("Minv", "fs", "hs", "arow", "acol", "par", "x0",
+                        "zc0", "y0", "x", "zc", "y", "work")
+
+
+def g_shared(G0, T2T=None):
+    """The shared constraint matrix as the single-solve QPs take it: G0
+    (mc, n), its row outer products T2T (n*n, mc) (the plain PDIP's normal
+    matrix; None where no PDIP runs) and the kernels' CSR of G0 by rows and
+    by columns.  The CSR syncs with the host: build this once per
+    evaluation, not per step."""
+    csr = _csr(G0) + _csr(G0.T.contiguous())
+    return dict(zip(_QP_CSR, csr), G0=G0, T2T=T2T)
+
+
+def _launch_qp(fn, ptr_count, names, bufs, dims, scal, dtype, what):
+    if ptr_count() != len(names) or \
+            _build.library().mpc_qp_fused_dim_count() != len(dims):
+        raise RuntimeError(f"{what} argument layout mismatch")
+    ptrs = (ctypes.c_void_p * len(names))(
+        *[bufs[k].data_ptr() if bufs[k].numel() else None for k in names])
+    _build.check(fn(int(dtype == torch.float64), ptrs,
+                    (ctypes.c_int * len(dims))(*dims),
+                    (ctypes.c_double * len(scal))(*scal),
+                    _stream(bufs["work"])), what)
+
+
+def _require_g(G, dtype, mc, n, device):
+    _require(G["G0"], (mc, n), dtype, "G0")
+    for k in _QP_CSR:
+        if G[k].device != device:
+            raise ValueError(f"{k}: on {G[k].device}, expected {device}")
+
+
+def pdip_fused_plain(Hp, f, h, rmask, cmask, warm, G, iters):
+    """Plain version of ``pdip_fused``: ``ops/qp.pdip_lanes`` with the
+    plain factor and solve and G's dense T2T."""
+    from mpc_tuning_tpu_torch.ops.qp import pdip_lanes
+
+    return pdip_lanes(Hp, f, G["G0"], G["T2T"], rmask, cmask, h, iters, warm,
+                      factor=factor_lanes_plain, solve=solve_lanes_plain)
+
+
+def pdip_fused(Hp, f, h, rmask, cmask, warm, G, iters):
+    """One masked PDIP solve per lane, all `iters` Mehrotra iterations in
+    one launch: Hp (n, n, B), f (n, B), h / rmask (mc, B), cmask (n, B),
+    warm = (z0 (n, B), lam0 (mc, B)) (the slacks are recomputed from h,
+    duals and slacks floored at WS_EPS), G = ``g_shared(G0, ...)``.
+    Returns the best iterate by merit, (z, lam, s)."""
+    if _on_cpu(Hp, f):
+        return pdip_fused_plain(Hp, f, h, rmask, cmask, warm, G, iters)
+    from mpc_tuning_tpu_torch.ops.qp import WS_EPS, pdip_constants
+
+    dtype = _float_dtype(f)
+    n, B = f.shape
+    mc = h.shape[0]
+    _require(Hp, (n, n, B), dtype, "Hp")
+    for k, x, rows in (("f", f, n), ("h", h, mc), ("rmask", rmask, mc),
+                       ("cmask", cmask, n), ("z0", warm[0], n),
+                       ("lam0", warm[1], mc)):
+        _require(x, (rows, B), dtype, k)
+    _require_g(G, dtype, mc, n, f.device)
+    lib = _build.library()
+    kw = dict(dtype=dtype, device=f.device)
+    z, lam, s = (torch.empty((rows, B), **kw) for rows in (n, mc, mc))
+    work = torch.empty((lib.mpc_pdip_fused_work_rows(n, mc) * B,), **kw)
+    bufs = dict(G, Hp=Hp, f=f, h=h, rmask=rmask, cmask=cmask, z0=warm[0],
+                lam0=warm[1], z=z, lam=lam, s=s, work=work)
+    ridge, w_cap = pdip_constants(dtype)
+    _launch_qp(lib.mpc_pdip_fused, lib.mpc_pdip_fused_ptr_count, _PDIP_PTRS,
+               bufs, (B, n, mc, iters), (WS_EPS, ridge, w_cap), dtype,
+               "pdip_fused")
+    pdip_fused.launches += 1
+    return z, lam, s
+
+
+pdip_fused.launches = 0
+
+
+def admm_fused_plain(Minv_t, fs, hs, arow, acol, par, state, G, iters,
+                     sigma, over_relax):
+    """Plain version of ``admm_fused``: the iterations as batched torch
+    code against G's dense G0."""
+    G0 = G["G0"]
+    rho, rho_inv = par[0:1], par[1:2]
+    x, zc, yd = state
+    for _ in range(iters):
+        rhs = sigma * x - fs + acol * (G0.T @ (arow * (rho * zc - yd)))
+        x = torch.einsum("ijb,jb->ib", Minv_t, rhs)
+        gx_r = over_relax * (arow * (G0 @ (acol * x))) + (1.0 - over_relax) * zc
+        z_new = torch.minimum(gx_r + yd * rho_inv, hs)
+        yd = yd + rho * (gx_r - z_new)
+        zc = z_new
+    return x, zc, yd
+
+
+def admm_fused(Minv_t, fs, hs, arow, acol, par, state, G, iters, sigma,
+               over_relax):
+    """`iters` warm equilibrated ADMM iterations per lane in one launch,
+    in scaled coordinates: Minv_t (n, n, B) = (Hs + sigma I + rho Gs'Gs)^-1
+    with Gs = diag(arow) G0 diag(acol), fs (n, B), hs (mc, B), arow
+    (mc, B), acol (n, B), par (2, B) = (rho, 1 / rho), state = (x (n, B),
+    zc (mc, B), y (mc, B)), G = ``g_shared(G0)``.  Returns the new state."""
+    if _on_cpu(Minv_t, fs):
+        return admm_fused_plain(Minv_t, fs, hs, arow, acol, par, state, G,
+                                iters, sigma, over_relax)
+    dtype = _float_dtype(fs)
+    n, B = fs.shape
+    mc = hs.shape[0]
+    _require(Minv_t, (n, n, B), dtype, "Minv")
+    for k, x, rows in (("fs", fs, n), ("hs", hs, mc), ("arow", arow, mc),
+                       ("acol", acol, n), ("par", par, 2), ("x0", state[0], n),
+                       ("zc0", state[1], mc), ("y0", state[2], mc)):
+        _require(x, (rows, B), dtype, k)
+    _require_g(G, dtype, mc, n, fs.device)
+    lib = _build.library()
+    kw = dict(dtype=dtype, device=fs.device)
+    x, zc, y = (torch.empty((rows, B), **kw) for rows in (n, mc, mc))
+    bufs = dict(G, Minv=Minv_t, fs=fs, hs=hs, arow=arow, acol=acol, par=par,
+                x0=state[0], zc0=state[1], y0=state[2], x=x, zc=zc, y=y,
+                work=torch.empty((n * B,), **kw))
+    _launch_qp(lib.mpc_admm_fused, lib.mpc_admm_fused_ptr_count, _ADMM_PTRS,
+               bufs, (B, n, mc, iters), (sigma, over_relax), dtype,
+               "admm_fused")
+    admm_fused.launches += 1
+    return x, zc, y
+
+
+admm_fused.launches = 0
+
+
+# ------------------------------------------------------------ closed loops
+#
+# Shared inputs of the closed loops (lane-major, B = candidates):
 #   tables:  Cpl (ny, nxp), Apl (nxp, nxp), Bplu (nxp, nu), C (ny, nxa),
 #            Mk (nxa, ny), A (nxa, nxa), Bu (nxa, nu), SxF (pny, nxa),
 #            SstF (pny, nu), ThT (n, pny), G0 (mc, n), Vt (nv, nit) with
@@ -168,7 +382,7 @@ spd_factor_solve.launches = 0
 # Both return Y (nit, ny, B) raw plant outputs (before the step's update)
 # and U (nit, nu, B) applied inputs.
 #
-# The plain versions take ``u_follow`` (nit, nu, B): when given, the loop
+# ``step_loop`` takes ``u_follow`` (nit, nu, B): when given, the loop
 # still computes and returns its own U[k] from its own QP solve, but steps
 # the model and the plant with u_follow[k].  Fed a kernel's U, the plain
 # version then meets every step in the state the kernel met it in, so the
@@ -221,73 +435,94 @@ def _u_rows(u_prev, m_max, mc):
     return torch.cat([u_prev.repeat(4 * m_max, 1), pad], dim=0)
 
 
-def _sim_state(t, r_l, nu):
+def step_loop(tables, lane_consts, r_l, dims, solve, warm, u_follow=None):
+    """The closed loop as a Python loop over the steps of r_l: plant
+    output, Kalman update, free response and tracking error, then
+    ``solve(k, err, free, u_prev, warm) -> (du, warm)`` (the step's QP,
+    warm-started from the previous step's state), then the input update
+    and the model and plant step (on ``u_follow[k]`` when given).
+    Returns (Y (nit, ny, B), U (nit, nu, B))."""
+    t, lc = tables, lane_consts
     nit, ny, B = r_l.shape
+    nu = dims["nu"]
     kw = dict(dtype=r_l.dtype, device=r_l.device)
-    return (torch.empty((nit, ny, B), **kw), torch.empty((nit, nu, B), **kw),
-            torch.zeros((t["Apl"].shape[0], B), **kw),
-            torch.zeros((t["A"].shape[0], B), **kw),
-            torch.zeros((nu, B), **kw))
+    Y, U = torch.empty((nit, ny, B), **kw), torch.empty((nit, nu, B), **kw)
+    x_pl = torch.zeros((t["Apl"].shape[0], B), **kw)
+    xhp = torch.zeros((t["A"].shape[0], B), **kw)
+    u_prev = torch.zeros((nu, B), **kw)
+    for k in range(nit):
+        y, x_hat, free, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
+        Y[k] = y
+        du, warm = solve(k, err, free, u_prev, warm)
+        U[k], u_prev, xhp, x_pl = _sim_post(t, lc, k, x_hat, x_pl,
+                                            u_prev + du, ny, u_follow)
+    return Y, U
+
+
+def pdip_step(tables, lane_consts, Hp_t, dims, G, iters, qp):
+    """The per-step solve of the warm PDIP engines for ``step_loop``: the
+    step's f and h from the lane constants, then ``qp(Hp_t, f, h, rmask,
+    cmask, (z0, lam0), G, iters) -> (z, lam, s)`` (``pdip_fused``, its
+    plain version, or the factor/solve engine); the best (z, lam) is the
+    next step's warm pair, from (0, 1).  Returns (solve, warm)."""
+    t, lc = tables, lane_consts
+    nu, n, mc, m_max = (dims[k] for k in ("nu", "n", "mc", "m_max"))
+    rmask, cmask = lc["rmask"], lc["cmask"]
+
+    def solve(k, err, free, u_prev, warm):
+        f = cmask * (-2.0 * (t["ThT"] @ err))
+        h = lc["hbase"] + lc["su"] * _u_rows(u_prev, m_max, mc)
+        z, lam, _ = qp(Hp_t, f, h, rmask, cmask, warm, G, iters)
+        return z[:nu], (z, lam)
+
+    B = Hp_t.shape[2]
+    kw = dict(dtype=Hp_t.dtype, device=Hp_t.device)
+    return solve, (torch.zeros((n, B), **kw), torch.ones((mc, B), **kw))
+
+
+def admm_step(tables, lane_consts, Minv_t, dims, G, iters, sigma, over_relax,
+              qp):
+    """The per-step solve of the warm ADMM engines for ``step_loop``: the
+    step's scaled fs and hs, then ``qp(Minv_t, fs, hs, arow, acol, par,
+    (x, zc, y), G, iters, sigma, over_relax)`` (``admm_fused`` or its plain
+    version); the state carries over in scaled coordinates, from zeros.
+    Returns (solve, warm)."""
+    t, lc = tables, lane_consts
+    nu, n, mc, m_max = (dims[k] for k in ("nu", "n", "mc", "m_max"))
+    Dinv, ev = lc["Dinv"], lc["e"]
+
+    def solve(k, err, free, u_prev, warm):
+        fs = -2.0 * (t["ThT"] @ err) * Dinv
+        hs = (lc["hbase"] + lc["su"] * _u_rows(u_prev, m_max, mc)) * ev
+        warm = qp(Minv_t, fs, hs, lc["arow"], lc["acol"], lc["par"], warm, G,
+                  iters, sigma, over_relax)
+        return (warm[0] * Dinv)[:nu], warm
+
+    B = Minv_t.shape[2]
+    kw = dict(dtype=Minv_t.dtype, device=Minv_t.device)
+    return solve, (torch.zeros((n, B), **kw), torch.zeros((mc, B), **kw),
+                   torch.zeros((mc, B), **kw))
 
 
 def closed_sim_admm_plain(tables, lane_consts, Minv_t, r_l, nit, iters,
                           sigma, over_relax, dims, u_follow=None):
-    """Plain version of ``closed_sim_admm``: the same loop as batched torch
-    code, a Python loop over steps and ADMM iterations."""
-    t, lc = tables, lane_consts
-    ny, nu, n, mc, m_max = (dims[k] for k in ("ny", "nu", "n", "mc", "m_max"))
-    B = r_l.shape[2]
-    Y, U, x_pl, xhp, u_prev = _sim_state(t, r_l, nu)
-    G0 = t["G0"]
-    arow, acol, Dinv, ev = lc["arow"], lc["acol"], lc["Dinv"], lc["e"]
-    rho, rho_inv = lc["par"][0:1], lc["par"][1:2]
-    x = torch.zeros((n, B), dtype=r_l.dtype, device=r_l.device)
-    zc = torch.zeros((mc, B), dtype=r_l.dtype, device=r_l.device)
-    yd = torch.zeros_like(zc)
-    for k in range(nit):
-        y, x_hat, _, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
-        Y[k] = y
-        fs = -2.0 * (t["ThT"] @ err) * Dinv
-        hs = (lc["hbase"] + lc["su"] * _u_rows(u_prev, m_max, mc)) * ev
-        for _ in range(iters):
-            rhs = sigma * x - fs + acol * (G0.T @ (arow * (rho * zc - yd)))
-            x = torch.einsum("ijb,jb->ib", Minv_t, rhs)
-            gx_r = over_relax * (arow * (G0 @ (acol * x))) + (1.0 - over_relax) * zc
-            z_new = torch.minimum(gx_r + yd * rho_inv, hs)
-            yd = yd + rho * (gx_r - z_new)
-            zc = z_new
-        u_s = u_prev + (x * Dinv)[:nu]
-        U[k], u_prev, xhp, x_pl = _sim_post(t, lc, k, x_hat, x_pl, u_s, ny,
-                                            u_follow)
-    return Y, U
+    """Plain version of ``closed_sim_admm``: ``step_loop`` with the plain
+    ADMM solve per step."""
+    G = g_shared(tables["G0"])
+    solve, warm = admm_step(tables, lane_consts, Minv_t, dims, G, iters,
+                            sigma, over_relax, admm_fused_plain)
+    return step_loop(tables, lane_consts, r_l, dims, solve, warm, u_follow)
 
 
 def closed_sim_pdip_plain(tables, lane_consts, Hp_t, r_l, nit, iters, dims,
                           u_follow=None):
-    """Plain version of ``closed_sim_pdip``: per step the PDIP of
-    ``ops/qp.pdip_lanes``, warm-started from the previous step's best
-    iterate (z, lam), with the plain factor and solve."""
-    from mpc_tuning_tpu_torch.ops.qp import pdip_lanes
-
-    t, lc = tables, lane_consts
-    ny, nu, n, mc, m_max = (dims[k] for k in ("ny", "nu", "n", "mc", "m_max"))
-    B = r_l.shape[2]
-    kw = dict(dtype=r_l.dtype, device=r_l.device)
-    Y, U, x_pl, xhp, u_prev = _sim_state(t, r_l, nu)
-    rmask, cmask = lc["rmask"], lc["cmask"]
-    warm = (torch.zeros((n, B), **kw), torch.ones((mc, B), **kw))
-    for k in range(nit):
-        y, x_hat, _, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
-        Y[k] = y
-        f = cmask * (-2.0 * (t["ThT"] @ err))
-        h = lc["hbase"] + lc["su"] * _u_rows(u_prev, m_max, mc)
-        warm = pdip_lanes(Hp_t, f, t["G0"], t["T2T"], rmask, cmask, h, iters,
-                          warm, factor=spd_factor_plain,
-                          solve=spd_factor_solve_plain)[:2]
-        u_s = u_prev + warm[0][:nu]
-        U[k], u_prev, xhp, x_pl = _sim_post(t, lc, k, x_hat, x_pl, u_s, ny,
-                                            u_follow)
-    return Y, U
+    """Plain version of ``closed_sim_pdip``: ``step_loop`` with the plain
+    PDIP solve per step (``ops/qp.pdip_lanes``, warm-started from the
+    previous step's best iterate (z, lam))."""
+    G = g_shared(tables["G0"], tables["T2T"])
+    solve, warm = pdip_step(tables, lane_consts, Hp_t, dims, G, iters,
+                            pdip_fused_plain)
+    return step_loop(tables, lane_consts, r_l, dims, solve, warm, u_follow)
 
 
 def _csr(G):
@@ -324,8 +559,7 @@ def _launch_sim(pdip: bool, tables, lc, Hm, r_l, nit, iters, dims, scal,
     _require(r_l, (nit, ny, B), dtype, "r_l")
 
     lib = _build.library()
-    g_ptr, g_col, g_val = _csr(tables["G0"])
-    gt_ptr, gt_row, gt_val = _csr(tables["G0"].T.contiguous())
+    G = g_shared(tables["G0"])
     dim_vals = dict(B=B, nit=nit, iters=iters, ny=ny, nu=nu, nxa=nxa, nxp=nxp,
                     pny=pny, n=n, mc=mc, m_max=m_max)
     dims_c = (ctypes.c_int * len(_SIM_DIMS))(*[dim_vals[k] for k in _SIM_DIMS])
@@ -337,8 +571,7 @@ def _launch_sim(pdip: bool, tables, lc, Hm, r_l, nit, iters, dims, scal,
     Y = torch.empty((nit, ny, B), **kw)
     U = torch.empty((nit, nu, B), **kw)
     work = torch.empty((rows * B,), **kw)
-    bufs = dict(tables, g_ptr=g_ptr, g_col=g_col, g_val=g_val, gt_ptr=gt_ptr,
-                gt_row=gt_row, gt_val=gt_val, r=r_l, q=lc["q"],
+    bufs = dict(tables, **{k: G[k] for k in _QP_CSR}, r=r_l, q=lc["q"],
                 hbase=lc["hbase"], su=lc["su"], rowm=lc[row_key],
                 colm=lc[col_key], sfy=lc["sfy"], sfu=lc["sfu"], Hm=Hm, Y=Y,
                 U=U, work=work)
@@ -415,28 +648,25 @@ closed_sim_pdip.launches = 0
 
 def closed_sim_band_plain(tables, lane_consts, Hp_t, r_l, nit, lp_iters,
                           s2_iters, dims, u_follow=None):
-    """Plain version of ``closed_sim_band``: per step the slack seeding,
-    the stage-0 slack LP and the slack-frozen stage 2, each a
-    ``ops/qp.pdip_lanes`` solve with the plain factor and solve; the LP's
-    best (z, lam) is the next step's warm pair.  Returns (Y, U, E)."""
+    """Plain version of ``closed_sim_band``: ``step_loop`` with, per step,
+    the slack seeding, the stage-0 slack LP and the slack-frozen stage 2,
+    each a ``ops/qp.pdip_lanes`` solve with the plain factor and solve; the
+    LP's best (z, lam) is the next step's warm pair.  Returns (Y, U, E)."""
     from mpc_tuning_tpu_torch.ops.qp import pdip_lanes, seed_slack, split_stage2
 
     t, lc = tables, lane_consts
-    ny, nu, n, mc, m_max = (dims[k] for k in ("ny", "nu", "n", "mc", "m_max"))
+    nu, n, mc, m_max = (dims[k] for k in ("nu", "n", "mc", "m_max"))
     B = r_l.shape[2]
     kw = dict(dtype=r_l.dtype, device=r_l.device)
-    Y, U, x_pl, xhp, u_prev = _sim_state(t, r_l, nu)
     G0, T2T, rmask, cmask = t["G0"], t["T2T"], lc["rmask"], lc["cmask"]
     H_lp = torch.diag_embed(lc["lpd"].T).permute(1, 2, 0)
     f_lp = torch.zeros((n, B), **kw)
     f_lp[-1] = 1.0
-    plain = dict(factor=spd_factor_plain, solve=spd_factor_solve_plain)
+    plain = dict(factor=factor_lanes_plain, solve=solve_lanes_plain)
     zero1 = torch.zeros((1, B), **kw)
-    warm = (torch.zeros((n, B), **kw), torch.ones((mc, B), **kw))
-    E = torch.empty((nit, B), **kw)
-    for k in range(nit):
-        y, x_hat, free, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
-        Y[k] = y
+    E = torch.empty((r_l.shape[0], B), **kw)
+
+    def solve(k, err, free, u_prev, warm):
         f = cmask * (-2.0 * (t["ThT"] @ err))
         h = torch.cat([lc["hbu"] + lc["su"] * u_prev.repeat(4 * m_max, 1),
                        lc["hbyh"] - lc["rmyh"] * free,
@@ -448,9 +678,10 @@ def closed_sim_band_plain(tables, lane_consts, Hp_t, r_l, nit, lp_iters,
         E[k] = ehat[0]
         z = pdip_lanes(Hp_t, f, G0, T2T, rmask, lc["cmask2"], h2, s2_iters,
                        (z2, warm[1]), **plain)[0]
-        u_s = u_prev + z[:nu]
-        U[k], u_prev, xhp, x_pl = _sim_post(t, lc, k, x_hat, x_pl, u_s, ny,
-                                            u_follow)
+        return z[:nu], warm
+
+    warm = (torch.zeros((n, B), **kw), torch.ones((mc, B), **kw))
+    Y, U = step_loop(t, lc, r_l, dims, solve, warm, u_follow)
     return Y, U, E
 
 
@@ -587,7 +818,8 @@ def closed_sim_band(tables, lane_consts, Hp_t, r_l, nit, lp_iters, s2_iters,
 
 closed_sim_band.launches = 0
 
-_WRAPPERS = (spd_factor, spd_factor_solve, closed_sim_admm, closed_sim_pdip,
+_WRAPPERS = (spd_factor, spd_factor_solve, factor_lanes, solve_lanes,
+             pdip_fused, admm_fused, closed_sim_admm, closed_sim_pdip,
              closed_sim_band)
 
 

@@ -8,9 +8,11 @@ the JAX package's ``ops/qp.py``.
   best-iterate-by-merit return, for the masked-constraint MPC QP
   G = diag(rmask) G0 diag(cmask_z).  Its public face takes the batch as
   the leading axis; the algorithm itself is ``pdip_lanes`` (batch last),
-  which the whole-sim plain version also runs at every step.  The
-  reduced-system Cholesky factor and solves go through the hand-written
-  ``spd_factor`` / ``spd_factor_solve`` kernels (ops/kernels.py).
+  which the per-step engine 'pdip_ws_lanes' and the plain PDIP versions
+  also run at every step.  The reduced-system Cholesky factor and solves
+  go through hand-written kernels (ops/kernels.py): ``spd_factor`` /
+  ``spd_factor_solve`` here, ``factor_lanes`` / ``solve_lanes`` in
+  'pdip_ws_lanes'.
 * ``seed_slack`` / ``split_stage2`` — the band cases' eps-split around
   two ``pdip_lanes`` solves: the stage-0 slack LP's warm start and the
   slack-frozen stage 2.
@@ -27,7 +29,8 @@ from __future__ import annotations
 
 import torch
 
-from mpc_tuning_tpu_torch.ops.kernels import spd_factor, spd_factor_solve
+from mpc_tuning_tpu_torch.ops.kernels import (factor_lanes, solve_lanes,
+                                              spd_factor, spd_factor_solve)
 
 __all__ = ["solve_qp_masked", "pdip_lanes", "admm_precompute", "WS_EPS",
            "pdip_constants", "seed_slack", "split_margins",
@@ -61,24 +64,37 @@ def solve_qp_masked(H, f, G0, T2, rmask, cmask_z, h, iters: int = 30,
     constraint matrix G0 (mc, n) and its row outer products T2 (mc, n*n)
     are shared.  ``init`` = (z0, lam0, s0) warm-starts (s0 is recomputed
     from h); None is the cold start.  Returns (z, lam, s), each (B, .).
-    The batch-first face of ``pdip_lanes``, with the SPD kernels.
+    The batch-first face of ``pdip_lanes``, with the batch-major SPD
+    kernels.
     """
     warm = None if init is None else (init[0].T, init[1].T)
     out = pdip_lanes(H.permute(1, 2, 0), f.T, G0, T2.T, rmask.T, cmask_z.T,
-                     h.T, iters, warm)
+                     h.T, iters, warm, factor=_spd_factor_t,
+                     solve=_spd_solve_t)
     return tuple(x.T for x in out)
 
 
+def _spd_factor_t(M):
+    """Lane-major (n, n, B) -> the batch-major factor (B, n, n)."""
+    return spd_factor(M.permute(2, 0, 1).contiguous())
+
+
+def _spd_solve_t(L, rhs):
+    """Batch-major factor (B, n, n), lane-major rhs (n, B) -> x (n, B)."""
+    return spd_factor_solve(L, rhs.T.contiguous()).T
+
+
 def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
-               factor=spd_factor, solve=spd_factor_solve):
+               factor=factor_lanes, solve=solve_lanes):
     """Masked Mehrotra PDIP, lane-major: the batch B is the last axis.
 
     Hp (n, n, B), f (n, B), rmask (mc, B), cmask (n, B), h (mc, B), shared
     G0 (mc, n) and T2T (n*n, mc).  ``warm`` = (z0, lam0) warm-starts the
     solve (s from h, duals and slacks floored at WS_EPS); None is the cold
-    start.  ``factor`` / ``solve`` take the batch-first (B, n, n) / (B, n)
-    layout: the kernels by default, their plain versions in the whole-sim
-    plain version.  Returns the best iterate by merit, (z, lam, s).
+    start.  ``factor(M (n, n, B)) -> L`` and ``solve(L, rhs (n, B)) -> x
+    (n, B)``: the lane-major kernels by default (the 'pdip_ws_lanes'
+    engine), their plain versions in the plain versions of the other PDIP
+    kernels.  Returns the best iterate by merit, (z, lam, s).
 
     Masked rows are exact no-ops: their duals are pinned to zero and mu
     normalises by the active row count.  Every reduction runs over axis 0,
@@ -102,11 +118,8 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
                  + torch.sqrt((r_p * r_p).sum(0, keepdim=True)) + gap)
         return r_d, r_p, gap, merit
 
-    def solve_t(L, rhs):
-        return solve(L, rhs.T.contiguous()).T
-
     nact = torch.clamp_min(rmask.sum(0, keepdim=True), 1.0)
-    eps_c = torch.tensor(WS_EPS, **kw)
+    eps_c = torch.full((), WS_EPS, **kw)  # a fill: no host-device copy
     if warm is None:
         z = torch.zeros_like(f)
         s = torch.maximum(h - Gmat(z), torch.ones_like(h))
@@ -117,7 +130,7 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
         lam = torch.maximum(warm[1], eps_c) * rmask
 
     ridge, w_cap = pdip_constants(f.dtype)
-    w_cap = torch.tensor(w_cap, **kw)
+    w_cap = torch.full((), w_cap, **kw)
     ridge_eye = ridge * torch.eye(n, **kw)[:, :, None]
     cc = cmask[:, None, :] * cmask[None, :, :]
 
@@ -136,9 +149,9 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
 
         w = torch.minimum(lam / s, w_cap) * rmask
         M = Hp + (T2T @ w).reshape(n, n, B) * cc + ridge_eye
-        L = factor(M.permute(2, 0, 1).contiguous())
+        L = factor(M)
 
-        dz_aff = solve_t(L, -r_d + GTmat(lam - w * r_p))
+        dz_aff = solve(L, -r_d + GTmat(lam - w * r_p))
         ds_aff = -(r_p + Gmat(dz_aff))
         dlam_aff = -(lam * s + lam * ds_aff) / s * rmask
         a_aff = torch.minimum(_max_step(s, ds_aff), _max_step(lam, dlam_aff))
@@ -148,7 +161,7 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
         sigma = sig_r * sig_r * sig_r
 
         r_cent = (lam * s - sigma * mu + dlam_aff * ds_aff) * rmask
-        dz = solve_t(L, -r_d + GTmat(r_cent / s - w * r_p))
+        dz = solve(L, -r_d + GTmat(r_cent / s - w * r_p))
         ds = -(r_p + Gmat(dz))
         dlam = -(r_cent + lam * ds) / s * rmask
         a = torch.minimum(_max_step(s, ds), _max_step(lam, dlam))

@@ -4,16 +4,26 @@ the JAX package's ``sim/mpc_loop.py``).
 * closed loop = per step [Kalman update -> condensed QP -> first move ->
   plant step] (the reference's toolbox ``sim(mpcobj, nit, r, v)``,
   MPC-Tuning/MPC_Tuning/closedloop_toolbox.m:50), run for a whole candidate
-  batch by one of three whole-sim engines:
+  batch by one of three whole-sim engines, the whole loop in one launch:
     'admm_sim' — warm equilibrated ADMM per step (ops/kernels.closed_sim_admm);
     'pdip_sim' — warm masked Mehrotra PDIP per step
                  (ops/kernels.closed_sim_pdip);
     'band_sim' — the band (y-constrained) cases' eps-split solve per step:
                  slack seeding, a BAND_LP_ITERS stage-0 slack LP, then a
                  BAND_S2_ITERS slack-frozen stage-2 PDIP (the JAX package's
-                 '+lp20+split12'; ops/kernels.closed_sim_band).
-  Tracking cases run 'admm_sim' or 'pdip_sim', band cases only 'band_sim'
-  and only at float64; any other pairing raises.
+                 '+lp20+split12'; ops/kernels.closed_sim_band);
+  or by one of three per-step engines (the JAX package's scan engines), a
+  Python loop over steps (ops/kernels.step_loop) with one QP launch per
+  step, the same algorithms as the whole-sim engines:
+    'pdip_ws_fused' — the warm PDIP, all iterations in one launch
+                      (ops/kernels.pdip_fused);
+    'pdip_ws_lanes' — the warm PDIP as torch ops around the lane-major
+                      factor and solve kernels (ops/qp.pdip_lanes with
+                      ops/kernels.factor_lanes / solve_lanes);
+    'admm_fused'    — the warm ADMM, all iterations in one launch
+                      (ops/kernels.admm_fused).
+  Tracking cases run every engine but 'band_sim', band cases only
+  'band_sim' and only at float64; any other pairing raises.
 * open loop = solve the QP once from rest with the final setpoint and play
   the optimal sequence through the model (closedloop_toolbox.m:83-100); band
   cases solve it as the cold slack LP plus a stage 2 of ``qp_iters``.
@@ -31,8 +41,11 @@ import numpy as np
 import torch
 
 from mpc_tuning_tpu_torch.models.lti import DiscreteSS
-from mpc_tuning_tpu_torch.ops.kernels import (closed_sim_admm, closed_sim_band,
-                                              closed_sim_pdip, require_device)
+from mpc_tuning_tpu_torch.ops.kernels import (admm_fused, admm_step,
+                                              closed_sim_admm, closed_sim_band,
+                                              closed_sim_pdip, g_shared,
+                                              pdip_fused, pdip_step,
+                                              require_device, step_loop)
 from mpc_tuning_tpu_torch.ops.mpc_qp import (
     MPCController,
     assemble_candidate,
@@ -40,12 +53,16 @@ from mpc_tuning_tpu_torch.ops.mpc_qp import (
     pin_precision,
     qp_step_data,
 )
-from mpc_tuning_tpu_torch.ops.qp import solve_qp_masked, split_stage2
+from mpc_tuning_tpu_torch.ops.qp import pdip_lanes, solve_qp_masked, split_stage2
 
-__all__ = ["MPCLoop", "horizon_caps", "ENGINES", "sim_inputs", "run_whole_sim",
-           "BAND_LP_ITERS", "BAND_S2_ITERS", "require_band_dtype"]
+__all__ = ["MPCLoop", "horizon_caps", "ENGINES", "STEP_ENGINES", "sim_inputs",
+           "run_engine", "step_engine", "BAND_LP_ITERS", "BAND_S2_ITERS",
+           "require_band_dtype"]
 
-ENGINES = ("admm_sim", "pdip_sim", "band_sim")
+STEP_ENGINES = ("pdip_ws_fused", "pdip_ws_lanes", "admm_fused")
+ENGINES = ("admm_sim", "pdip_sim", "band_sim") + STEP_ENGINES
+# warm ADMM constants of 'admm_sim' and 'admm_fused' (the JAX package's)
+ADMM_SIGMA, ADMM_OVER_RELAX = 1e-6, 1.6
 
 # iteration counts of the band engine's two stages (JAX '+lp20+split12')
 BAND_LP_ITERS = 20
@@ -156,8 +173,8 @@ class MPCLoop:
     # ------------------------------------------------- batched tuning API
     def sim_inputs(self, r_b, v, N_b, Nu_b, delta_b, lam_b, nit, dtype,
                    engine: str = "pdip_sim", device="cuda", caps=None):
-        """Inputs of the whole-sim kernel of ``engine`` for a candidate
-        batch: (tables, lane_consts, Minv_t or Hp_t, r_l, dims)."""
+        """Inputs of ``engine`` for a candidate batch: (tables, lane_consts,
+        Minv_t or Hp_t, r_l, dims)."""
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; use one of {ENGINES}")
         band = self.ctl.spec.has_y_constraints
@@ -166,7 +183,7 @@ class MPCLoop:
                 f"engine {engine!r} does not run "
                 f"{'y-constrained (band)' if band else 'tracking'} cases: "
                 "band cases run 'band_sim' only (the joint PDIP stalls on "
-                "band steps), tracking cases 'admm_sim' or 'pdip_sim'")
+                "band steps), tracking cases every other engine")
         loop, c, N_t, Nu_t, (r_t, v_t, d_t, l_t) = self._batch(
             N_b, Nu_b, caps, dtype, device, np.asarray(r_b)[:, :nit],
             np.asarray(v)[:nit], delta_b, lam_b)
@@ -184,7 +201,7 @@ class MPCLoop:
         U (B, nit, nu)) tensors on ``device``."""
         inputs = self.sim_inputs(r_b, v, N_b, Nu_b, delta_b, lam_b, nit,
                                  dtype, engine, device, caps)
-        return run_whole_sim(engine, *inputs, qp_iters)
+        return run_engine(engine, *inputs, qp_iters)
 
     def open_batch(self, rfin_b, v, N_b, Nu_b, delta_b, lam_b, nit, dtype,
                    qp_iters, device="cuda", caps=None):
@@ -270,11 +287,11 @@ def open_loop_batch(c, r_final, v_final, v_traj, N, Nu, delta, lam,
 def sim_inputs(engine, c, r_b, v, N_b, Nu_b, delta_b, lam_b, p_max, m_max,
                ny, nu, rho):
     """Shared tables, lane constants, per-lane matrices and scaled
-    setpoints of the whole-sim kernel of ``engine`` (the table-building
-    half of the JAX wrappers _closed_sim_fused_body,
-    closed_loop_batch_sim_pdip and closed_loop_batch_sim_band, without the
-    TPU tile padding).  Returns (tables, lane_consts, Minv_t or Hp_t
-    (n, n, B), r_l (nit, ny, B), dims)."""
+    setpoints of ``engine`` (the table-building half of the JAX wrappers
+    _closed_sim_fused_body, closed_loop_batch_sim_pdip and
+    closed_loop_batch_sim_band, without the TPU tile padding); the ADMM
+    engines share one set, the PDIP engines another.  Returns (tables,
+    lane_consts, Minv_t or Hp_t (n, n, B), r_l (nit, ny, B), dims)."""
     dtype, dev = r_b.dtype, r_b.device
     B, nit = r_b.shape[:2]
     n = m_max * nu + 1
@@ -346,7 +363,7 @@ def sim_inputs(engine, c, r_b, v, N_b, Nu_b, delta_b, lam_b, p_max, m_max,
     r_l = (r_b / c["sf_y"][None, None, :]).permute(1, 2, 0).contiguous()
     dims = dict(ny=ny, nu=nu, n=n, mc=c["G0"].shape[0], m_max=m_max)
 
-    if engine == "admm_sim":
+    if engine in ("admm_sim", "admm_fused"):
         pre = cand["admm"]
         Dinv_m = pre["Dinv"] * cand["cmask_z"]  # masked-variable fs/du scale
         lc.update(arow=lanes(pre["e"] * cand["rmask"]), acol=lanes(Dinv_m),
@@ -360,22 +377,27 @@ def sim_inputs(engine, c, r_b, v, N_b, Nu_b, delta_b, lam_b, p_max, m_max,
     return tables, lc, Hm, r_l, dims
 
 
-def run_whole_sim(engine, tables, lane_consts, Hm, r_l, dims, qp_iters):
-    """Run the whole-sim kernel of ``engine`` on its inputs:
-      'admm_sim' — `qp_iters` warm equilibrated ADMM iterations per step
-                   (sigma 1e-6, over-relaxation 1.6) against Minv_t;
-      'pdip_sim' — a warm-started masked PDIP of `qp_iters` iterations per
-                   step against Hp_t; the best iterate (z, lam) is the next
-                   step's warm pair;
+def run_engine(engine, tables, lane_consts, Hm, r_l, dims, qp_iters):
+    """Run ``engine`` on its inputs (``sim_inputs``):
+      'admm_sim' / 'admm_fused' — `qp_iters` warm equilibrated ADMM
+                   iterations per step (sigma ADMM_SIGMA, over-relaxation
+                   ADMM_OVER_RELAX) against Minv_t;
+      'pdip_sim' / 'pdip_ws_fused' / 'pdip_ws_lanes' — a warm-started
+                   masked PDIP of `qp_iters` iterations per step against
+                   Hp_t; the best iterate (z, lam) is the next step's warm
+                   pair;
       'band_sim' — the eps-split band solve per step (BAND_LP_ITERS,
                    BAND_S2_ITERS; `qp_iters` unused); the stage-0 LP's
                    (z, lam) is the next step's warm pair.
     Returns (Y (B, nit, ny), U (B, nit, nu))."""
     nit = r_l.shape[0]
-    if engine == "admm_sim":
+    if engine in STEP_ENGINES:
+        Y, U = step_engine(engine, tables, lane_consts, Hm, r_l, dims,
+                           qp_iters)
+    elif engine == "admm_sim":
         Y, U = closed_sim_admm(tables, lane_consts, Hm, r_l, nit=nit,
-                               iters=qp_iters, sigma=1e-6, over_relax=1.6,
-                               dims=dims)
+                               iters=qp_iters, sigma=ADMM_SIGMA,
+                               over_relax=ADMM_OVER_RELAX, dims=dims)
     elif engine == "band_sim":
         Y, U, _ = closed_sim_band(tables, lane_consts, Hm, r_l, nit=nit,
                                   lp_iters=BAND_LP_ITERS,
@@ -384,3 +406,24 @@ def run_whole_sim(engine, tables, lane_consts, Hm, r_l, dims, qp_iters):
         Y, U = closed_sim_pdip(tables, lane_consts, Hm, r_l, nit=nit,
                                iters=qp_iters, dims=dims)
     return Y.permute(2, 0, 1), U.permute(2, 0, 1)
+
+
+def _pdip_ws_lanes(Hp, f, h, rmask, cmask, warm, G, iters):
+    """The 'pdip_ws_lanes' per-step solve: ops/qp.pdip_lanes with the
+    lane-major factor and solve kernels."""
+    return pdip_lanes(Hp, f, G["G0"], G["T2T"], rmask, cmask, h, iters, warm)
+
+
+def step_engine(engine, tables, lane_consts, Hm, r_l, dims, iters):
+    """The per-step engine ``engine`` (one of STEP_ENGINES): the closed
+    loop of ``ops/kernels.step_loop`` with one QP solve per step through
+    the engine's kernels.  The shared constraint matrix's CSR is built
+    once here, not per step.  Returns (Y (nit, ny, B), U (nit, nu, B))."""
+    G = g_shared(tables["G0"], tables.get("T2T"))
+    if engine == "admm_fused":
+        solve, warm = admm_step(tables, lane_consts, Hm, dims, G, iters,
+                                ADMM_SIGMA, ADMM_OVER_RELAX, admm_fused)
+    else:
+        qp = pdip_fused if engine == "pdip_ws_fused" else _pdip_ws_lanes
+        solve, warm = pdip_step(tables, lane_consts, Hm, dims, G, iters, qp)
+    return step_loop(tables, lane_consts, r_l, dims, solve, warm)

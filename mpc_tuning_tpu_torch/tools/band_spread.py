@@ -30,7 +30,8 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["BAND_CAPS", "BAND_LIMITS", "band_inputs", "band_lane_errors",
+__all__ = ["BAND_CAPS", "BAND_LIMITS", "band_candidates", "band_inputs",
+           "band_lane_errors",
            "band_gate", "lane_quantiles", "bound_excess"]
 
 BAND_CAPS = ((32, 4), (127, 2), (127, 15))
@@ -60,17 +61,23 @@ BAND_Y_LIMIT = 1e-8
 QUANTILE_LANES = 64
 
 
-def band_inputs(problem, caps, B, nit, dtype, seed, device="cuda"):
-    """band_sim inputs for B seeded Shell7x5 candidates: delta 0, lambda
-    log-uniform in [1e-3, 3], N and Nu spanning the bucket ``caps`` (lane 0
-    at the bucket's corner).  Returns ((tables, lane_consts, Hp, r_l,
-    dims), N, Nu)."""
+def band_candidates(caps, B, seed):
+    """B seeded Shell7x5 candidates (N, Nu, lambda): lambda log-uniform in
+    [1e-3, 3], N and Nu spanning the bucket ``caps`` (lane 0 at the
+    bucket's corner); delta is 0 (band control)."""
     rng = np.random.default_rng(seed)
     p_cap, m_cap = caps
     N = rng.integers(m_cap + 1, p_cap + 1, size=B)
     Nu = rng.integers(1, m_cap + 1, size=B)
     N[0], Nu[0] = caps
     lam = np.exp(rng.uniform(np.log(1e-3), np.log(3.0), size=(B, 3)))
+    return N, Nu, lam
+
+
+def band_inputs(problem, caps, B, nit, dtype, seed, device="cuda"):
+    """band_sim inputs for the B candidates of ``band_candidates``.
+    Returns ((tables, lane_consts, Hp, r_l, dims), N, Nu)."""
+    N, Nu, lam = band_candidates(caps, B, seed)
     r_b = np.broadcast_to(problem.r[:nit], (B, nit, 7))
     return problem.loop.sim_inputs(r_b, problem.v, N, Nu, np.zeros((B, 7)),
                                    lam, nit, dtype, "band_sim", device,

@@ -49,7 +49,10 @@ def resolve_qp_method(method: str, stage: str = "gam", f64: bool = False,
       * float32, tracking case: GAM -> 'pdip_sim' (ADMM rank-flips the GAM
         objective on extreme CMA weight vectors), VNS -> 'admm_sim' (warm
         40-iteration ADMM preserves the VNS argmin on the WB grid);
-      * float64 (the decision-grade path): both stages -> 'pdip_sim'."""
+      * float64 (the decision-grade path): both stages -> 'pdip_sim'.
+    The per-step engines ('pdip_ws_fused', 'pdip_ws_lanes', 'admm_fused':
+    the JAX package's engines under a candidate mesh, and its float64
+    decision-grade 'pdip_ws_lanes') run only when named."""
     if method != "auto":
         if method not in ENGINES:
             raise ValueError(f"unknown engine {method!r}; use 'auto' or one "
@@ -86,7 +89,7 @@ class TuningProblem:
     # name overrides it (GAM stage and open leg / VNS closed leg)
     qp_method: str = "auto"
     vns_qp_method: str = "auto"
-    admm_iters: int = 40  # warm ADMM iterations when 'admm_sim' runs
+    admm_iters: int = 40  # warm ADMM iterations when an ADMM engine runs
 
     def __post_init__(self):
         require_device(self.device)
@@ -115,7 +118,8 @@ class TuningProblem:
         engine = resolve_qp_method(raw, stage=stage,
                                    f64=self.dtype == torch.float64,
                                    band=self.loop.ctl.spec.has_y_constraints)
-        iters = self.admm_iters if engine == "admm_sim" else self.qp_iters
+        iters = (self.admm_iters if engine in ("admm_sim", "admm_fused")
+                 else self.qp_iters)
         Y, U = self.loop.closed_batch(
             np.asarray(r_b, dtype=np.float64), self.v, N_b, Nu_b, delta_b,
             lam_b, self.nit, self.dtype, iters, engine=engine,

@@ -1,14 +1,15 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(small Wood-Berry and Shell7x5 shapes).  Skipped on hosts without a CUDA
-device; on a GPU host run
+(small Wood-Berry, Shell7x5 and Shell3x3 shapes).  Skipped on hosts without
+a CUDA device; on a GPU host run
 ``python -m pytest --noconftest tests/test_torch_gpu.py``."""
 
 import numpy as np
 import pytest
 import torch
 
-from mpc_tuning_tpu_torch.cases import shell7x5, woodberry
+from mpc_tuning_tpu_torch.cases import shell3x3, shell7x5, woodberry
 from mpc_tuning_tpu_torch.ops import kernels as K
+from mpc_tuning_tpu_torch.sim import mpc_loop
 from mpc_tuning_tpu_torch.tools.band_spread import (band_gate, band_inputs,
                                                     band_lane_errors)
 from mpc_tuning_tpu_torch.tuning.api import build_problem
@@ -25,15 +26,16 @@ def cuda():
     return "cuda"
 
 
-def _inputs(engine, B=40, nit=60, caps=(64, 8)):
-    problem, _ = build_problem(woodberry.make_case(nit=nit), device="cuda")
+def _inputs(engine, B=40, nit=60, caps=(64, 8), case=woodberry, dtype=F64):
+    problem, _ = build_problem(case.make_case(nit=nit), device="cuda")
     rng = np.random.default_rng(0)
     N = rng.integers(caps[1] + 1, caps[0] + 1, size=B)
     Nu = rng.integers(2, caps[1] + 1, size=B)
-    r_b = np.broadcast_to(problem.r, (B, nit, 2))
+    r_b = np.broadcast_to(problem.r, (B, nit, problem.my))
     return problem.loop.sim_inputs(
-        r_b, problem.v, N, Nu, rng.uniform(0.2, 2.0, (B, 2)),
-        rng.uniform(0.05, 0.5, (B, 2)), nit, F64, engine, "cuda", caps=caps)
+        r_b, problem.v, N, Nu, rng.uniform(0.2, 2.0, (B, problem.my)),
+        rng.uniform(0.05, 0.5, (B, problem.nu)), nit, dtype, engine, "cuda",
+        caps=caps)
 
 
 @pytest.mark.parametrize("n", [5, 17, 31])
@@ -104,3 +106,93 @@ def test_wrong_dtype_or_layout_raises(cuda):
                           dims)
     with pytest.raises(ValueError):
         K.spd_factor(torch.eye(4, device=cuda, dtype=torch.float16)[None])
+
+
+# ------------------------------------------------ the per-step engines' kernels
+
+# single QP solves on identical inputs: max over lanes of |dz| and of
+# |dlam| / max(1, |lam|) (ADMM: x and its duals y), at the max column of
+# chip_smoke.py's QP_LIMITS; the first move at 1e-9 at float64
+QP_MAX = {("pdip_fused", F64): (2.0e-9, 4.0e-4),
+          ("admm_fused", F64): (6.0e-13, 4.2e-14),
+          ("pdip_fused", torch.float32): (1.6e-2, 2.7),
+          ("admm_fused", torch.float32): (3.4e-4, 8.7e-6)}
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("n", [7, 17, 46])
+def test_lanes_kernels_match_plain(cuda, n, dtype):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    A = torch.randn((300, n, n), generator=g, device=cuda, dtype=dtype)
+    M = (A @ A.transpose(1, 2) + n * torch.eye(n, device=cuda, dtype=dtype))
+    M = M.permute(1, 2, 0).contiguous()
+    rhs = torch.randn((n, 300), generator=g, device=cuda, dtype=dtype)
+    before = K.launch_counts()
+    L = K.factor_lanes(M)
+    x = K.solve_lanes(L, rhs)
+    after = K.launch_counts()
+    assert after["factor_lanes"] == before["factor_lanes"] + 1
+    assert after["solve_lanes"] == before["solve_lanes"] + 1
+    Lp = K.factor_lanes_plain(M)
+    xp = K.solve_lanes_plain(L, rhs)
+    tol = 1e-10 if dtype == F64 else 1e-4
+    assert float((L - Lp).abs().max()) <= tol * float(Lp.abs().max())
+    assert float((x - xp).abs().max()) <= tol * float(xp.abs().max())
+
+
+def _step_qp(engine, dtype, take=25):
+    """The single-solve kernel's arguments at step `take` of a Shell3x3
+    loop through ``engine`` (a real step's QPs and warm start)."""
+    t, lc, Hm, r_l, dims = _inputs(engine, B=64, nit=take + 1, caps=(32, 4),
+                                   case=shell3x3, dtype=dtype)
+    G = K.g_shared(t["G0"], t.get("T2T"))
+    kernel = K.admm_fused if engine == "admm_fused" else K.pdip_fused
+    seen = {}
+
+    def qp(*args):
+        seen["args"] = args
+        return kernel(*args)
+
+    if engine == "admm_fused":
+        step = K.admm_step(t, lc, Hm, dims, G, 40, mpc_loop.ADMM_SIGMA,
+                           mpc_loop.ADMM_OVER_RELAX, qp)
+    else:
+        step = K.pdip_step(t, lc, Hm, dims, G, 15, qp)
+    K.step_loop(t, lc, r_l, dims, *step)
+    return seen["args"]
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("engine,name,dual", [
+    ("pdip_ws_fused", "pdip_fused", 1), ("admm_fused", "admm_fused", 2)])
+def test_single_solve_kernels_match_plain(cuda, engine, name, dual, dtype):
+    args = _step_qp(engine, dtype)
+    before = getattr(K, name).launches
+    out_k = getattr(K, name)(*args)
+    assert getattr(K, name).launches == before + 1
+    out_p = getattr(K, name + "_plain")(*args)
+    nu = 3
+    scale = 1.0 if name == "pdip_fused" else args[4][:nu]  # ADMM: x scaled
+    du = float(((out_k[0][:nu] - out_p[0][:nu]) * scale).abs().max())
+    dz = float((out_k[0] - out_p[0]).abs().max())
+    dl = float(((out_k[dual] - out_p[dual]).abs()
+                / out_p[dual].abs().clamp_min(1.0)).max())
+    lim = QP_MAX[(name, dtype)]
+    assert dz <= lim[0] and dl <= lim[1], (dz, dl)
+    assert dtype != F64 or du <= 1e-9, du
+
+
+def test_pdip_ws_fused_follows_pdip_sim(cuda):
+    """The per-step engine and the whole-sim kernel run the same PDIP:
+    stepping on the whole-sim kernel's U, the per-step engine's own U and Y
+    agree with it step by step at float64."""
+    t, lc, Hp, r_l, dims = _inputs("pdip_ws_fused", B=64, nit=80,
+                                   caps=(32, 4), case=shell3x3)
+    Y, U = K.closed_sim_pdip(t, lc, Hp, r_l, r_l.shape[0], 15, dims)
+    G = K.g_shared(t["G0"], t["T2T"])
+    solve, warm = K.pdip_step(t, lc, Hp, dims, G, 15, K.pdip_fused)
+    before = K.pdip_fused.launches
+    Ys, Us = K.step_loop(t, lc, r_l, dims, solve, warm, u_follow=U)
+    assert K.pdip_fused.launches == before + r_l.shape[0]
+    torch.testing.assert_close(Ys, Y, rtol=0, atol=1e-9)
+    torch.testing.assert_close(Us, U, rtol=0, atol=1e-9)

@@ -151,18 +151,20 @@ def test_cpu_tensors_never_launch_and_cuda_request_raises(wb):
     N, Nu, delta, lam = _mixed_candidates(4)
     r_b = np.broadcast_to(pt.r[:NIT], (B, NIT, 2))
     kernels.reset_launches()
-    for engine in ("admm_sim", "pdip_sim"):
+    for engine in ("admm_sim", "pdip_sim", "pdip_ws_fused", "pdip_ws_lanes",
+                   "admm_fused"):
         pt.loop.closed_batch(r_b, pt.v, N, Nu, delta, lam, NIT, F64, 5,
                              engine=engine, device="cpu")
     pt.loop.open_batch(np.ones((B, 2)), pt.v, N, Nu, delta, lam, NIT, F64, 5,
                        device="cpu")
     assert kernels.launch_counts() == {
-        "spd_factor": 0, "spd_factor_solve": 0, "closed_sim_admm": 0,
-        "closed_sim_pdip": 0, "closed_sim_band": 0}
+        "spd_factor": 0, "spd_factor_solve": 0, "factor_lanes": 0,
+        "solve_lanes": 0, "pdip_fused": 0, "admm_fused": 0,
+        "closed_sim_admm": 0, "closed_sim_pdip": 0, "closed_sim_band": 0}
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             pt.loop.closed_batch(r_b, pt.v, N, Nu, delta, lam, NIT, F64, 5,
                                  engine="admm_sim", device="cuda")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # an engine the port does not port
         pt.loop.closed_batch(r_b, pt.v, N, Nu, delta, lam, NIT, F64, 5,
-                             engine="pdip_ws_fused", device="cpu")
+                             engine="hybrid_fused", device="cpu")
