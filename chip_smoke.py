@@ -1,18 +1,17 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # needs one card; about 15 minutes
+    python3 chip_smoke.py            # needs one card; about 14 minutes
 
 Phases, each printing one line (with its wall time):
  1. environment: the card (nvidia-smi name and power limit), torch and CUDA
     versions, and the build of the port's CUDA kernels (one nvcc per
     source, started together);
- 2. every kernel of the three main paths against its plain PyTorch version
-    on the card, the whole-sim kernels step by step (the plain version
+ 2. every kernel of the main paths against its plain PyTorch version on
+    the card, the whole-sim kernels step by step (the plain version
     following the kernel's inputs, ``follow_plain``):
     2a the Wood-Berry kernels in float64 and float32 (caps (64,8) and
-       (127,15), B=1024, nit=120, cut from the case's 400 steps to make
-       room for the band and Shell3x3 rows; SPD factor/solve at n = 5, 17,
-       31);
+       (127,15), B=1024, nit=60, cut from the case's 400 steps to make
+       room for the later rows; SPD factor/solve at n = 5, 17, 31);
     2b the band kernel on Shell7x5 in float64, the only dtype band cases
        run at (caps (32,4), (127,2), (127,15), B=256, nit=200, the seeded
        candidates of tools/band_spread.band_inputs), held at the limits
@@ -22,6 +21,12 @@ Phases, each printing one line (with its wall time):
        kernels on one real Shell3x3 step's QPs (caps (32,4), (127,15),
        B=1024), held at QP_LIMITS, fixed from what two correct runs differ
        by;
+    2d the NMPC slice's kernels in float64 and float32: spd_solve at n = 5,
+       17, 31; nmpc_rollout (Y and its Jacobian J, the plant step, the held
+       playback) on 256 seeded Van de Vusse states at caps (31,15) and
+       (16,2), float32 at ROLLOUT_F32_LIMITS, fixed from what two correct
+       runs differ by; one float64 NMPC closed-loop batch on the card step
+       by step against the plain loop on the CPU;
  3. the first main path: a seeded Wood-Berry hybrid tune in float32 on the
     card through ``mpc_tuning``, with every kernel's launch count, the
     tune's last batch of each whole-sim kernel against the plain version,
@@ -32,7 +37,8 @@ Phases, each printing one line (with its wall time):
     band batch against the plain version, a validity check of the result
     and of ``shell7x5.final_simulation`` on the card;
  3c. the per-step engines' path: a seeded Shell3x3 hybrid tune in float32
-    on the card (the full case: nit 500, nbp/nbc 7/4) through
+    on the card (the full width, nbp/nbc 7/4, at nit 250 of the case's 500:
+    S3_NIT) through
     ``hybrid_tune`` with GAM 'pdip_ws_fused' and VNS 'admm_fused' (no
     joint weight polish), ``shell3x3.final_simulation`` on the card at
     float64 inside the input bounds, the tuned incumbent's VNS
@@ -40,10 +46,19 @@ Phases, each printing one line (with its wall time):
     against the same on the CPU, launch counts, and the tune's last batch
     of each engine against the plain step loop, as it ran (float32) and
     on its inputs cast to float64;
+ 3d. the NMPC path: a seeded Van de Vusse hybrid tune in float64 on the
+    card (the full case: nit 60, nbp/nbc 5/4, substeps 10, SQP 4, QP 25;
+    no joint weight polish), launch counts, its last closed-loop batch
+    against the plain loop on the CPU (Y over every step, U over the
+    windows NMPC_HOLD_WINDOWS), and the tuned controller's
+    closed loop inside the input bounds with Cb ending at its setpoint,
+    printed beside the reference's own tuning;
+ 3e. spd_solve's own path, its public entry point (no tune calls it);
  4. throughput of each kernel, its plain version and, where one PyTorch
-    call computes the same function, that call (recorded, not gated), and
-    one evaluation through each per-step engine beside the whole-sim
-    kernel of the same algorithm.
+    call computes the same function, that call (recorded, not gated), one
+    evaluation through each per-step engine beside the whole-sim kernel
+    of the same algorithm, and one NMPC closed-loop evaluation with its
+    launches and device time.
 Then one JSON line with the per-kernel record, the card's line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero before that line.
@@ -59,7 +74,7 @@ import time
 import numpy as np
 import torch
 
-F64_SIM_GATE = 1e-9      # max |dY|, |dU| kernel vs plain, float64
+F64_SIM_GATE = 1e-9      # max |dY|, |dU| kernel vs plain, float64 (NMPC: scaled)
 F64_SPD_GATE = 1e-10     # max |dL|, |dx|, float64
 F32_SIM_GATE = 1e-3      # max |dY|, |dU|, float32
 F32_SPD_GATE = 1e-4      # max |dL| / max |L|, max |dx| / max |x|, float32
@@ -121,6 +136,12 @@ SOURCES = {
                    "mpc_tuning_tpu/ops/pallas_kernels.py:568"),
     "admm_fused": ("mpc_tuning_tpu_torch/ops/csrc/qp_fused.cu",
                    "mpc_tuning_tpu/ops/pallas_kernels.py:697"),
+    "spd_solve": ("mpc_tuning_tpu_torch/ops/csrc/spd.cu",
+                  "mpc_tuning_tpu/ops/pallas_kernels.py:120"),
+    # not a Pallas kernel: the NMPC rollout and its jax.jacfwd, which XLA
+    # fuses into the NMPC step on the TPU
+    "nmpc_rollout": ("mpc_tuning_tpu_torch/ops/csrc/nmpc.cu",
+                     "mpc_tuning_tpu/sim/nmpc_loop.py:191"),
 }
 # the plain version of each whole-sim kernel and per-step engine: the
 # per-step engines' plain version is the plain step loop of the whole-sim
@@ -131,6 +152,28 @@ PLAIN = {"closed_sim_admm": "closed_sim_admm_plain",
          "pdip_ws_fused": "closed_sim_pdip_plain",
          "pdip_ws_lanes": "closed_sim_pdip_plain",
          "admm_fused": "closed_sim_admm_plain"}
+
+
+# The nmpc_rollout kernel at float32 against its plain version on the card,
+# max |dY| / max |Y| and max |dJ| / max |J| over 256 seeded states: twice
+# the larger of what two correct runs differ by (the plain version on the
+# card against the same on the CPU; the plain version with the states one
+# ulp up against one ulp down), over both buckets, rounded up to two
+# digits, as phase 2d printed them on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md §6: witnesses Y 2.190e-07, J 7.964e-07).
+ROLLOUT_F32_LIMITS = dict(y=4.4e-07, j=1.6e-06)
+# the reference's own tuning of the Van de Vusse case (BASELINE.md:23):
+# printed beside phase 3d's result, not a gate (the budgets differ)
+VDV_REFERENCE = dict(N=3, Nu=[2, 2], delta=[0.0930, 0.1133],
+                     lam=[0.2460, 0.1231])
+CB_SETPOINT, CB_TOL = 1.0, 0.1  # phase 3d: Cb ends within 0.1 of 1.0
+# phase 3d holds the tune's last batch step by step: the plain loop on the
+# CPU steps the plant on the card's U over all 60 steps (Y held at every
+# step) and solves its own control at the steps of these windows (U held
+# there), around the Cb setpoint step (step 9) and the T setpoint step
+# (step 40).  A solved step at p = 31 costs ~3 s on the CPU: all 60 took
+# 161.5 s (PERF.md).
+NMPC_HOLD_WINDOWS = ((1, 12), (38, 47))
 
 
 def fail(msg: str):
@@ -298,7 +341,7 @@ def phase_kernels(problem):
     from mpc_tuning_tpu_torch.ops import kernels as K
 
     t0 = time.perf_counter()
-    B, nit = 1024, 120
+    B, nit = 1024, 60
     err64 = {}
     rows = []
     for dtype in (torch.float64, torch.float32):
@@ -402,6 +445,11 @@ def phase_band_kernels(band_problem):
 
 STEP_TAKE = 85  # the Shell3x3 step whose QPs phase 2c solves (after the
                 # setpoint change at step 80)
+# phase 3c's depth: the case's 500 steps cut to 250 (the setpoint changes
+# at steps 9, 79 and 199; not the return to rest at 399) to keep the run
+# inside its time limit; the tune, its host-side checks and the re-score
+# scale with it
+S3_NIT = 250
 
 
 def to_cpu(x, fn=lambda t: t.cpu()):
@@ -644,7 +692,8 @@ def phase_main_path():
           f"lam={np.round(res.lam, 6).tolist()} Fvns={res.Fvns:.6g} "
           f"Fgam={res.Fgam:.6g} wall_s={wall:.2f} launches={launches} "
           f"last batches vs plain: {'; '.join(held)} | "
-          f"loop_f32_card_vs_f64_cpu dy={dy:.3e} du={du:.3e}", flush=True)
+          f"loop_f32_card_vs_f64_cpu dy={dy:.3e} du={du:.3e} | "
+          f"phase_s={time.perf_counter() - t0:.1f}", flush=True)
     return launches
 
 
@@ -701,7 +750,8 @@ def phase_band_main_path():
           f"Fgam={res.Fgam:.6g} wall_s={wall:.2f} launches={launches} | "
           f"last band batch vs plain: {held} | final_simulation "
           f"(card, f64, {sim_s:.2f} s): max|u| {umax:.6f} |y1| end "
-          f"{abs(y[-1, 0]):.6f} |y2| end {abs(y[-1, 1]):.6f}", flush=True)
+          f"{abs(y[-1, 0]):.6f} |y2| end {abs(y[-1, 1]):.6f} | "
+          f"phase_s={time.perf_counter() - t0:.1f}", flush=True)
     return launches
 
 
@@ -733,7 +783,7 @@ def phase_step_path():
     from mpc_tuning_tpu_torch.tuning import api
     from mpc_tuning_tpu_torch.tuning.objectives import vns_objective_batch
 
-    case = shell3x3.make_case()
+    case = shell3x3.make_case(nit=S3_NIT)
     problem, info = api.build_problem(case, dtype=torch.float32, qp_iters=15,
                                       device="cuda")
     problem.qp_method, problem.vns_qp_method = "pdip_ws_fused", "admm_fused"
@@ -837,7 +887,7 @@ def phase_step_path():
                     f"inputs at f64 Y, U {e64:.3e}")
         if not ok:
             bad.append(held[-1])
-    print(f"[3c step engines] hybrid_tune(Shell3x3 nit=500 nbp/nbc=7/4 f32 "
+    print(f"[3c step engines] hybrid_tune(Shell3x3 nit={case.nit} nbp/nbc=7/4 f32 "
           f"cuda GAM pdip_ws_fused VNS admm_fused popsize=8 gens=3 alts=1 "
           f"qp_iters=15 admm_iters=40, no joint polish) N={N} "
           f"Nu={Nu.tolist()} "
@@ -851,7 +901,8 @@ def phase_step_path():
           f"{Nus[np.argmin(F['cuda'])]}), cpu ({Ns[i]}, {Nus[i]}), F "
           f"{F['cpu'][i]:.9g}, max relative "
           f"F gap card vs cpu {gap:.3e} (card {F['cuda_s']:.1f} s, cpu "
-          f"{F['cpu_s']:.1f} s)", flush=True)
+          f"{F['cpu_s']:.1f} s) | phase_s={time.perf_counter() - t0:.1f}",
+          flush=True)
     if bad:
         fail("Shell3x3 path: " + " | ".join(bad))
     return launches
@@ -925,18 +976,21 @@ def phase_throughput(problem, band_problem):
                f"solve {sol['ms']:.4f} ms (plain {sol['plain_ms']:.4f}, "
                f"cholesky_solve {sol['library_ms']:.4f})")
 
-    band = []
-    for caps, B in (((127, 2), 1), ((127, 2), 8), ((48, 4), 256)):
-        inp, N, Nu = band_inputs(band_problem, caps, B, 200, f64, 7)
-        args = (*inp[:4], 200, 20, 12, inp[4])
-        r = sim_record("closed_sim_band", f64, inp, N, Nu,
-                       lambda: K.closed_sim_band(*args),
-                       lambda: K.closed_sim_band_plain(*args), 0, lp=20,
-                       s2=12)
-        band.append(f"B={B} caps={caps}: kernel {r['ms']:.1f} ms, plain "
-                    f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-                    f"({r['bound_by']})")
-        rec["closed_sim_band"] = r  # the last: B = 256, caps (48, 4)
+    # B = 1 (the final simulation's latency; kernel only) and the record's
+    # B = 256 at caps (48, 4)
+    inp1, _, _ = band_inputs(band_problem, (127, 2), 1, 200, f64, 7)
+    args1 = (*inp1[:4], 200, 20, 12, inp1[4])
+    band = [f"B=1 caps=(127, 2): kernel "
+            f"{timed(lambda: K.closed_sim_band(*args1), 3)[0]:.1f} ms"]
+    inp, N, Nu = band_inputs(band_problem, (48, 4), 256, 200, f64, 7)
+    args = (*inp[:4], 200, 20, 12, inp[4])
+    r = sim_record("closed_sim_band", f64, inp, N, Nu,
+                   lambda: K.closed_sim_band(*args),
+                   lambda: K.closed_sim_band_plain(*args), 0, lp=20, s2=12)
+    band.append(f"B=256 caps=(48, 4): kernel {r['ms']:.1f} ms, plain "
+                f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+    rec["closed_sim_band"] = r
     txt.append("band f64 nit=200 lp/s2=20/12: " + "; ".join(band))
     print("[4 throughput] " + " | ".join(txt)
           + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
@@ -1027,21 +1081,416 @@ def phase_step_throughput(problem):
     return rec
 
 
+def vdv_rollout_args(spec, caps, B, dtype, seed, device="cuda"):
+    """Seeded Van de Vusse states, previous inputs and moves around the
+    operating point at capacity ``caps``: (capped spec, x, u_prev, du,
+    cmask, Nu)."""
+    import dataclasses
+
+    spec = dataclasses.replace(spec, p_max=caps[0], m_max=caps[1])
+    rng = np.random.default_rng(seed)
+    x = spec.x0 + rng.uniform([-0.5, -0.2, -5.0], [0.5, 0.2, 5.0], (B, 3))
+    up = spec.u0 + rng.uniform(-5.0, 5.0, (B, 2))
+    du = rng.uniform(-2.0, 2.0, (B, caps[1] * 2))
+    Nu = rng.integers(1, caps[1] + 1, size=B)
+    cm = (np.arange(caps[1])[None] < Nu[:, None]).astype(float)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    return spec, t(x), t(up), t(du), t(cm), Nu
+
+
+def rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def vdv_batch(problem, B, nit, caps, seed):
+    """Closed-loop arguments of B seeded Van de Vusse candidates spanning
+    the bucket ``caps``."""
+    rng = np.random.default_rng(seed)
+    N = rng.integers(caps[1] + 1, caps[0] + 1, size=B)
+    Nu = rng.integers(2, caps[1] + 1, size=B)
+    N[0], Nu[0] = caps
+    return (np.broadcast_to(problem.r[:nit], (B, nit, 2)), problem.v, N, Nu,
+            rng.uniform(0.05, 2.0, (B, 2)), rng.uniform(0.05, 0.5, (B, 2)),
+            nit)
+
+
+def nmpc_errors(spec, Y, U, Yp, Up):
+    """(max |dY| / sf_y, max |dU| / sf_u, raw max |dY|, raw max |dU|) of
+    two NMPC loops.  The NMPC signals are in raw units (Van de Vusse: T and
+    Tk near 130, the feed up to 150), so they are held in the controller's
+    scaled units, its ScaleFactors sf_y / sf_u, as the linear loops are
+    held in their conditioned units."""
+    Y, U, Yp, Up = (x.cpu() for x in (Y, U, Yp, Up))
+    sfy = torch.as_tensor(np.asarray(spec.sf_y), dtype=Y.dtype)
+    sfu = torch.as_tensor(np.asarray(spec.sf_u), dtype=U.dtype)
+    return (float(((Y - Yp).abs() / sfy).max()),
+            float(((U - Up).abs() / sfu).max()), maxabs(Y, Yp),
+            maxabs(U, Up))
+
+
+def follow_nmpc_plain(problem, args, caps, U):
+    """The plain NMPC loop on the CPU on the same batch, stepping the plant
+    on U; returns its (Y, U)."""
+    from mpc_tuning_tpu_torch.sim.nmpc_loop import nmpc_closed_core
+
+    spec, c, N, Nu, (r, d, l) = problem.loop._batch(
+        args[1], args[2], args[3], caps, torch.float64, "cpu", None,
+        np.asarray(args[0])[:, :args[6]], args[4], args[5])
+    return nmpc_closed_core(spec, c, r, N, Nu, d, l, u_follow=U.cpu())
+
+
+def phase_nmpc_kernels(vdv_problem):
+    """2d. The NMPC slice's kernels vs their plain versions on the card:
+    spd_solve; nmpc_rollout (Y and J, the plant step, the held playback);
+    one NMPC closed-loop batch on the card step by step against the plain
+    loop on the CPU.  Returns {name: max_abs_err (f64)}."""
+    from mpc_tuning_tpu_torch.models import ode
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    err64, rows, bad = {}, [], []
+    B = 1024
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        tag = "f64" if f64 else "f32"
+        for n in (5, 17, 31):
+            g = torch.Generator(device="cuda").manual_seed(n)
+            A = torch.randn((B, n, n), generator=g, device="cuda", dtype=dtype)
+            M = A @ A.transpose(1, 2) + n * torch.eye(n, device="cuda",
+                                                      dtype=dtype)
+            rhs = torch.randn((B, n), generator=g, device="cuda", dtype=dtype)
+            xk, xp = K.spd_solve(M, rhs), K.spd_solve_plain(M, rhs)
+            torch.cuda.synchronize()
+            ex = maxabs(xk, xp)
+            if f64:
+                err64["spd_solve"] = max(err64.get("spd_solve", 0.0), ex)
+            else:
+                ex /= float(xp.abs().max())
+            rows.append(f"spd_solve(n={n}):{tag}=x {ex:.3e}")
+            if ex > (F64_SPD_GATE if f64 else F32_SPD_GATE):
+                bad.append(rows[-1])
+
+    spec = vdv_problem.loop.spec
+    for caps in ((31, 15), (16, 2)):
+        for dtype in (torch.float64, torch.float32):
+            f64 = dtype == torch.float64
+            tag = "f64" if f64 else "f32"
+            cspec, x, up, du, cm, Nu = vdv_rollout_args(spec, caps, 256, dtype,
+                                                        caps[0])
+            args = (cspec, x, up, du, cm, caps[0])
+            Yk, Jk = K.nmpc_rollout(*args, jac=True)
+            Yp, Jp = ode.nmpc_rollout_plain(*args, jac=True)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(Yk).all() and torch.isfinite(Jk).all()):
+                fail(f"nmpc_rollout {caps} {tag}: non-finite output")
+            ey, ej = rel(Yk, Yp), rel(Jk, Jp)
+            head = f"nmpc_rollout{caps}:{tag}=Y {ey:.3e} J {ej:.3e}"
+            if f64:
+                # the plant step (m = 0) and the open leg's held playback
+                none = torch.zeros((256, 0), dtype=dtype, device="cuda")
+                step = (cspec, x, up, none, none, 1)
+                es = rel(K.nmpc_rollout(*step, outputs=range(3))[0],
+                         ode.nmpc_rollout_plain(*step, outputs=range(3))[0])
+                hold = torch.tensor(np.maximum(Nu - 1, 0), dtype=torch.int32,
+                                    device="cuda")
+                play = (cspec, x, up, du, cm, 59)
+                eh = rel(K.nmpc_rollout(*play, hold=hold)[0],
+                         ode.nmpc_rollout_plain(*play, hold=hold)[0])
+                err64["nmpc_rollout"] = max(
+                    err64.get("nmpc_rollout", 0.0), maxabs(Yk, Yp),
+                    maxabs(Jk, Jp))
+                rows.append(head + f" plant step {es:.3e} playback {eh:.3e}")
+                if max(ey, ej, es, eh) > 1e-10:
+                    bad.append(rows[-1])
+                continue
+            # two correct float32 runs: the plain version on the CPU, and
+            # with the states one ulp up against one ulp down
+            Yc, Jc = ode.nmpc_rollout_plain(*to_cpu(args), jac=True)
+            inf = torch.tensor(float("inf"), dtype=dtype, device="cuda")
+            (Yu, Ju), (Yd, Jd) = (ode.nmpc_rollout_plain(
+                cspec, torch.nextafter(x, s * inf), *args[2:], jac=True)
+                for s in (1, -1))
+            wy = max(rel(Yp.cpu(), Yc), rel(Yu, Yd))
+            wj = max(rel(Jp.cpu(), Jc), rel(Ju, Jd))
+            lim = ROLLOUT_F32_LIMITS
+            rows.append(head + f" (limits Y {lim['y']:g} J {lim['j']:g}; "
+                        f"witnesses cpu Y {rel(Yp.cpu(), Yc):.3e} J "
+                        f"{rel(Jp.cpu(), Jc):.3e}, ulp Y {rel(Yu, Yd):.3e} J "
+                        f"{rel(Ju, Jd):.3e})")
+            if ey > lim["y"] or ej > lim["j"]:
+                bad.append(rows[-1])
+
+    # one closed-loop batch on the card, held step by step against the plain
+    # loop on the CPU following the card's U
+    caps, nit, Bc = (16, 4), 10, 32
+    args = vdv_batch(vdv_problem, Bc, nit, caps, 5)
+    Y, U = vdv_problem.loop.closed_batch(*args, caps=caps, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    Yp, Up = follow_nmpc_plain(vdv_problem, args, caps, U)
+    cpu_s = time.perf_counter() - t1
+    ey, eu, ry, ru = nmpc_errors(spec, Y, U, Yp, Up)
+    rows.append(f"closed loop B={Bc} nit={nit} caps={caps} f64, plain on the "
+                f"CPU following the card's U ({cpu_s:.1f} s): scaled Y "
+                f"{ey:.3e} U {eu:.3e} (raw {ry:.3e}, {ru:.3e})")
+    if not (torch.isfinite(Y).all() and max(ey, eu) <= F64_SIM_GATE):
+        bad.append(rows[-1])
+    print(f"[2d nmpc kernels] gates: spd_solve f64 {F64_SPD_GATE:g}, f32 "
+          f"{F32_SPD_GATE:g} relative; nmpc_rollout f64 1e-10 relative, f32 "
+          f"ROLLOUT_F32_LIMITS; closed loop f64 {F64_SIM_GATE:g} in the "
+          f"controller's scaled units | "
+          + " | ".join(rows) + f" | wall_s={time.perf_counter() - t0:.1f}",
+          flush=True)
+    if bad:
+        fail("NMPC kernel rows above their gates: " + " | ".join(bad))
+    return err64
+
+
+def phase_nmpc_path():
+    """3d. The seeded Van de Vusse NMPC tune on the card at float64 (the
+    case's full width: nit 60, nbp/nbc 5/4, substeps 10, SQP 4, QP 25),
+    its last closed-loop batch step by step against the plain loop on the
+    CPU, and the final simulation at the tuned controller; returns the
+    launch counts."""
+    from mpc_tuning_tpu_torch.cases import vandevusse
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.sim import nmpc_loop
+    from mpc_tuning_tpu_torch.tuning.api import hybrid_tune
+
+    case = vandevusse.make_case()
+    problem = vandevusse.build_problem(case, device="cuda")
+    last = {}
+    core = nmpc_loop.nmpc_closed_core
+
+    def recorder(*args, **kwargs):
+        last["args"] = args
+        out = core(*args, **kwargs)
+        last["out"] = out
+        return out
+
+    nmpc_loop.nmpc_closed_core = recorder
+    K.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        # no joint (Chebyshev) weight polish: its ~250 single-candidate
+        # evaluations would outlast the script's time limit
+        best, delta, lam, Fvns, Fgam, hist = hybrid_tune(
+            problem, case.nbp, case.nbc, vandevusse.X0_WEIGHTS,
+            gam_popsize=8, gam_generations=3, max_alternations=1, seed=0,
+            verbose=False, joint_polish=False)
+        torch.cuda.synchronize()
+    finally:
+        nmpc_loop.nmpc_closed_core = core
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    N, Nu = int(best["N"]), np.asarray(best["Nu"])
+    weights = np.concatenate([delta, lam])
+    bad = []
+    if not (N > Nu.max() and (Nu >= 2).all() and np.isfinite(weights).all()
+            and (weights > 0).all() and np.isfinite([Fvns, Fgam]).all()):
+        fail(f"invalid Van de Vusse tuning result N={N} Nu={Nu} "
+             f"weights={weights}")
+    path = ("spd_factor", "spd_factor_solve", "nmpc_rollout")
+    if min(launches[k] for k in path) <= 0:
+        bad.append(f"a kernel of the NMPC path was never launched: "
+                   f"{launches}")
+
+    # the tune's last closed-loop batch, step by step against the plain
+    # loop on the CPU following its U (launches made here do not count): Y
+    # at every step, U at the window steps (elsewhere the plain loop solves
+    # nothing and returns the card's U)
+    spec, c, r, Nb, Nub, d, l = last["args"]
+    Y, U = last["out"]
+    nit = r.shape[1]
+    steps = [k for a, b in NMPC_HOLD_WINDOWS for k in range(a, b + 1)
+             if k < nit]
+    t1 = time.perf_counter()
+    Yp, Up = nmpc_loop.nmpc_closed_core(
+        spec, to_cpu(c), r.cpu(), Nb.cpu(), Nub.cpu(), d.cpu(), l.cpu(),
+        u_follow=U.cpu(), solve_steps=set(steps))
+    cpu_s = time.perf_counter() - t1
+    ey, eu, ry, ru = nmpc_errors(spec, Y, U, Yp, Up)
+    # (lane, step) pairs with an input on a bound: all, and those held
+    Uc = U.cpu().numpy()
+    on = ((Uc >= vandevusse.UB - 1e-6)
+          | (Uc <= vandevusse.LB + 1e-6)).any(axis=2)
+    held = (f"B={r.shape[0]} caps=({spec.p_max},{spec.m_max}), Y at steps "
+            f"0-{nit - 1}, U at steps {NMPC_HOLD_WINDOWS}: scaled Y {ey:.3e} "
+            f"U {eu:.3e} (raw {ry:.3e}, {ru:.3e}; plain on the CPU "
+            f"{cpu_s:.1f} s); an input on a bound at {int(on[:, 1:].sum())} "
+            f"(lane, step) pairs, {int(on[:, steps].sum())} of them held")
+    if max(ey, eu) > F64_SIM_GATE:
+        bad.append(f"last batch {held}")
+
+    # the tuned controller's closed loop (the check of the verify notes):
+    # u inside [LB, UB], Cb ends within CB_TOL of its setpoint
+    t2 = time.perf_counter()
+    y, u = problem.loop.simulate(case.r, problem.v, case.nit, N,
+                                 int(Nu.max()), delta, lam, device="cuda")
+    sim_s = time.perf_counter() - t2
+    excess = max(0.0, float(np.maximum(u - vandevusse.UB,
+                                       vandevusse.LB - u).max()))
+    cb_err = abs(float(y[-1, 0]) - CB_SETPOINT)
+    if not (np.isfinite(y).all() and np.isfinite(u).all() and excess <= 1e-6
+            and cb_err <= CB_TOL):
+        bad.append(f"final simulation: outside [LB, UB] by {excess:.3e}, "
+                   f"|Cb end - {CB_SETPOINT}| {cb_err:.3e}")
+    ref = VDV_REFERENCE
+    print(f"[3d nmpc path] hybrid_tune(VdV nit={case.nit} nbp/nbc="
+          f"{case.nbp}/{case.nbc} substeps={case.spec.substeps} sqp="
+          f"{case.spec.sqp_iters} qp={case.spec.qp_iters} f64 cuda popsize=8 "
+          f"gens=3 alts=1 seed=0, no joint polish) N={N} Nu={Nu.tolist()} "
+          f"delta={np.round(delta, 6).tolist()} "
+          f"lam={np.round(lam, 6).tolist()} Fvns={Fvns:.6g} Fgam={Fgam:.6g} "
+          f"wall_s={wall:.2f} launches={launches} | reference artifact "
+          f"(BASELINE.md, another budget; not a gate): N={ref['N']} "
+          f"Nu={ref['Nu']} delta={ref['delta']} lam={ref['lam']} | last "
+          f"batch vs plain: {held} | final simulation (card, f64, "
+          f"{sim_s:.2f} s): outside [LB, UB] by {excess:.3e}, Cb end "
+          f"{float(y[-1, 0]):.6f}, T end {float(y[-1, 1]):.4f} | "
+          f"phase_s={time.perf_counter() - t0:.1f}", flush=True)
+    if bad:
+        fail("NMPC path: " + " | ".join(bad))
+    return launches
+
+
+def phase_spd_solve_entry():
+    """3e. spd_solve's own path, its public entry point (no tune calls
+    it, as in the JAX package): 1024 SPD systems at the NMPC QP's n = 31,
+    float64; returns the launch counts."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    A = torch.randn((1024, 31, 31), generator=g, device="cuda",
+                    dtype=torch.float64)
+    M = A @ A.transpose(1, 2) + 31 * torch.eye(31, device="cuda",
+                                               dtype=torch.float64)
+    rhs = torch.randn((1024, 31), generator=g, device="cuda",
+                      dtype=torch.float64)
+    K.reset_launches()
+    x = K.spd_solve(M, rhs)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    res = float((torch.bmm(M, x[:, :, None])[:, :, 0] - rhs).abs().max())
+    if launches["spd_solve"] != 1 or not res <= 1e-10:
+        fail(f"spd_solve entry point: launches {launches['spd_solve']}, "
+             f"max |M x - rhs| {res:.3e}")
+    print(f"[3e spd_solve] B=1024 n=31 f64: launches 1, max |M x - rhs| "
+          f"{res:.3e}", flush=True)
+    return launches
+
+
+def rollout_flops(B, ncol, p, substeps):
+    """Operations the rollout needs: per candidate and RK4 step the primal
+    (4 rhs of ~35 operations and 3 exp, and the stage sums) once and the
+    tangent (4 x ~45 and the stage sums) per column."""
+    return B * p * substeps * ((4 * 38 + 36) + ncol * (4 * 45 + 36))
+
+
+def phase_nmpc_throughput(vdv_problem):
+    """4, the NMPC slice: spd_solve, nmpc_rollout and one NMPC closed-loop
+    evaluation (B = 256, caps (16, 2)) with its launches and its
+    host-versus-kernel split; returns {name: dict(ms, plain_ms, bound_ms,
+    bound_by, library_ms)}."""
+    from mpc_tuning_tpu_torch.models import ode
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    rec, txt = {}, []
+    f32, f64 = torch.float32, torch.float64
+    g = torch.Generator(device="cuda").manual_seed(0)
+    A = torch.randn((1024, 17, 17), generator=g, device="cuda", dtype=f32)
+    M = A @ A.transpose(1, 2) + 17 * torch.eye(17, device="cuda", dtype=f32)
+    rhs = torch.randn((1024, 17), generator=g, device="cuda", dtype=f32)
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(M)
+        return torch.cholesky_solve(rhs[:, :, None], L)
+
+    sol = dict(ms=timed(lambda: K.spd_solve(M, rhs), 20)[0],
+               plain_ms=timed(lambda: K.spd_solve_plain(M, rhs), 20)[0],
+               library_ms=timed(library, 20)[0])
+    sol["bound_ms"], sol["bound_by"] = bound_ms(
+        nbytes(M) + 2 * nbytes(rhs), 1024 * (17 ** 3 / 3 + 2 * 17 ** 2), f32)
+    rec["spd_solve"] = sol
+    txt.append(f"spd_solve B=1024 n=17 f32: kernel {sol['ms']:.4f} ms (plain "
+               f"{sol['plain_ms']:.4f}, cholesky_ex + cholesky_solve "
+               f"{sol['library_ms']:.4f}, bound {sol['bound_ms']:.5f} "
+               f"{sol['bound_by']})")
+
+    spec = vdv_problem.loop.spec
+    caps = (31, 15)
+    cspec, x, up, du, cm, _ = vdv_rollout_args(spec, caps, 256, f64, 9)
+    args = (cspec, x, up, du, cm, caps[0])
+    ms, out = timed(lambda: K.nmpc_rollout(*args, jac=True), 5)
+    pm = timed(lambda: ode.nmpc_rollout_plain(*args, jac=True), 1,
+               warm=False)[0]
+    b, by = bound_ms(nbytes(x, up, du, cm, out),
+                     rollout_flops(256, 30, caps[0], cspec.substeps), f64)
+    rec["nmpc_rollout"] = dict(ms=ms, plain_ms=pm, bound_ms=b, bound_by=by,
+                               library_ms=None)
+    txt.append(f"nmpc_rollout B=256 caps={caps} substeps={cspec.substeps} "
+               f"f64 with J: kernel {ms:.3f} ms, plain {pm:.1f} ms, bound "
+               f"{b:.5f} ms ({by})")
+
+    # one NMPC closed-loop evaluation (nit 60) through the card: its time
+    # and launches; then the device time inside a 4-step loop of the same
+    # batch (torch.profiler, CUDA activity only: recording every host op
+    # costs ~0.4 ms an op, minutes over the ~1e6 ops of a whole evaluation)
+    from torch.profiler import ProfilerActivity, profile
+
+    loop = vdv_problem.loop
+    args = vdv_batch(vdv_problem, 256, 60, (16, 2), 11)
+    K.reset_launches()
+    t1 = time.perf_counter()
+    loop.closed_batch(*args, caps=(16, 2), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    short = args[:6] + (4,)
+    t2 = time.perf_counter()
+    loop.closed_batch(*short, caps=(16, 2), device="cuda")
+    torch.cuda.synchronize()
+    short_s = time.perf_counter() - t2
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loop.closed_batch(*short, caps=(16, 2), device="cuda")
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages())
+    busy = (f"device time {dev_us / 1e3:.1f} ms of {short_s * 1e3:.1f} ms, "
+            f"idle share {1 - dev_us / 1e6 / short_s:.3f}" if dev_us > 0
+            else "device time not measured (the profiler showed none)")
+    txt.append(f"NMPC closed loop B=256 caps=(16,2) nit=60 f64: "
+               f"{wall:.2f} s = {256 / wall:.1f} sims/s, launches {counts}; "
+               f"a 4-step loop of it: {busy}")
+    print("[4 nmpc throughput] " + " | ".join(txt)
+          + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
+    return rec
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_env()
-    from mpc_tuning_tpu_torch.cases import shell3x3, shell7x5, woodberry
+    from mpc_tuning_tpu_torch.cases import (shell3x3, shell7x5, vandevusse,
+                                            woodberry)
     from mpc_tuning_tpu_torch.tuning.api import build_problem
 
     problem, _ = build_problem(woodberry.make_case(), device="cuda")
     band_problem, _ = build_problem(shell7x5.make_case(), device="cuda")
     s3_problem, _ = build_problem(shell3x3.make_case(), device="cuda")
+    vdv_problem = vandevusse.build_problem(vandevusse.make_case(),
+                                           device="cuda")
     err64 = phase_kernels(problem)
     err64["closed_sim_band"] = phase_band_kernels(band_problem)
     err64.update(phase_step_kernels(s3_problem))
-    paths = [phase_main_path(), phase_band_main_path(), phase_step_path()]
+    err64.update(phase_nmpc_kernels(vdv_problem))
+    paths = [fn() for fn in (phase_main_path, phase_band_main_path,
+                             phase_step_path, phase_nmpc_path,
+                             phase_spd_solve_entry)]
     rec = phase_throughput(problem, band_problem)
     rec.update(phase_step_throughput(problem))
+    rec.update(phase_nmpc_throughput(vdv_problem))
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(launches[k] for launches in paths),

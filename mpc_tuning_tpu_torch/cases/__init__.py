@@ -1,3 +1,4 @@
 """Benchmark case studies with the reference's exact configurations."""
 
-from mpc_tuning_tpu_torch.cases import shell3x3, shell7x5, woodberry  # noqa: F401
+from mpc_tuning_tpu_torch.cases import (  # noqa: F401
+    shell3x3, shell7x5, vandevusse, woodberry)

@@ -47,6 +47,11 @@ def _bind(lib):
     lib.mpc_spd_factor.restype = i
     lib.mpc_spd_factor_solve.argtypes = [i, i, vp, vp, vp, i, i, vp]
     lib.mpc_spd_factor_solve.restype = i
+    lib.mpc_spd_solve.argtypes = [i, vp, vp, vp, vp, i, i, vp]
+    lib.mpc_spd_solve.restype = i
+    lib.mpc_nmpc_rollout.argtypes = [i, ctypes.POINTER(vp), d,
+                                     ctypes.c_double, vp]
+    lib.mpc_nmpc_rollout.restype = i
     lib.mpc_error_string.argtypes = [i]
     lib.mpc_error_string.restype = ctypes.c_char_p
     lib.mpc_closed_sim_ptr_count.restype = i

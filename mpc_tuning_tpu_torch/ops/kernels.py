@@ -9,8 +9,9 @@ Every kernel's public function here is a wrapper:
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; only a
 launch adds to it.
 
-Layouts follow the JAX package: ``spd_factor`` / ``spd_factor_solve`` take
-the public batch-major (B, n, n) / (B, n) layout; ``factor_lanes`` /
+Layouts follow the JAX package: ``spd_factor`` / ``spd_factor_solve`` /
+``spd_solve`` take the public batch-major (B, n, n) / (B, n) layout, and
+``nmpc_rollout`` the NMPC loop's candidate-first tensors; ``factor_lanes`` /
 ``solve_lanes``, the single-solve kernels ``pdip_fused`` / ``admm_fused``
 and the whole-sim kernels take lane-major inputs, the candidate batch B on
 the last axis (``sim/mpc_loop.py`` builds them; the band wrapper hands its
@@ -28,16 +29,19 @@ import ctypes
 
 import torch
 
+from mpc_tuning_tpu_torch.models.ode import nmpc_envelope, nmpc_rollout_plain
 from mpc_tuning_tpu_torch.ops import _build
 
-__all__ = ["spd_factor", "spd_factor_solve", "factor_lanes", "solve_lanes",
-           "pdip_fused", "admm_fused", "closed_sim_admm", "closed_sim_pdip",
-           "closed_sim_band", "spd_factor_plain", "spd_factor_solve_plain",
+__all__ = ["spd_factor", "spd_factor_solve", "spd_solve", "factor_lanes",
+           "solve_lanes", "pdip_fused", "admm_fused", "closed_sim_admm",
+           "closed_sim_pdip", "closed_sim_band", "nmpc_rollout",
+           "spd_factor_plain", "spd_factor_solve_plain", "spd_solve_plain",
            "factor_lanes_plain", "solve_lanes_plain", "pdip_fused_plain",
            "admm_fused_plain", "closed_sim_admm_plain",
-           "closed_sim_pdip_plain", "closed_sim_band_plain", "g_shared",
-           "step_loop", "pdip_step", "admm_step", "band_envelope",
-           "reset_launches", "launch_counts", "require_device"]
+           "closed_sim_pdip_plain", "closed_sim_band_plain",
+           "g_shared", "step_loop",
+           "pdip_step", "admm_step", "band_envelope", "reset_launches",
+           "launch_counts", "require_device"]
 
 _SIM_TABLES = ("Cpl", "Apl", "Bplu", "C", "Mk", "A", "Bu", "SxF", "SstF",
                "ThT", "Vt")
@@ -158,6 +162,42 @@ def spd_factor_solve(L, rhs):
 
 
 spd_factor_solve.launches = 0
+
+
+# ------------------------------------------------------------- spd_solve
+#
+# Replaces _spd_solve_batched_impl / _cholsolve_kernel (spd_solve): the
+# factor and both substitutions in one launch, one thread per system, the
+# factor in lane-major device scratch (ops/csrc/spd.cu).  A public entry
+# point with no caller on a tune path, as in the JAX package.
+
+
+def spd_solve_plain(M, rhs):
+    """x (B, n) with M x = rhs for a (B, n, n) SPD batch: the factor of
+    ``spd_factor_plain`` (all NaN where it fails) and two triangular
+    solves."""
+    return spd_factor_solve_plain(spd_factor_plain(M), rhs)
+
+
+def spd_solve(M, rhs):
+    """(B, n, n) SPD, (B, n) rhs -> x (B, n) with M x = rhs; a system whose
+    factor fails (a pivot not > 0) is all NaN."""
+    if _on_cpu(M, rhs):
+        return spd_solve_plain(M, rhs)
+    dtype = _float_dtype(M)
+    B, n = M.shape[0], M.shape[-1]
+    _require(M, (B, n, n), dtype, "M")
+    _require(rhs, (B, n), dtype, "rhs")
+    x = torch.empty_like(rhs)
+    work = torch.empty((n * n * B,), dtype=dtype, device=M.device)
+    _build.check(_build.library().mpc_spd_solve(
+        int(dtype == torch.float64), M.data_ptr(), rhs.data_ptr(),
+        x.data_ptr(), work.data_ptr(), B, n, _stream(M)), "spd_solve")
+    spd_solve.launches += 1
+    return x
+
+
+spd_solve.launches = 0
 
 
 # -------------------------------------------------- factor_lanes / solve_lanes
@@ -818,9 +858,74 @@ def closed_sim_band(tables, lane_consts, Hp_t, r_l, nit, lp_iters, s2_iters,
 
 closed_sim_band.launches = 0
 
-_WRAPPERS = (spd_factor, spd_factor_solve, factor_lanes, solve_lanes,
-             pdip_fused, admm_fused, closed_sim_admm, closed_sim_pdip,
-             closed_sim_band)
+# ------------------------------------------------------------ nmpc_rollout
+#
+# Not a TPU kernel: it replaces what XLA fuses on the TPU, the NMPC
+# prediction rollout and its sensitivities (the JAX package's
+# sim/nmpc_loop._rollout_y under jax.jacfwd).  ``model`` is an NMPCSpec (or
+# anything with its rhs, integrator, substeps, Ts and xc).  For B
+# candidates at state x (B, nx) with previous input u_prev (B, nu), moves
+# du (B, m nu) and the move mask cmask (B, m), the input at prediction step
+# k is u_prev + sum over t <= min(k, m - 1, hold) of cmask[t] du[t] (held
+# after the control horizon; ``hold`` (B,) int32, or None for m - 1), and
+# the rollout integrates p sample intervals.  Returns Y (B, p ny), the
+# states ``outputs`` (default model.xc) after each interval, and with
+# ``jac`` J (B, p ny, m nu) = dY / d du, the exact derivative of the
+# discrete map.  The same call is the closed loop's plant step (m = 0,
+# p = 1, every state as an output) and the open leg's playback (p = nit - 1,
+# ``hold`` the last active move).  The CUDA kernel (ops/csrc/nmpc.cu) runs
+# one thread per (candidate, tangent column).  The plain version and the
+# kernel's envelope (the models and integrator it covers) live beside the
+# models: ``models/ode.nmpc_rollout_plain`` / ``nmpc_envelope``.
+
+
+def nmpc_rollout(model, x, u_prev, du, cmask, p, hold=None, jac=False,
+                 outputs=None):
+    """See the section note: (Y (B, p ny), J (B, p ny, m nu) or None)."""
+    if _on_cpu(x, u_prev, du, cmask):
+        return nmpc_rollout_plain(model, x, u_prev, du, cmask, p, hold, jac,
+                                  outputs)
+    nmpc_envelope(model)
+    dtype = _float_dtype(x)
+    B, nx = x.shape
+    nu = u_prev.shape[1]
+    m = cmask.shape[1]
+    out = list(model.xc if outputs is None else outputs)
+    if (nx, nu) != (3, 2) or not 1 <= len(out) <= 3 \
+            or not all(0 <= o < nx for o in out):
+        raise ValueError(f"nmpc_rollout kernel: x (B, 3), u (B, 2) and 1-3 "
+                         f"state outputs, got nx={nx} nu={nu} outputs={out}")
+    if jac and (m == 0 or hold is not None):
+        raise ValueError("nmpc_rollout: jac needs moves (m > 0) and no hold")
+    _require(x, (B, nx), dtype, "x")
+    _require(u_prev, (B, nu), dtype, "u_prev")
+    _require(du, (B, m * nu), dtype, "du")
+    _require(cmask, (B, m), dtype, "cmask")
+    if hold is not None:
+        _require(hold, (B,), torch.int32, "hold")
+        if hold.device != x.device:
+            raise ValueError(f"hold: on {hold.device}, expected {x.device}")
+    ny = len(out)
+    kw = dict(dtype=dtype, device=x.device)
+    Y = torch.empty((B, p * ny), **kw)
+    J = torch.empty((B, p * ny, m * nu), **kw) if jac else None
+    ptrs = (ctypes.c_void_p * 7)(*[
+        t.data_ptr() if t is not None and t.numel() else None
+        for t in (x, u_prev, du, cmask, hold, Y, J)])
+    dims = (ctypes.c_int * 9)(B, p, m, model.substeps, int(jac), ny,
+                              *(out + [0] * (3 - ny)))
+    _build.check(_build.library().mpc_nmpc_rollout(
+        int(dtype == torch.float64), ptrs, dims, ctypes.c_double(model.Ts),
+        _stream(x)), "nmpc_rollout")
+    nmpc_rollout.launches += 1
+    return Y, J
+
+
+nmpc_rollout.launches = 0
+
+_WRAPPERS = (spd_factor, spd_factor_solve, spd_solve, factor_lanes,
+             solve_lanes, pdip_fused, admm_fused, closed_sim_admm,
+             closed_sim_pdip, closed_sim_band, nmpc_rollout)
 
 
 def reset_launches():

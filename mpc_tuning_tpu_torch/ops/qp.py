@@ -3,6 +3,10 @@ the JAX package's ``ops/qp.py``.
 
     min_z  1/2 z'Hz + f'z   s.t.  G z <= h
 
+* ``solve_qp`` — the dense Mehrotra PDIP, batched over candidates, each
+  with its own dense G: the NMPC SQP subproblem's solver.  Its normal
+  matrix is a batched product (torch.bmm); its factor and two solves per
+  iteration go through ``spd_factor`` / ``spd_factor_solve``.
 * ``solve_qp_masked`` — infeasible-start Mehrotra predictor-corrector
   primal-dual interior point with a FIXED iteration count and
   best-iterate-by-merit return, for the masked-constraint MPC QP
@@ -32,7 +36,7 @@ import torch
 from mpc_tuning_tpu_torch.ops.kernels import (factor_lanes, solve_lanes,
                                               spd_factor, spd_factor_solve)
 
-__all__ = ["solve_qp_masked", "pdip_lanes", "admm_precompute", "WS_EPS",
+__all__ = ["solve_qp", "solve_qp_masked", "pdip_lanes", "admm_precompute", "WS_EPS",
            "pdip_constants", "seed_slack", "split_margins",
            "split_stage2"]
 
@@ -54,6 +58,95 @@ def _max_step(v, dv):
     ratio = torch.where(dv < 0, -v / dv, torch.full_like(v, float("inf")))
     one = torch.ones((), dtype=v.dtype, device=v.device)
     return torch.minimum(one, 0.995 * ratio.amin(dim=0, keepdim=True))
+
+
+def solve_qp(H, f, G, h, iters: int = 30, init=None):
+    """Dense PDIP for a batch of QPs (the JAX package's ``solve_qp`` under
+    ``vmap``): H (B, n, n), f (B, n), G (B, m, n), h (B, m).  ``init`` =
+    (z0, lam0, s0) warm-starts (s0 recomputed from h, duals and slacks
+    floored at WS_EPS); None is the cold start.  A fixed number of
+    iterations; returns the best iterate by KKT merit, (z, lam, s).  Rows
+    are disabled by a zero row of G and h = 1.
+
+    Eager PyTorch with every vector a (B, k, 1) column and every
+    matrix-vector product adding its vector term in the same batched call
+    (``torch.baddbmm``): ~80 ops per iteration.  Sums run in another order
+    than the JAX package's (rounding only)."""
+    B, n = f.shape
+    m = h.shape[1]
+    kw = dict(dtype=f.dtype, device=f.device)
+    Gt = G.transpose(1, 2)
+    f, h = f[:, :, None], h[:, :, None]
+
+    def residuals(z, lam, s):
+        r_d = torch.baddbmm(torch.baddbmm(f, H, z), Gt, lam)
+        r_p = torch.baddbmm(s - h, G, z)
+        ls = lam * s
+        gap = ls.sum(1, keepdim=True)
+        merit = (torch.linalg.vector_norm(r_d, dim=1, keepdim=True)
+                 + torch.linalg.vector_norm(r_p, dim=1, keepdim=True) + gap)
+        return r_d, r_p, ls, gap, merit
+
+    def solve(L, rhs):
+        return spd_factor_solve(L, rhs.view(B, n)).view(B, n, 1)
+
+    if init is None:
+        z = torch.zeros_like(f)
+        s = torch.clamp_min(h - torch.bmm(G, z), 1.0)
+        lam = torch.ones_like(h)
+    else:
+        z = init[0][:, :, None]
+        s = torch.clamp_min(h - torch.bmm(G, z), WS_EPS)
+        lam = torch.clamp_min(init[1][:, :, None], WS_EPS)
+
+    ridge, w_cap = pdip_constants(f.dtype)
+    w_cap = torch.full((), w_cap, **kw)
+    H_ridge = H + ridge * torch.eye(n, **kw)
+
+    def max_step(s, ds, lam, dlam):
+        """min(1, 0.995 x the largest step keeping s and lam positive) per
+        row: the two fraction-to-the-boundary steps' minimum, taken in one
+        reduction (NaN propagates, as jnp.min does)."""
+        v, dv = torch.cat([s, lam], 1), torch.cat([ds, dlam], 1)
+        ratio = torch.where(dv < 0, -v / dv, float("inf"))
+        return (0.995 * ratio.amin(dim=1, keepdim=True)).clamp(max=1.0)
+
+    zb, lamb, sb = z, lam, s
+    mb = torch.full((B, 1, 1), float("inf"), **kw)
+    for _ in range(iters):
+        r_d, r_p, ls, gap, mnew = residuals(z, lam, s)
+        mu = gap / m
+
+        # best iterate by the merit of the INCOMING iterate; NaN never wins
+        take = mnew < mb
+        zb = torch.where(take, z, zb)
+        lamb = torch.where(take, lam, lamb)
+        sb = torch.where(take, s, sb)
+        mb = torch.where(take, mnew, mb)
+
+        w = torch.minimum(lam / s, w_cap)
+        L = spd_factor(torch.baddbmm(H_ridge, Gt, G * w))
+        neg_rd = -r_d
+
+        dz_aff = solve(L, torch.baddbmm(neg_rd, Gt, lam - w * r_p))
+        ds_aff = -torch.baddbmm(r_p, G, dz_aff)
+        dlam_aff = -(ls + lam * ds_aff) / s
+        a_aff = max_step(s, ds_aff, lam, dlam_aff)
+        mu_aff = ((lam + a_aff * dlam_aff) * (s + a_aff * ds_aff)).sum(
+            1, keepdim=True) / m
+        sig_r = mu_aff / (mu + 1e-30)
+        sigma = sig_r * sig_r * sig_r
+
+        r_cent = ls - sigma * mu + dlam_aff * ds_aff
+        dz = solve(L, torch.baddbmm(neg_rd, Gt, r_cent / s - w * r_p))
+        ds = -torch.baddbmm(r_p, G, dz)
+        dlam = -(r_cent + lam * ds) / s
+        a = max_step(s, ds, lam, dlam)
+        z, lam, s = z + a * dz, lam + a * dlam, s + a * ds
+
+    take = residuals(z, lam, s)[4] < mb
+    return tuple(torch.where(take, a, b)[:, :, 0]
+                 for a, b in ((z, zb), (lam, lamb), (s, sb)))
 
 
 def solve_qp_masked(H, f, G0, T2, rmask, cmask_z, h, iters: int = 30,

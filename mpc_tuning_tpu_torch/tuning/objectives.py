@@ -10,8 +10,10 @@ VNS objective (VNS2.m:148-195): per candidate (N, Nu),
         increments (horizon-parsimony penalty, NaN/Inf -> 0),
   F = sum(j21 + j22) + N + sum(Jnu),
 with the square-system per-output setpoint-selector protocol
-(unit steps at inK=10 on one output at a time, VNS2.m:58-65,148-165) and the
-single-sim protocol with the case setpoints for non-square systems.
+(unit steps at inK=10 on one output at a time, VNS2.m:58-65,148-165; for a
+nonlinear problem the case setpoints of one output at a time,
+VNS2.m:68-73,155) and the single-sim protocol with the case setpoints for
+non-square systems.
 
 Every candidate (and every selector) is one lane of a batched closed-loop
 simulation — the whole neighborhood/population evaluates in one device
@@ -28,6 +30,7 @@ import torch
 from mpc_tuning_tpu_torch.ops.kernels import require_device
 from mpc_tuning_tpu_torch.sim.mpc_loop import (ENGINES, MPCLoop, horizon_caps,
                                                require_band_dtype)
+from mpc_tuning_tpu_torch.sim.nmpc_loop import NMPCLoop
 
 __all__ = ["TuningProblem", "gam_sse_batch", "vns_objective_batch",
            "resolve_qp_method"]
@@ -68,9 +71,11 @@ def resolve_qp_method(method: str, stage: str = "gam", f64: bool = False,
 
 @dataclasses.dataclass
 class TuningProblem:
-    """Everything the tuner needs about one case (conditioned units)."""
+    """Everything the tuner needs about one case (conditioned units).
+    ``loop`` is an MPCLoop (linear cases) or an NMPCLoop (nonlinear cases:
+    one engine, the qp_method fields unused)."""
 
-    loop: MPCLoop
+    loop: MPCLoop | NMPCLoop
     r: np.ndarray  # (nit, ny) case setpoints (conditioned)
     v: np.ndarray  # (nit, nd) measured disturbance (conditioned)
     Yref: np.ndarray  # (nit, ny) desired response (conditioned)
@@ -93,27 +98,42 @@ class TuningProblem:
 
     def __post_init__(self):
         require_device(self.device)
-        if self.loop.ctl.spec.has_y_constraints:
+        if not self._nmpc and self.loop.ctl.spec.has_y_constraints:
             require_band_dtype(self.dtype)
 
     @property
+    def _nmpc(self) -> bool:
+        return isinstance(self.loop, NMPCLoop)
+
+    @property
+    def linear(self) -> bool:
+        """False for an NMPCLoop: the nonlinear VNS selector protocol."""
+        return not self._nmpc
+
+    @property
     def my(self) -> int:
-        return self.loop.ctl.spec.model.ny
+        return self.loop.spec.ny if self._nmpc else self.loop.ctl.spec.model.ny
 
     @property
     def nu(self) -> int:
-        return self.loop.ctl.spec.n_mv
+        return self.loop.spec.nu if self._nmpc else self.loop.ctl.spec.n_mv
 
     @property
     def square(self) -> bool:
         return self.my == self.nu
 
     def _caps(self, N_b, Nu_b):
-        s = self.loop.ctl.spec
+        s = self.loop.spec if self._nmpc else self.loop.ctl.spec
         return horizon_caps(s.p_max, s.m_max, N_b, Nu_b)
 
     def closed_batch(self, r_b, N_b, Nu_b, delta_b, lam_b, stage="gam"):
         """Batched closed loops; returns NumPy (Y, U) in ``dtype``."""
+        if self._nmpc:
+            Y, U = self.loop.closed_batch(
+                np.asarray(r_b, dtype=np.float64), self.v, N_b, Nu_b,
+                delta_b, lam_b, self.nit, self.dtype,
+                caps=self._caps(N_b, Nu_b), device=self.device)
+            return Y.cpu().numpy(), U.cpu().numpy()
         raw = self.vns_qp_method if stage == "vns" else self.qp_method
         engine = resolve_qp_method(raw, stage=stage,
                                    f64=self.dtype == torch.float64,
@@ -132,10 +152,12 @@ class TuningProblem:
         the slack-frozen stage 2 at ``qp_iters``), as the JAX package's
         qp_split / qp_lp flags do: MPCLoop.open_batch reads it off the
         case, so the open leg never runs the stalling joint solve."""
-        Y, U = self.loop.open_batch(
-            np.asarray(rfin_b, dtype=np.float64), self.v, N_b, Nu_b, delta_b,
-            lam_b, self.nit, self.dtype, self.qp_iters, device=self.device,
-            caps=self._caps(N_b, Nu_b))
+        args = (np.asarray(rfin_b, dtype=np.float64), self.v, N_b, Nu_b,
+                delta_b, lam_b, self.nit, self.dtype)
+        if not self._nmpc:
+            args += (self.qp_iters,)
+        Y, U = self.loop.open_batch(*args, device=self.device,
+                                    caps=self._caps(N_b, Nu_b))
         return Y.cpu().numpy(), U.cpu().numpy()
 
 
@@ -189,11 +211,15 @@ def vns_objective_batch(
     delta = _apply_band(delta, problem.band_mask[None, :])
 
     if problem.square:
-        # unit-step setpoint selectors: lane (cand, output i) simulates
-        # with r = step at inK on output i only (VNS2.m:58-65)
+        # lane (cand, output i) simulates with a setpoint on output i only:
+        # a unit step at inK (linear, VNS2.m:58-65) or the case setpoint
+        # (nonlinear: Xsp .* sel, VNS2.m:68-73,155)
         steps = np.zeros((my, nit, my))
         for i in range(my):
-            steps[i, inK - 1 :, i] = 1.0
+            if problem.linear:
+                steps[i, inK - 1 :, i] = 1.0
+            else:
+                steps[i, :, i] = problem.r[:nit, i]
         rfin = steps[:, -1, :]  # (my, my): final setpoint per selector lane
         rfin_b = np.broadcast_to(rfin[None], (B, my, my)).reshape(B * my, my)
         r_b = np.broadcast_to(steps[None], (B, my, nit, my)).reshape(B * my, nit, my)

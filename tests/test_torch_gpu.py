@@ -1,13 +1,16 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card
-(small Wood-Berry, Shell7x5 and Shell3x3 shapes).  Skipped on hosts without
-a CUDA device; on a GPU host run
+(small Wood-Berry, Shell7x5, Shell3x3 and Van de Vusse shapes).  Skipped
+on hosts without a CUDA device; on a GPU host run
 ``python -m pytest --noconftest tests/test_torch_gpu.py``."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from mpc_tuning_tpu_torch.cases import shell3x3, shell7x5, woodberry
+from mpc_tuning_tpu_torch.cases import shell3x3, shell7x5, vandevusse, woodberry
+from mpc_tuning_tpu_torch.models.ode import nmpc_rollout_plain
 from mpc_tuning_tpu_torch.ops import kernels as K
 from mpc_tuning_tpu_torch.sim import mpc_loop
 from mpc_tuning_tpu_torch.tools.band_spread import (band_gate, band_inputs,
@@ -196,3 +199,99 @@ def test_pdip_ws_fused_follows_pdip_sim(cuda):
     assert K.pdip_fused.launches == before + r_l.shape[0]
     torch.testing.assert_close(Ys, Y, rtol=0, atol=1e-9)
     torch.testing.assert_close(Us, U, rtol=0, atol=1e-9)
+
+
+# ------------------------------------------------- spd_solve and the NMPC path
+
+
+@pytest.mark.parametrize("n", [5, 17, 31])
+def test_spd_solve_matches_plain(cuda, n):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    A = torch.randn((300, n, n), generator=g, device=cuda, dtype=F64)
+    M = A @ A.transpose(1, 2) + n * torch.eye(n, device=cuda, dtype=F64)
+    M[7, n - 1, n - 1] = -1.0  # a failed factor: all NaN, as the plain one
+    rhs = torch.randn((300, n), generator=g, device=cuda, dtype=F64)
+    before = K.spd_solve.launches
+    x = K.spd_solve(M, rhs)
+    assert K.spd_solve.launches == before + 1
+    xp = K.spd_solve_plain(M, rhs)
+    assert torch.isnan(x[7]).all() and torch.isnan(xp[7]).all()
+    ok = torch.arange(300, device=cuda) != 7
+    torch.testing.assert_close(x[ok], xp[ok], rtol=0, atol=1e-10)
+
+
+def _vdv_rollout_args(caps, B=64, seed=0):
+    """Seeded Van de Vusse states, previous inputs and moves around the
+    operating point, on the card."""
+    spec = vandevusse.make_case().spec
+    spec = dataclasses.replace(spec, p_max=caps[0], m_max=caps[1])
+    rng = np.random.default_rng(seed)
+    x = spec.x0 + rng.uniform([-0.5, -0.2, -5.0], [0.5, 0.2, 5.0], (B, 3))
+    up = spec.u0 + rng.uniform(-5.0, 5.0, (B, 2))
+    du = rng.uniform(-2.0, 2.0, (B, caps[1] * 2))
+    Nu = rng.integers(1, caps[1] + 1, size=B)
+    cm = (np.arange(caps[1])[None] < Nu[:, None]).astype(float)
+    t = lambda a: torch.tensor(a, dtype=F64, device="cuda")
+    return spec, t(x), t(up), t(du), t(cm), Nu
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("caps", [(31, 15), (16, 2)])
+def test_nmpc_rollout_matches_plain(cuda, caps):
+    """Yf and J, the plant step (m = 0) and the held playback against the
+    plain version at float64 (1e-10 relative)."""
+    spec, x, up, du, cm, Nu = _vdv_rollout_args(caps)
+    before = K.nmpc_rollout.launches
+    Yk, Jk = K.nmpc_rollout(spec, x, up, du, cm, caps[0], jac=True)
+    assert K.nmpc_rollout.launches == before + 1
+    Yp, Jp = nmpc_rollout_plain(spec, x, up, du, cm, caps[0], jac=True)
+    assert _rel(Yk, Yp) <= 1e-10 and _rel(Jk, Jp) <= 1e-10
+    none = torch.zeros((x.shape[0], 0), dtype=F64, device=cuda)
+    args = (spec, x, up, none, none, 1)
+    assert _rel(K.nmpc_rollout(*args, outputs=range(3))[0],
+                nmpc_rollout_plain(*args, outputs=range(3))[0]) <= 1e-10
+    hold = torch.tensor(np.maximum(Nu - 1, 0), dtype=torch.int32,
+                        device=cuda)
+    args = (spec, x, up, du, cm, 59)
+    assert _rel(K.nmpc_rollout(*args, hold=hold)[0],
+                nmpc_rollout_plain(*args, hold=hold)[0]) <= 1e-10
+
+
+def test_nmpc_rollout_refuses_models_without_a_kernel(cuda):
+    spec, x, up, du, cm, _ = _vdv_rollout_args((16, 2), B=4)
+    for bad in (dataclasses.replace(spec, integrator="tr_bdf2"),
+                dataclasses.replace(spec, rhs=lambda a, b: -a)):
+        with pytest.raises(ValueError, match="device='cpu'"):
+            K.nmpc_rollout(bad, x, up, du, cm, 16, jac=True)
+
+
+def test_nmpc_closed_batch_follows_plain(cuda):
+    """An NMPC closed loop on the card (kernels #1, #2 and the rollout)
+    against the plain loop on the CPU stepping on the card's U, at
+    float64."""
+    from mpc_tuning_tpu_torch.sim.nmpc_loop import nmpc_closed_core
+
+    case = vandevusse.make_case(nit=10)
+    problem = vandevusse.build_problem(case, device=cuda)
+    rng = np.random.default_rng(1)
+    B = 8
+    args = (np.broadcast_to(case.r[:10], (B, 10, 2)), problem.v,
+            rng.integers(3, 9, B), rng.integers(2, 3, B),
+            rng.uniform(0.05, 1.0, (B, 2)), rng.uniform(0.05, 0.5, (B, 2)), 10)
+    before = K.launch_counts()
+    Y, U = problem.loop.closed_batch(*args, caps=(8, 2), device=cuda)
+    after = K.launch_counts()
+    for k in ("spd_factor", "spd_factor_solve", "nmpc_rollout"):
+        assert after[k] > before[k], k
+    spec, c, N, Nu, (r, d, l) = problem.loop._batch(
+        problem.v, args[2], args[3], (8, 2), F64, "cpu", None, args[0],
+        args[4], args[5])
+    Yp, Up = nmpc_closed_core(spec, c, r, N, Nu, d, l, u_follow=U.cpu())
+    # in the controller's scaled units (U up to 150 in raw units)
+    torch.testing.assert_close(Y.cpu() / c["sf_y"], Yp / c["sf_y"], rtol=0,
+                               atol=1e-9)
+    torch.testing.assert_close(U.cpu() / c["sf_u"], Up / c["sf_u"], rtol=0,
+                               atol=1e-9)

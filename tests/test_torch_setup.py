@@ -88,6 +88,33 @@ def test_entry_points_default_to_the_card():
         convert.arrays_from_numpy({"A": np.eye(2)})
 
 
+def test_nmpc_entry_points_default_to_the_card():
+    """The Van de Vusse problem and the NMPC loop's methods run on the card
+    unless the CPU is asked for; on a host without one they raise."""
+    from mpc_tuning_tpu_torch.cases import vandevusse
+
+    case = vandevusse.make_case(nit=4, nbp=2, nbc=1, substeps=1,
+                                sqp_iters=1, qp_iters=2)
+    if torch.cuda.is_available():
+        assert torch.device(vandevusse.build_problem(case).device).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vandevusse.build_problem(case)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vandevusse.run(nit=4, checkpoint_dir=None, verbose=False)
+    loop = vandevusse.build_problem(case, device="cpu").loop
+    r, v = case.r, np.zeros((4, 0))
+    one = ([3], [1], [[1.0, 1.0]], [[0.1, 0.1]], 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.closed_batch(r[None], v, *one)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.open_batch(r[-1:], v, *one)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loop.simulate(r, v, 4, 3, 1, [1.0, 1.0], [0.1, 0.1])
+    y, u = loop.simulate(r, v, 4, 3, 1, [1.0, 1.0], [0.1, 0.1], device="cpu")
+    assert y.shape == (4, 2) and np.isfinite(u).all()
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
@@ -95,6 +122,10 @@ def test_port_imports_no_jax():
         "import mpc_tuning_tpu_torch.tuning.api, mpc_tuning_tpu_torch.convert\n"
         "import mpc_tuning_tpu_torch.cases.woodberry\n"
         "import mpc_tuning_tpu_torch.cases.shell7x5\n"
+        "import mpc_tuning_tpu_torch.cases.shell3x3\n"
+        "import mpc_tuning_tpu_torch.cases.vandevusse\n"
+        "import mpc_tuning_tpu_torch.sim.nmpc_loop\n"
+        "import mpc_tuning_tpu_torch.tools.band_spread\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mpc_tuning_tpu'))\n"
