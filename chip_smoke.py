@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # needs one card; about 14 minutes
+    python3 chip_smoke.py            # needs one card; about 15 minutes
 
 Phases, each printing one line (with its wall time):
  1. environment: the card (nvidia-smi name and power limit), torch and CUDA
@@ -11,16 +11,18 @@ Phases, each printing one line (with its wall time):
     following the kernel's inputs, ``follow_plain``):
     2a the Wood-Berry kernels in float64 and float32 (caps (64,8) and
        (127,15), B=1024, nit=60, cut from the case's 400 steps to make
-       room for the later rows; SPD factor/solve at n = 5, 17, 31);
+       room for the later rows; SPD factor/solve at n = 5, 17, 31 and 46
+       (two rows a lane, over 48 KB of shared memory), each at B = 1024
+       and at a ragged B = 37);
     2b the band kernel on Shell7x5 in float64, the only dtype band cases
        run at (caps (32,4), (127,2), (127,15), B=256, nit=200, the seeded
        candidates of tools/band_spread.band_inputs), held at the limits
        that tools/band_spread.py derives from two correct runs;
     2c the per-step engines' kernels in float64 and float32: the lane-major
-       factor/solve at n = 7, 17, 46 and the single-solve PDIP and ADMM
-       kernels on one real Shell3x3 step's QPs (caps (32,4), (127,15),
-       B=1024), held at QP_LIMITS, fixed from what two correct runs differ
-       by;
+       factor/solve at n = 7, 17, 46 (B = 1024 and 37) and the
+       single-solve PDIP and ADMM kernels on one real Shell3x3 step's QPs
+       (caps (32,4), (127,15), B=1024), held at QP_LIMITS, fixed from what
+       two correct runs differ by;
     2d the NMPC slice's kernels in float64 and float32: spd_solve at n = 5,
        17, 31; nmpc_rollout (Y and its Jacobian J, the plant step, the held
        playback) on 256 seeded Van de Vusse states at caps (31,15) and
@@ -58,7 +60,11 @@ Phases, each printing one line (with its wall time):
     call computes the same function, that call (recorded, not gated), one
     evaluation through each per-step engine beside the whole-sim kernel
     of the same algorithm, and one NMPC closed-loop evaluation with its
-    launches and device time.
+    launches and device time.  The two SPD factor kernels are timed at
+    FACTOR_SHAPES: float32 B=1024 n=17 and the float64 batches the tunes
+    launch, (B, n) = (8, 5), (36, 31), (141, 46), each beside
+    torch.linalg.cholesky_ex and the plain version, by CUDA events and by
+    device time (torch.profiler).
 Then one JSON line with the per-kernel record, the card's line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero before that line.
@@ -197,6 +203,94 @@ def timed(fn, reps: int = 1, warm: bool = True):
 
 def maxabs(a, b) -> float:
     return float((a - b).abs().max().item())
+
+
+def spd_batch(B, n, dtype, seed=None):
+    """B seeded SPD matrices (B, n, n) on the card and right-hand sides
+    (B, n); the seed defaults to n."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(n if seed is None else seed)
+    A = torch.randn((B, n, n), generator=g, device="cuda", dtype=dtype)
+    M = A @ A.transpose(1, 2) + n * torch.eye(n, device="cuda", dtype=dtype)
+    return M, torch.randn((B, n), generator=g, device="cuda", dtype=dtype)
+
+
+def device_ms(fn, reps: int = 20, tries: int = 3):
+    """Device milliseconds per call (torch.profiler, CUDA activity: every
+    kernel, copy and fill the call puts on the card) over ``reps`` calls
+    after a warm-up; a profile that records no device time (it happens)
+    is taken again, up to ``tries`` profiles, then None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages())
+        if us > 0:
+            return us / 1e3 / reps
+    return None
+
+
+# Phase 4's shapes of the SPD factor kernels: the table's float32 row, then
+# the float64 batches the tunes launch: a GAM generation at popsize 8 at
+# Van de Vusse's n = 5, phase 3d's last Van de Vusse batch (B = 36 at the
+# (31, 15) bucket's n = 31) and Shell's widest bucket (n = 46) at the
+# largest batch the tunes launch (~141)
+FACTOR_SHAPES = ((torch.float32, 1024, 17), (torch.float64, 8, 5),
+                 (torch.float64, 36, 31), (torch.float64, 141, 46))
+
+
+def factor_record(lanes: bool):
+    """The factor kernel (``lanes``: factor_lanes on (n, n, B), else
+    spd_factor on (B, n, n)), torch.linalg.cholesky_ex on the same input
+    and the plain version at each of FACTOR_SHAPES: CUDA-event ms per call
+    (20 calls) and device ms per call (``device_ms``), with the bound.
+    Returns the kernel's record (the table's keys at the first shape, f32
+    B=1024 n=17, and every shape under 'shapes') and its text, the
+    timings' own seconds last."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    rows = []
+    for dtype, B, n in FACTOR_SHAPES:
+        M = spd_batch(B, n, dtype)[0]
+        if lanes:
+            M = M.permute(1, 2, 0).contiguous()
+            calls = dict(kernel=lambda: K.factor_lanes(M),
+                         library=lambda: torch.linalg.cholesky_ex(
+                             M.permute(2, 0, 1)),
+                         plain=lambda: K.factor_lanes_plain(M))
+        else:
+            calls = dict(kernel=lambda: K.spd_factor(M),
+                         library=lambda: torch.linalg.cholesky_ex(M),
+                         plain=lambda: K.spd_factor_plain(M))
+        row = dict(dtype=str(dtype).removeprefix("torch."), B=B, n=n)
+        for name, fn in calls.items():
+            key = "" if name == "kernel" else name + "_"
+            row[key + "ms"] = timed(fn, 20)[0]
+            row[key + "device_ms"] = device_ms(fn)
+        # the factor reads M's lower triangle only and writes all of L
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            B * (n * (n + 1) // 2 + n * n) * M.element_size(),
+            B * n ** 3 / 3, dtype)
+        rows.append(row)
+    rec = {k: rows[0][k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")}
+    rec["shapes"] = rows
+    ms = lambda v: "not measured" if v is None else f"{v:.5f}"
+    txt = "; ".join(
+        f"{r['dtype']} B={r['B']} n={r['n']}: kernel {r['ms']:.5f} ms "
+        f"(device {ms(r['device_ms'])}), cholesky_ex {r['library_ms']:.5f} "
+        f"(device {ms(r['library_device_ms'])}), plain {r['plain_ms']:.5f} "
+        f"(device {ms(r['plain_device_ms'])}), bound {r['bound_ms']:.6f} "
+        f"({r['bound_by']})" for r in rows)
+    return rec, txt + f" ({time.perf_counter() - t0:.1f} s)"
 
 
 def nbytes(*xs) -> int:
@@ -375,12 +469,8 @@ def phase_kernels(problem):
                           and eu <= F32_PDIP_U_CAP)
                 if not ok:
                     fail(f"{rows[-1]}: above its gate")
-        for n in (5, 17, 31):
-            g = torch.Generator(device="cuda").manual_seed(n)
-            A = torch.randn((B, n, n), generator=g, device="cuda", dtype=dtype)
-            M = A @ A.transpose(1, 2) + n * torch.eye(n, device="cuda",
-                                                      dtype=dtype)
-            rhs = torch.randn((B, n), generator=g, device="cuda", dtype=dtype)
+        for n, Bs in ((n, Bs) for n in (5, 17, 31, 46) for Bs in (B, 37)):
+            M, rhs = spd_batch(Bs, n, dtype)
             Lk, Lp = K.spd_factor(M), K.spd_factor_plain(M)
             xk = K.spd_factor_solve(Lk, rhs)
             xp = K.spd_factor_solve_plain(Lp, rhs)
@@ -393,9 +483,9 @@ def phase_kernels(problem):
             else:
                 eL /= float(Lp.abs().max())
                 ex /= float(xp.abs().max())
-            rows.append(f"spd(n={n}):{tag}=L {eL:.3e} x {ex:.3e}")
+            rows.append(f"spd(n={n},B={Bs}):{tag}=L {eL:.3e} x {ex:.3e}")
             if max(eL, ex) > (F64_SPD_GATE if f64 else F32_SPD_GATE):
-                fail(f"spd n={n} {dtype}: dL {eL:.3e} dx {ex:.3e}")
+                fail(f"spd n={n} B={Bs} {dtype}: dL {eL:.3e} dx {ex:.3e}")
     print(f"[2a kernels] B={B} nit={nit} (the case's 400 steps cut to {nit}), "
           f"whole sims with the plain version following the kernel's U; "
           f"gates: f64 {F64_SIM_GATE:g}, f32 {F32_SIM_GATE:g} (f32 PDIP U: "
@@ -528,13 +618,9 @@ def phase_step_kernels(s3_problem):
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
         tag = "f64" if f64 else "f32"
-        for n in (7, 17, 46):
-            g = torch.Generator(device="cuda").manual_seed(n)
-            A = torch.randn((B, n, n), generator=g, device="cuda", dtype=dtype)
-            M = (A @ A.transpose(1, 2) + n * torch.eye(n, device="cuda",
-                                                       dtype=dtype))
-            M = M.permute(1, 2, 0).contiguous()
-            rhs = torch.randn((n, B), generator=g, device="cuda", dtype=dtype)
+        for n, Bs in ((n, Bs) for n in (7, 17, 46) for Bs in (B, 37)):
+            M, rhs = spd_batch(Bs, n, dtype)
+            M, rhs = M.permute(1, 2, 0).contiguous(), rhs.T.contiguous()
             Lk, Lp = K.factor_lanes(M), K.factor_lanes_plain(M)
             xk = K.solve_lanes(Lk, rhs)
             xp = K.solve_lanes_plain(Lp, rhs)
@@ -546,7 +632,7 @@ def phase_step_kernels(s3_problem):
             else:
                 eL /= float(Lp.abs().max())
                 ex /= float(xp.abs().max())
-            rows.append(f"lanes(n={n}):{tag}=L {eL:.3e} x {ex:.3e}")
+            rows.append(f"lanes(n={n},B={Bs}):{tag}=L {eL:.3e} x {ex:.3e}")
             if max(eL, ex) > (F64_SPD_GATE if f64 else F32_SPD_GATE):
                 bad.append(rows[-1])
         for caps in ((32, 4), (127, 15)):
@@ -954,16 +1040,9 @@ def phase_throughput(problem, band_problem):
         f"{2048e3 / rec['closed_sim_pdip']['ms']:.0f} sims/s, plain "
         f"{rec['closed_sim_pdip']['plain_ms']:.1f} ms")
 
-    g = torch.Generator(device="cuda").manual_seed(0)
-    A = torch.randn((1024, 17, 17), generator=g, device="cuda", dtype=f32)
-    M = A @ A.transpose(1, 2) + 17 * torch.eye(17, device="cuda", dtype=f32)
-    rhs = torch.randn((1024, 17), generator=g, device="cuda", dtype=f32)
+    M, rhs = spd_batch(1024, 17, f32, seed=0)
     L = K.spd_factor_plain(M)
-    fac = dict(ms=timed(lambda: K.spd_factor(M), 20)[0],
-               plain_ms=timed(lambda: K.spd_factor_plain(M), 20)[0],
-               library_ms=timed(lambda: torch.linalg.cholesky_ex(M), 20)[0])
-    fac["bound_ms"], fac["bound_by"] = bound_ms(
-        2 * nbytes(M), 1024 * 17 ** 3 / 3, f32)
+    fac, fac_txt = factor_record(lanes=False)
     sol = dict(ms=timed(lambda: K.spd_factor_solve(L, rhs), 20)[0],
                plain_ms=timed(lambda: K.spd_factor_solve_plain(L, rhs), 20)[0],
                library_ms=timed(lambda: torch.cholesky_solve(rhs[:, :, None],
@@ -971,9 +1050,8 @@ def phase_throughput(problem, band_problem):
     sol["bound_ms"], sol["bound_by"] = bound_ms(
         nbytes(L) + 2 * nbytes(rhs), 1024 * 2 * 2 * 17 ** 2, f32)
     rec["spd_factor"], rec["spd_factor_solve"] = fac, sol
-    txt.append(f"spd B=1024 n=17 f32: factor {fac['ms']:.4f} ms (plain "
-               f"{fac['plain_ms']:.4f}, cholesky_ex {fac['library_ms']:.4f}), "
-               f"solve {sol['ms']:.4f} ms (plain {sol['plain_ms']:.4f}, "
+    txt.append(f"spd_factor {fac_txt} | spd_factor_solve B=1024 n=17 f32: "
+               f"{sol['ms']:.4f} ms (plain {sol['plain_ms']:.4f}, "
                f"cholesky_solve {sol['library_ms']:.4f})")
 
     # B = 1 (the final simulation's latency; kernel only) and the record's
@@ -1008,18 +1086,10 @@ def phase_step_throughput(problem):
     t0 = time.perf_counter()
     f32 = torch.float32
     rec, txt = {}, []
-    g = torch.Generator(device="cuda").manual_seed(0)
-    A = torch.randn((1024, 17, 17), generator=g, device="cuda", dtype=f32)
-    M = A @ A.transpose(1, 2) + 17 * torch.eye(17, device="cuda", dtype=f32)
-    rhs = torch.randn((1024, 17), generator=g, device="cuda", dtype=f32)
+    M, rhs = spd_batch(1024, 17, f32, seed=0)
     Mt, rt = M.permute(1, 2, 0).contiguous(), rhs.T.contiguous()
     Lt = K.factor_lanes_plain(Mt).contiguous()
-    fac = dict(ms=timed(lambda: K.factor_lanes(Mt), 20)[0],
-               plain_ms=timed(lambda: K.factor_lanes_plain(Mt), 20)[0],
-               library_ms=timed(lambda: torch.linalg.cholesky_ex(
-                   Mt.permute(2, 0, 1)), 20)[0])
-    fac["bound_ms"], fac["bound_by"] = bound_ms(
-        2 * nbytes(Mt), 1024 * 17 ** 3 / 3, f32)
+    fac, fac_txt = factor_record(lanes=True)
     sol = dict(ms=timed(lambda: K.solve_lanes(Lt, rt), 20)[0],
                plain_ms=timed(lambda: K.solve_lanes_plain(Lt, rt), 20)[0],
                library_ms=timed(lambda: torch.cholesky_solve(
@@ -1027,9 +1097,8 @@ def phase_step_throughput(problem):
     sol["bound_ms"], sol["bound_by"] = bound_ms(
         nbytes(Lt) + 2 * nbytes(rt), 1024 * 2 * 2 * 17 ** 2, f32)
     rec["factor_lanes"], rec["solve_lanes"] = fac, sol
-    txt.append(f"lanes B=1024 n=17 f32: factor {fac['ms']:.4f} ms (plain "
-               f"{fac['plain_ms']:.4f}, cholesky_ex {fac['library_ms']:.4f}), "
-               f"solve {sol['ms']:.4f} ms (plain {sol['plain_ms']:.4f}, "
+    txt.append(f"factor_lanes {fac_txt} | solve_lanes B=1024 n=17 f32: "
+               f"{sol['ms']:.4f} ms (plain {sol['plain_ms']:.4f}, "
                f"cholesky_solve {sol['library_ms']:.4f})")
 
     # one step's QP solve at the GAM shape (PDIP) and the VNS headline
@@ -1154,11 +1223,7 @@ def phase_nmpc_kernels(vdv_problem):
         f64 = dtype == torch.float64
         tag = "f64" if f64 else "f32"
         for n in (5, 17, 31):
-            g = torch.Generator(device="cuda").manual_seed(n)
-            A = torch.randn((B, n, n), generator=g, device="cuda", dtype=dtype)
-            M = A @ A.transpose(1, 2) + n * torch.eye(n, device="cuda",
-                                                      dtype=dtype)
-            rhs = torch.randn((B, n), generator=g, device="cuda", dtype=dtype)
+            M, rhs = spd_batch(B, n, dtype)
             xk, xp = K.spd_solve(M, rhs), K.spd_solve_plain(M, rhs)
             torch.cuda.synchronize()
             ex = maxabs(xk, xp)
@@ -1360,13 +1425,7 @@ def phase_spd_solve_entry():
     float64; returns the launch counts."""
     from mpc_tuning_tpu_torch.ops import kernels as K
 
-    g = torch.Generator(device="cuda").manual_seed(31)
-    A = torch.randn((1024, 31, 31), generator=g, device="cuda",
-                    dtype=torch.float64)
-    M = A @ A.transpose(1, 2) + 31 * torch.eye(31, device="cuda",
-                                               dtype=torch.float64)
-    rhs = torch.randn((1024, 31), generator=g, device="cuda",
-                      dtype=torch.float64)
+    M, rhs = spd_batch(1024, 31, torch.float64)
     K.reset_launches()
     x = K.spd_solve(M, rhs)
     torch.cuda.synchronize()
@@ -1398,10 +1457,7 @@ def phase_nmpc_throughput(vdv_problem):
     t0 = time.perf_counter()
     rec, txt = {}, []
     f32, f64 = torch.float32, torch.float64
-    g = torch.Generator(device="cuda").manual_seed(0)
-    A = torch.randn((1024, 17, 17), generator=g, device="cuda", dtype=f32)
-    M = A @ A.transpose(1, 2) + 17 * torch.eye(17, device="cuda", dtype=f32)
-    rhs = torch.randn((1024, 17), generator=g, device="cuda", dtype=f32)
+    M, rhs = spd_batch(1024, 17, f32, seed=0)
 
     def library():
         L, _ = torch.linalg.cholesky_ex(M)

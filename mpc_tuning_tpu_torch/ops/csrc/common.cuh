@@ -1,6 +1,7 @@
 // Shared helpers of the port's hand-written Hopper kernels.
 //
-// Every kernel here runs one candidate per thread.  Per-candidate data is
+// The kernels run one candidate per thread (the SPD factors of spd.cu: one
+// warp per matrix, the tile in shared memory).  Per-candidate data is
 // lane-major: element i of a per-candidate vector lives at p[i * B + lane],
 // so the threads of a warp touch neighbouring addresses.  Lane<T> wraps a
 // pointer already offset by the lane.
@@ -66,6 +67,20 @@ __device__ __forceinline__ float inf_value<float>() {
 template <>
 __device__ __forceinline__ double inf_value<double>() {
   return __longlong_as_double(0x7ff0000000000000LL);
+}
+
+// the quiet NaN that torch's float('nan') fills with
+template <typename T>
+__device__ __forceinline__ T nan_value();
+
+template <>
+__device__ __forceinline__ float nan_value<float>() {
+  return __int_as_float(0x7fc00000);
+}
+
+template <>
+__device__ __forceinline__ double nan_value<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
 }
 
 }  // namespace mpc

@@ -14,35 +14,263 @@
 //    neighbouring addresses, so a warp's loads coalesce, and the PDIP loop
 //    around them needs no transposes.
 //
-// One thread per matrix.  The work is n^3/6 dependent multiply-adds per
-// matrix at n <= 46 (a few thousand to ~16,000), so the kernels are bound
-// by the latency of that serial chain, not by bytes or FLOP/s; a batch of
-// B matrices keeps B threads busy.  The upper triangle of L is written as
-// zeros, as the Pallas factor and torch.linalg.cholesky leave it.
+// The TPU factor (_factor_kernel, pallas_kernels.py:163) ran a right-looking
+// Cholesky on a (8, 128)-tiled block of matrices in VMEM, one grid step per
+// block, in order, on one core.  Here the two factors (spd_factor,
+// factor_lanes) run one warp per matrix, W = 8 (float) or 4 (double)
+// matrices a block, each factored in place in a padded tile in shared
+// memory.  At the tunes' sizes (n <= 46, B = 8 to ~1024) a factor moves a
+// few KB to a few MB and does B n^3 / 3 operations, so neither bytes nor
+// FLOP/s bound it: launch latency and each matrix's serial chain of columns
+// do, and bytes only at large B.  The design cuts the chain: left-looking,
+// lane l holds rows l and l + 32, so a column's dots run on all rows at
+// once (about n^2 / 2 dependent steps, not n^3 / 6); four columns share one
+// pass over the dots; pivots travel by shuffle.  Each entry still sees the
+// operations of the one-thread factor (spd_solve's) in their order
+// (ascending k, then the sqrt or the division), so the two agree to the
+// bit.  The block's loads go through cp.async, all in flight at once, and
+// its stores are coalesced (16 bytes a thread batch-major, 32-byte runs
+// lane-major).  The solves stay one thread per system.
 
 #include "common.cuh"
 
 namespace mpc {
 
+// ------------------------------------------------------------- factors
+//
+// Envelope (ops/kernels.factor_envelope holds the same arithmetic): W =
+// FactorShape<T>::kW matrices per block (8 at float, 4 at double, so that
+// the W values of one element in the lane-major layout fill a 32-byte
+// sector), each a tile of n rows at a row stride ld = n | 1 (odd, so the 32
+// lanes reading one column of a tile hit 32 banks; at double in 8-byte
+// words, half a warp at a time); W n ld sizeof(T) bytes of dynamic shared
+// memory, at most kFactorSmemMax (the H100's 227 KB a block), and n <= 32
+// kFactorMaxRows rows a lane.  Both dtypes take n <= 64 (133,120 bytes).
+
 template <typename T>
-__global__ void spd_factor_kernel(const T* __restrict__ M, T* __restrict__ L,
-                                  int B, int n) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const T* A = M + (size_t)b * n * n;
-  T* Lb = L + (size_t)b * n * n;
-  for (int j = 0; j < n; ++j) {
-    T d = A[j * n + j];
-    for (int k = 0; k < j; ++k) d -= Lb[j * n + k] * Lb[j * n + k];
-    const T ljj = sqrt(d);
-    Lb[j * n + j] = ljj;
-    for (int i = j + 1; i < n; ++i) {
-      T v = A[i * n + j];
-      for (int k = 0; k < j; ++k) v -= Lb[i * n + k] * Lb[j * n + k];
-      Lb[i * n + j] = v / ljj;
-    }
-    for (int i = 0; i < j; ++i) Lb[i * n + j] = T(0);
+struct FactorShape {
+  static constexpr int kW = sizeof(T) == 8 ? 4 : 8;
+};
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+};
+
+constexpr int kFactorMaxRows = 2;
+constexpr int kFactorCols = 4;  // columns finished per pass over the dots
+constexpr long long kFactorSmemMax = 232448;
+
+__host__ __device__ __forceinline__ int factor_ld(int n) { return n | 1; }
+
+template <typename T>
+long long factor_smem_bytes(int n) {
+  return (long long)FactorShape<T>::kW * n * factor_ld(n) * sizeof(T);
+}
+
+template <typename T>
+bool factor_fits(int n) {
+  return n >= 1 && n <= 32 * kFactorMaxRows &&
+         factor_smem_bytes<T>(n) <= kFactorSmemMax;
+}
+
+// One element from device memory into shared memory without a register
+// (cp.async, 4 or 8 bytes), so that all of a thread's copies are in flight
+// at once; cp_async_wait() waits for this thread's.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem, const T* g) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(g));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(g));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The value a[j >> 5] of row j on the lane that owns it, on every lane: one
+// shuffle per row slot (indexing a by j would put it in local memory).
+template <typename T, int R>
+__device__ __forceinline__ T from_row(const T (&a)[R], int j) {
+  T v = __shfl_sync(0xffffffffu, a[0], j & 31);
+#pragma unroll
+  for (int r = 1; r < R; ++r) {
+    const T u = __shfl_sync(0xffffffffu, a[r], j & 31);
+    if ((j >> 5) == r) v = u;
   }
+  return v;
+}
+
+// Column j from its finished dots a[r] (rows lane + 32 r): the pivot d of
+// row j, ljj = sqrt(d) on every lane, q[r] = a[r] / ljj; returns ljj.
+template <typename T, int R>
+__device__ __forceinline__ T finish_column(const T (&a)[R], T (&q)[R], int j,
+                                           bool& ok) {
+  const T d = from_row(a, j);
+  ok = ok && d > T(0);
+  const T ljj = sqrt(d);
+#pragma unroll
+  for (int r = 0; r < R; ++r) q[r] = a[r] / ljj;
+  return ljj;
+}
+
+// The factor of one n x n matrix in the tile t (row stride ld), in place,
+// by one warp.  Lane l owns rows l + 32 r, r < R; a lane past row n - 1
+// reads row n - 1 and stores nothing, so no load or multiply-add is
+// branched.  Left-looking, C = kFactorCols columns a pass: every row forms
+// the dots of columns j ... j + C - 1 over k < j at once (one load of L[i][k]
+// serves C columns), then the C columns are finished in order, each one's
+// entries entering the later columns' dots as their terms k = j, j + 1, ...
+// So every entry sees A[i][j] - sum_k L[i][k] L[j][k] in ascending k, then
+// the sqrt or the division.  Ends with the upper triangle zero, or, if a
+// pivot was not > 0, the whole tile NaN (as the plain version).
+template <typename T, int R>
+__device__ void warp_factor(T* t, int n, int ld, int lane) {
+  constexpr int C = kFactorCols;
+  int off[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) off[r] = min(lane + 32 * r, n - 1) * ld;
+  bool ok = true;
+  int j = 0;
+  for (; j + C <= n; j += C) {
+    T a[C][R], q[C][R], diag[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r) a[c][r] = t[off[r] + j + c];
+    const T* Lj = t + j * ld;
+#pragma unroll 8
+    for (int k = 0; k < j; ++k) {
+      T lc[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) lc[c] = Lj[c * ld + k];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const T lik = t[off[r] + k];
+#pragma unroll
+        for (int c = 0; c < C; ++c) a[c][r] -= lik * lc[c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      diag[c] = finish_column(a[c], q[c], j + c, ok);
+#pragma unroll
+      for (int c2 = c + 1; c2 < C; ++c2) {
+        const T l = from_row(q[c], j + c2);
+#pragma unroll
+        for (int r = 0; r < R; ++r) a[c2][r] -= q[c][r] * l;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = lane + 32 * r;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        if (i > j + c && i < n) t[off[r] + j + c] = q[c][r];
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if (lane == ((j + c) & 31)) t[(j + c) * ld + j + c] = diag[c];
+    __syncwarp();
+  }
+  for (; j < n; ++j) {  // the last n % C columns, one at a time
+    T a[R], q[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) a[r] = t[off[r] + j];
+    const T* Lj = t + j * ld;
+#pragma unroll 8
+    for (int k = 0; k < j; ++k) {
+      const T ljk = Lj[k];
+#pragma unroll
+      for (int r = 0; r < R; ++r) a[r] -= t[off[r] + k] * ljk;
+    }
+    const T ljj = finish_column(a, q, j, ok);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = lane + 32 * r;
+      if (i > j && i < n) t[off[r] + j] = q[r];
+    }
+    if (lane == (j & 31)) t[j * ld + j] = ljj;
+    __syncwarp();
+  }
+  const T nan = nan_value<T>();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = lane + 32 * r;
+    if (i < n) {
+      if (!ok)
+        for (int c = 0; c < n; ++c) t[i * ld + c] = nan;
+      else
+        for (int c = i + 1; c < n; ++c) t[i * ld + c] = T(0);
+    }
+  }
+}
+
+// Batch-major (B, n, n): block x takes matrices x W ... x W + W - 1, which
+// lie contiguous in M and L, `count` elements in rows of n; element e, row
+// e / n, sits at e + (e / n) (ld - n) in the block's tiles.  The block
+// copies them with consecutive threads on consecutive elements: loads
+// element by element through cp.async (the padded tile rows allow no
+// 16-byte shared-memory stores), stores 16 bytes a thread where L allows.
+template <typename T>
+__device__ void load_rows(const T* __restrict__ g, T* __restrict__ tiles,
+                          int count, int n, int ld) {
+  for (int e = threadIdx.x; e < count; e += blockDim.x)
+    cp_async(tiles + e + (e / n) * (ld - n), g + e);
+  cp_async_wait();
+}
+
+template <typename T>
+__device__ void store_rows(const T* __restrict__ tiles, T* __restrict__ g,
+                           int count, int n, int ld) {
+  using V = typename Vec16<T>::type;
+  constexpr int kV = 16 / sizeof(T);
+  int e0 = 0;
+  if ((reinterpret_cast<size_t>(g) & 15) == 0) {
+    const int nv = count / kV;
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) {
+      V x;
+      T* xs = reinterpret_cast<T*>(&x);
+#pragma unroll
+      for (int u = 0; u < kV; ++u) {
+        const int e = v * kV + u;
+        xs[u] = tiles[e + (e / n) * (ld - n)];
+      }
+      reinterpret_cast<V*>(g)[v] = x;
+    }
+    e0 = nv * kV;
+  }
+  for (int e = e0 + threadIdx.x; e < count; e += blockDim.x)
+    g[e] = tiles[e + (e / n) * (ld - n)];
+}
+
+// A warp past the batch's end skips the factor as a whole and only meets
+// the block's barriers.
+template <typename T, int R>
+__global__ void __launch_bounds__(32 * FactorShape<T>::kW)
+    spd_factor_kernel(const T* __restrict__ M, T* __restrict__ L, int B,
+                      int n) {
+  constexpr int W = FactorShape<T>::kW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tiles = reinterpret_cast<T*>(smem);
+  const int ld = factor_ld(n), nn = n * n;
+  const int b0 = blockIdx.x * W;
+  const int nb = min(W, B - b0);
+  const size_t off = (size_t)b0 * nn;
+  load_rows(M + off, tiles, nb * nn, n, ld);
+  __syncthreads();
+  const int w = threadIdx.x >> 5;
+  if (w < nb) warp_factor<T, R>(tiles + w * n * ld, n, ld, threadIdx.x & 31);
+  __syncthreads();
+  store_rows(tiles, L + off, nb * nn, n, ld);
 }
 
 template <typename T>
@@ -111,26 +339,38 @@ __global__ void spd_solve_kernel(const T* __restrict__ M,
   }
 }
 
-// Lane-major: the same arithmetic, indices through Lane / CLane.
-template <typename T>
-__global__ void factor_lanes_kernel(const T* __restrict__ M,
-                                    T* __restrict__ L, int B, int n) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const CLane<T> A = clane_at(M, B, b);
-  const Lane<T> Lb = lane_at(L, 0, B, b);
-  for (int j = 0; j < n; ++j) {
-    T d = A[j * n + j];
-    for (int k = 0; k < j; ++k) d -= Lb[j * n + k] * Lb[j * n + k];
-    const T ljj = sqrt(d);
-    Lb[j * n + j] = ljj;
-    for (int i = j + 1; i < n; ++i) {
-      T v = A[i * n + j];
-      for (int k = 0; k < j; ++k) v -= Lb[i * n + k] * Lb[j * n + k];
-      Lb[i * n + j] = v / ljj;
+// Lane-major (n, n, B), element (i, j, b) at (i n + j) B + b: block x
+// takes lanes b0 = x W ... b0 + W - 1.  Thread t copies elements e = t / W,
+// e + 32, ... of lane b0 + t % W, so the W values of one element are one
+// contiguous run of 32 bytes.  Only the lower triangle is loaded (the
+// factor reads no other); the store writes every element.
+template <typename T, int R>
+__global__ void __launch_bounds__(32 * FactorShape<T>::kW)
+    factor_lanes_kernel(const T* __restrict__ M, T* __restrict__ L, int B,
+                        int n) {
+  constexpr int W = FactorShape<T>::kW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tiles = reinterpret_cast<T*>(smem);
+  const int ld = factor_ld(n), nn = n * n;
+  const int b0 = blockIdx.x * W;
+  const int mine = threadIdx.x % W, b = b0 + mine;
+  T* tile = tiles + mine * n * ld;
+  if (b < B)
+    for (int e = threadIdx.x / W; e < nn; e += 32) {
+      const int i = e / n, j = e - i * n;
+      if (j <= i) cp_async(tile + i * ld + j, M + (size_t)e * B + b);
     }
-    for (int i = 0; i < j; ++i) Lb[i * n + j] = T(0);
-  }
+  cp_async_wait();
+  __syncthreads();
+  const int w = threadIdx.x >> 5;
+  if (b0 + w < B)
+    warp_factor<T, R>(tiles + w * n * ld, n, ld, threadIdx.x & 31);
+  __syncthreads();
+  if (b < B)
+    for (int e = threadIdx.x / W; e < nn; e += 32) {
+      const int i = e / n;
+      L[(size_t)e * B + b] = tile[i * ld + e - i * n];
+    }
 }
 
 template <typename T>
@@ -156,17 +396,48 @@ __global__ void solve_lanes_kernel(const T* __restrict__ L,
 
 constexpr int kSpdThreads = 128;
 
+namespace {
+// The dynamic shared memory each factor kernel (layout, dtype, rows a lane)
+// is allowed on each device so far: above 48 KB a block's has to be
+// allowed, once a kernel and device, for the most any launch has needed.
+// Internal linkage, so two libraries loaded in one process keep their own
+// (a template's static would be one symbol in the whole process).
+constexpr int kMaxDevices = 64;
+int g_factor_smem[2][2][kFactorMaxRows][kMaxDevices];
+}  // namespace
+
+template <typename T, int R>
+int launch_factor_rows(bool lanes, const T* M, T* L, int B, int n,
+                       cudaStream_t st) {
+  constexpr int W = FactorShape<T>::kW;
+  void (*kernel)(const T*, T*, int, int) =
+      lanes ? factor_lanes_kernel<T, R> : spd_factor_kernel<T, R>;
+  const int smem = (int)factor_smem_bytes<T>(n);
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    int& allowed = g_factor_smem[lanes][sizeof(T) == 8][R - 1][dev];
+    if (smem > allowed) {
+      e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      allowed = smem;
+    }
+  }
+  kernel<<<(B + W - 1) / W, 32 * W, smem, st>>>(M, L, B, n);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_factor(bool lanes, const void* M, void* L, int B, int n,
                   cudaStream_t st) {
-  const int blocks = (B + kSpdThreads - 1) / kSpdThreads;
-  if (lanes)
-    factor_lanes_kernel<T><<<blocks, kSpdThreads, 0, st>>>(
-        static_cast<const T*>(M), static_cast<T*>(L), B, n);
-  else
-    spd_factor_kernel<T><<<blocks, kSpdThreads, 0, st>>>(
-        static_cast<const T*>(M), static_cast<T*>(L), B, n);
-  return (int)cudaGetLastError();
+  if (!factor_fits<T>(n)) return (int)cudaErrorInvalidValue;
+  const T* m = static_cast<const T*>(M);
+  T* l = static_cast<T*>(L);
+  return n <= 32 ? launch_factor_rows<T, 1>(lanes, m, l, B, n, st)
+                 : launch_factor_rows<T, 2>(lanes, m, l, B, n, st);
 }
 
 template <typename T>

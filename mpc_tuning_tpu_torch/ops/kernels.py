@@ -33,6 +33,7 @@ from mpc_tuning_tpu_torch.models.ode import nmpc_envelope, nmpc_rollout_plain
 from mpc_tuning_tpu_torch.ops import _build
 
 __all__ = ["spd_factor", "spd_factor_solve", "spd_solve", "factor_lanes",
+           "factor_envelope",
            "solve_lanes", "pdip_fused", "admm_fused", "closed_sim_admm",
            "closed_sim_pdip", "closed_sim_band", "nmpc_rollout",
            "spd_factor_plain", "spd_factor_solve_plain", "spd_solve_plain",
@@ -99,9 +100,33 @@ def _stream(t):
 # ------------------------------------------------------------ spd_factor
 #
 # Replaces _factor_batched_impl / _factor_kernel
-# (mpc_tuning_tpu/ops/pallas_kernels.py, spd_factor).  Bound by the serial
-# n^3/6 multiply-add chain of each matrix; one thread per matrix
-# (ops/csrc/spd.cu).
+# (mpc_tuning_tpu/ops/pallas_kernels.py, spd_factor).  Bound by launch
+# latency and each matrix's serial chain; one warp per matrix, the matrix in
+# a shared-memory tile, several matrices per block (ops/csrc/spd.cu).
+
+# The envelope of spd_factor and factor_lanes (ops/csrc/spd.cu,
+# FactorShape / factor_fits): W matrices per block, 8 at float32 and 4 at
+# float64; a tile of n rows at an odd row stride n | 1 per matrix; at most
+# FACTOR_SMEM_MAX bytes of shared memory a block (the H100's 227 KB) and
+# FACTOR_MAX_ROWS rows per lane.
+FACTOR_SMEM_MAX = 232448
+FACTOR_MAX_ROWS = 2
+
+
+def factor_envelope(n, dtype):
+    """(matrices per block, shared-memory bytes per block) of the factor
+    kernels at n and dtype; raises ValueError outside the envelope (both
+    dtypes take n <= 64)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"kernels take float32 or float64, got {dtype}")
+    f64 = dtype == torch.float64
+    per_block = 4 if f64 else 8
+    smem = per_block * n * (n | 1) * (8 if f64 else 4)
+    if not (1 <= n <= 32 * FACTOR_MAX_ROWS and smem <= FACTOR_SMEM_MAX):
+        raise ValueError(
+            f"SPD factor kernels: n = {n} at {dtype} needs {smem} bytes of "
+            f"shared memory a block, at most {FACTOR_SMEM_MAX}, and n <= 64")
+    return per_block, smem
 
 
 def spd_factor_plain(M):
@@ -114,12 +139,15 @@ def spd_factor_plain(M):
 
 
 def spd_factor(M):
-    """(B, n, n) SPD -> lower factor L (B, n, n), upper triangle zero."""
+    """(B, n, n) SPD -> lower factor L (B, n, n), upper triangle zero; a
+    failed factor (a pivot not > 0) is all NaN, as the plain version's.
+    Raises above ``factor_envelope``."""
     if _on_cpu(M):
         return spd_factor_plain(M)
     dtype = _float_dtype(M)
     B, n = M.shape[0], M.shape[-1]
     _require(M, (B, n, n), dtype, "M")
+    factor_envelope(n, dtype)
     L = torch.empty_like(M)
     _build.check(_build.library().mpc_spd_factor(
         int(dtype == torch.float64), 0, M.data_ptr(), L.data_ptr(), B, n,
@@ -204,10 +232,11 @@ spd_solve.launches = 0
 #
 # Replace factor_lanes / solve_lanes (mpc_tuning_tpu/ops/pallas_kernels.py,
 # _factor_kernel / _solve_kernel on lane-major blocks), the factor and solve
-# of the per-step engine 'pdip_ws_lanes' (ops/qp.pdip_lanes).  The same
-# one-thread-per-matrix arithmetic as spd_factor / spd_factor_solve, in the
-# lane-major layout (n, n, B) / (n, B): a warp's loads coalesce and the
-# PDIP loop around them needs no transposes (ops/csrc/spd.cu).
+# of the per-step engine 'pdip_ws_lanes' (ops/qp.pdip_lanes).  The
+# arithmetic of spd_factor / spd_factor_solve (the factor one warp per
+# matrix, the solve one thread per system) in the lane-major layout
+# (n, n, B) / (n, B): loads coalesce and the PDIP loop around them needs no
+# transposes (ops/csrc/spd.cu).
 
 
 def factor_lanes_plain(M):
@@ -217,13 +246,15 @@ def factor_lanes_plain(M):
 
 
 def factor_lanes(M):
-    """(n, n, B) SPD -> lower factor L (n, n, B), upper triangle zero."""
+    """(n, n, B) SPD -> lower factor L (n, n, B), upper triangle zero; a
+    failed factor is all NaN.  Raises above ``factor_envelope``."""
     if _on_cpu(M):
         return factor_lanes_plain(M)
     dtype = _float_dtype(M)
     n, B = M.shape[0], M.shape[-1]
     M = M.contiguous()  # the PDIP's M and rhs may come as strided views
     _require(M, (n, n, B), dtype, "M")
+    factor_envelope(n, dtype)
     L = torch.empty_like(M)
     _build.check(_build.library().mpc_spd_factor(
         int(dtype == torch.float64), 1, M.data_ptr(), L.data_ptr(), B, n,

@@ -41,12 +41,25 @@ def _inputs(engine, B=40, nit=60, caps=(64, 8), case=woodberry, dtype=F64):
         caps=caps)
 
 
-@pytest.mark.parametrize("n", [5, 17, 31])
-def test_spd_kernels_match_plain(cuda, n):
+def _spd_batch(cuda, B, n, dtype=F64):
+    """B SPD matrices (B, n, n) and right-hand sides (B, n), seeded by n."""
     g = torch.Generator(device=cuda).manual_seed(n)
-    A = torch.randn((300, n, n), generator=g, device=cuda, dtype=F64)
-    M = A @ A.transpose(1, 2) + n * torch.eye(n, device=cuda, dtype=F64)
-    rhs = torch.randn((300, n), generator=g, device=cuda, dtype=F64)
+    A = torch.randn((B, n, n), generator=g, device=cuda, dtype=dtype)
+    M = A @ A.transpose(1, 2) + n * torch.eye(n, device=cuda, dtype=dtype)
+    return M, torch.randn((B, n), generator=g, device=cuda, dtype=dtype)
+
+
+# the factor kernels' sizes: n = 1, the tunes' buckets up to Shell's 46 (two
+# rows a lane) and the envelope's edge, 64; B = 1, 3 and 37 leave a block's
+# matrices part-filled
+FACTOR_N = [1, 5, 17, 31, 46, 64]
+FACTOR_B = [1, 3, 37, 300]
+
+
+@pytest.mark.parametrize("B", FACTOR_B)
+@pytest.mark.parametrize("n", FACTOR_N)
+def test_spd_kernels_match_plain(cuda, n, B):
+    M, rhs = _spd_batch(cuda, B, n)
     before = K.launch_counts()
     L = K.spd_factor(M)
     x = K.spd_factor_solve(L, rhs)
@@ -123,13 +136,11 @@ QP_MAX = {("pdip_fused", F64): (2.0e-9, 4.0e-4),
 
 
 @pytest.mark.parametrize("dtype", [F64, torch.float32])
-@pytest.mark.parametrize("n", [7, 17, 46])
-def test_lanes_kernels_match_plain(cuda, n, dtype):
-    g = torch.Generator(device=cuda).manual_seed(n)
-    A = torch.randn((300, n, n), generator=g, device=cuda, dtype=dtype)
-    M = (A @ A.transpose(1, 2) + n * torch.eye(n, device=cuda, dtype=dtype))
-    M = M.permute(1, 2, 0).contiguous()
-    rhs = torch.randn((n, 300), generator=g, device=cuda, dtype=dtype)
+@pytest.mark.parametrize("B", FACTOR_B)
+@pytest.mark.parametrize("n", FACTOR_N)
+def test_lanes_kernels_match_plain(cuda, n, B, dtype):
+    M, rhs = _spd_batch(cuda, B, n, dtype)
+    M, rhs = M.permute(1, 2, 0).contiguous(), rhs.T.contiguous()
     before = K.launch_counts()
     L = K.factor_lanes(M)
     x = K.solve_lanes(L, rhs)
@@ -141,6 +152,91 @@ def test_lanes_kernels_match_plain(cuda, n, dtype):
     tol = 1e-10 if dtype == F64 else 1e-4
     assert float((L - Lp).abs().max()) <= tol * float(Lp.abs().max())
     assert float((x - xp).abs().max()) <= tol * float(xp.abs().max())
+
+
+def _factor(layout, M):
+    """The factor kernel of ``layout`` on a batch-major M (B, n, n), and
+    its plain version, both returned batch-major."""
+    if layout == "batch":
+        return K.spd_factor(M), K.spd_factor_plain(M)
+    Mt = M.permute(1, 2, 0).contiguous()
+    return (K.factor_lanes(Mt).permute(2, 0, 1),
+            K.factor_lanes_plain(Mt).permute(2, 0, 1))
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("layout", ["batch", "lanes"])
+@pytest.mark.parametrize("n", [17, 46])
+def test_factor_block_invariance(cuda, n, layout, dtype):
+    """The factor of a slice of a batch equals, bit for bit, the same
+    matrices of the whole batch's factor, wherever the slice puts them in
+    a block (a slice starting at matrix 5 also misaligns the batch-major
+    16-byte loads)."""
+    M, _ = _spd_batch(cuda, 37, n, dtype)
+    L = _factor(layout, M)[0]
+    for lo, hi in ((0, 37), (5, 18), (36, 37), (1, 4)):
+        assert torch.equal(_factor(layout, M[lo:hi].contiguous())[0],
+                           L[lo:hi]), (lo, hi)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("layout", ["batch", "lanes"])
+@pytest.mark.parametrize("n", [5, 46])
+def test_factor_failed_pivot_is_all_nan(cuda, n, layout, dtype):
+    """An indefinite matrix inside a batch (last pivot at matrix 7, first
+    at matrix 20) gives an all-NaN factor in its slot only, as the plain
+    version's."""
+    M, _ = _spd_batch(cuda, 37, n, dtype)
+    M[7, n - 1, n - 1] = -1.0
+    M[20, 0, 0] = -1.0
+    L, Lp = _factor(layout, M)
+    bad = torch.zeros(37, dtype=torch.bool, device=cuda)
+    bad[[7, 20]] = True
+    assert torch.isnan(L[bad]).all() and torch.isnan(Lp[bad]).all()
+    assert torch.isfinite(L[~bad]).all()
+    tol = 1e-10 if dtype == F64 else 1e-4
+    assert float((L[~bad] - Lp[~bad]).abs().max()) <= tol * float(
+        Lp[~bad].abs().max())
+
+
+def test_factor_envelope_matches_the_launcher(cuda):
+    """The C launcher takes n = 64, the envelope's edge (two rows a lane,
+    over 48 KB of shared memory), and refuses n = 65 with an error and no
+    launch, as factor_envelope does; both factor wrappers raise at 65
+    without launching."""
+    from mpc_tuning_tpu_torch.ops import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype in (torch.float32, torch.float64):
+        for lanes in (0, 1):
+            M = _spd_batch(cuda, 3, 64, dtype)[0]
+            if lanes:
+                M = M.permute(1, 2, 0).contiguous()
+            L = torch.full_like(M, 7.0)
+            assert lib.mpc_spd_factor(int(dtype == F64), lanes, M.data_ptr(),
+                                      L.data_ptr(), 3, 64, stream) == 0
+            Lp = (K.factor_lanes_plain if lanes else K.spd_factor_plain)(M)
+            tol = 1e-10 if dtype == F64 else 1e-4
+            assert float((L - Lp).abs().max()) <= tol * float(
+                Lp.abs().max())
+            M = torch.eye(65, device=cuda, dtype=dtype).expand(3, 65, 65)
+            L = torch.full_like(M, 7.0)
+            assert lib.mpc_spd_factor(int(dtype == F64), lanes,
+                                      M.contiguous().data_ptr(), L.data_ptr(),
+                                      3, 65, stream) != 0
+            torch.cuda.synchronize()
+            assert bool((L == 7.0).all())
+        K.factor_envelope(64, dtype)
+        with pytest.raises(ValueError, match="SPD factor kernels"):
+            K.factor_envelope(65, dtype)
+        before = K.launch_counts()
+        M = torch.eye(65, device=cuda, dtype=dtype).expand(3, 65, 65)
+        with pytest.raises(ValueError, match="SPD factor kernels"):
+            K.spd_factor(M.contiguous())
+        with pytest.raises(ValueError, match="SPD factor kernels"):
+            K.factor_lanes(M.permute(1, 2, 0).contiguous())
+        assert K.launch_counts() == before
 
 
 def _step_qp(engine, dtype, take=25):
