@@ -10,8 +10,10 @@ Phases, each printing one line (with its wall time):
     the card, the whole-sim kernels step by step (the plain version
     following the kernel's inputs, ``follow_plain``):
     2a the Wood-Berry kernels in float64 and float32 (caps (64,8) and
-       (127,15), B=1024, nit=60, cut from the case's 400 steps to make
-       room for the later rows; SPD factor/solve at n = 5, 17, 31 and 46
+       (127,15), nit=60, cut from the case's 400 steps to make room for the
+       later rows; the whole-sim kernels at B = 1024, the tunes' B = 2 and
+       a ragged B = 37 (one warp a lane, 4 or 2 lanes a block);
+       SPD factor/solve at n = 5, 17, 31 and 46
        (two rows a lane, over 48 KB of shared memory), each at B = 1024
        and at a ragged B = 37);
     2b the band kernel on Shell7x5 in float64, the only dtype band cases
@@ -60,7 +62,10 @@ Phases, each printing one line (with its wall time):
     call computes the same function, that call (recorded, not gated), one
     evaluation through each per-step engine beside the whole-sim kernel
     of the same algorithm, and one NMPC closed-loop evaluation with its
-    launches and device time.  The two SPD factor kernels are timed at
+    launches and device time.  The whole-sim kernels are timed at the
+    bench shapes and at the batch sizes the tunes launch (ADMM_SHAPES,
+    PDIP_SHAPES), each with its device time and bound.  The two SPD factor
+    kernels are timed at
     FACTOR_SHAPES: float32 B=1024 n=17 and the float64 batches the tunes
     launch, (B, n) = (8, 5), (36, 31), (141, 46), each beside
     torch.linalg.cholesky_ex and the plain version, by CUDA events and by
@@ -72,6 +77,7 @@ non-zero before that line.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -218,8 +224,11 @@ def spd_batch(B, n, dtype, seed=None):
 def device_ms(fn, reps: int = 20, tries: int = 3):
     """Device milliseconds per call (torch.profiler, CUDA activity: every
     kernel, copy and fill the call puts on the card) over ``reps`` calls
-    after a warm-up; a profile that records no device time (it happens)
-    is taken again, up to ``tries`` profiles, then None."""
+    after a warm-up: each activity's mean time times its count per call
+    (its recorded count over reps, rounded up: the profiler at times drops
+    a record, which a plain sum over reps would read as a faster call).  A
+    profile that records no device time (it happens) is taken again, up to
+    ``tries`` profiles, then None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -229,11 +238,14 @@ def device_ms(fn, reps: int = 20, tries: int = 3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-                 for e in prof.key_averages())
+        us = 0.0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            if t > 0 and e.count:
+                us += t / e.count * -(-e.count // reps)
         if us > 0:
-            return us / 1e3 / reps
+            return us / 1e3
     return None
 
 
@@ -244,6 +256,17 @@ def device_ms(fn, reps: int = 20, tries: int = 3):
 # largest batch the tunes launch (~141)
 FACTOR_SHAPES = ((torch.float32, 1024, 17), (torch.float64, 8, 5),
                  (torch.float64, 36, 31), (torch.float64, 141, 46))
+
+# Phase 4's shapes of the whole-sim kernels, (caps, B, seed, fixed (N, Nu)),
+# float32, nit 400: first the bench row (the record's), then the batch sizes
+# the Wood-Berry tune launches: its VNS legs (ADMM, 40 iterations) at B = 2
+# (a joint-polish evaluation: one candidate, two selector lanes) and 18 (a
+# neighbourhood of 9 candidates), at (64, 8) and B = 2 at the widest
+# bucket; its GAM generations (PDIP, 15 iterations) at popsize 8
+ADMM_SHAPES = (((64, 8), 8192, 1, {}), ((64, 8), 2, 3, {}),
+               ((64, 8), 18, 3, {}), ((127, 15), 2, 3, {}))
+PDIP_SHAPES = (((32, 4), 2048, 2, dict(N=20, Nu=4)),
+               ((32, 4), 8, 2, dict(N=20, Nu=4)))
 
 
 def factor_record(lanes: bool):
@@ -283,14 +306,18 @@ def factor_record(lanes: bool):
     rec = {k: rows[0][k] for k in ("ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by")}
     rec["shapes"] = rows
-    ms = lambda v: "not measured" if v is None else f"{v:.5f}"
     txt = "; ".join(
         f"{r['dtype']} B={r['B']} n={r['n']}: kernel {r['ms']:.5f} ms "
-        f"(device {ms(r['device_ms'])}), cholesky_ex {r['library_ms']:.5f} "
-        f"(device {ms(r['library_device_ms'])}), plain {r['plain_ms']:.5f} "
-        f"(device {ms(r['plain_device_ms'])}), bound {r['bound_ms']:.6f} "
+        f"(device {fmt_ms(r['device_ms'])}), cholesky_ex "
+        f"{r['library_ms']:.5f} (device {fmt_ms(r['library_device_ms'])}), "
+        f"plain {r['plain_ms']:.5f} (device {fmt_ms(r['plain_device_ms'])}), "
+        f"bound {r['bound_ms']:.6f} "
         f"({r['bound_by']})" for r in rows)
     return rec, txt + f" ({time.perf_counter() - t0:.1f} s)"
+
+
+def fmt_ms(v) -> str:
+    return "not measured" if v is None else f"{v:.5f}"
 
 
 def nbytes(*xs) -> int:
@@ -441,34 +468,35 @@ def phase_kernels(problem):
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
         tag = "f64" if f64 else "f32"
-        for caps in ((64, 8), (127, 15)):
-            for engine, iters in (("admm_sim", 40), ("pdip_sim", 30)):
-                (t, lc, Hm, r_l, dims), _, _ = sim_inputs(
-                    problem, caps, B, nit, dtype, engine, seed=caps[0])
-                name = "closed_sim_" + engine[:4]
-                args = (t, lc, Hm, r_l, nit, iters)
-                kwargs = dict(dims=dims)
-                if engine == "admm_sim":
-                    kwargs.update(sigma=1e-6, over_relax=1.6)
-                out_k = getattr(K, name)(*args, **kwargs)
-                torch.cuda.synchronize()
-                if not all(torch.isfinite(x).all() for x in out_k):
-                    fail(f"{name} {caps} {tag}: non-finite output")
-                dy, du = follow_plain(name, args, kwargs, out_k)
-                ey, eu = float(dy.max()), float(du.max())
-                med = float(du.median())
-                rows.append(f"{name}{caps}:{tag}=Y {ey:.3e} U {eu:.3e} "
-                            f"(median lane {med:.3e})")
-                if f64:
-                    err64[name] = max(err64.get(name, 0.0), ey, eu)
-                    ok = max(ey, eu) <= F64_SIM_GATE
-                elif engine == "admm_sim":
-                    ok = max(ey, eu) <= F32_SIM_GATE
-                else:
-                    ok = (ey <= F32_SIM_GATE and med <= F32_SIM_GATE
-                          and eu <= F32_PDIP_U_CAP)
-                if not ok:
-                    fail(f"{rows[-1]}: above its gate")
+        for caps, (engine, iters), Bs in itertools.product(
+                ((64, 8), (127, 15)), (("admm_sim", 40), ("pdip_sim", 30)),
+                (B, 2, 37)):
+            (t, lc, Hm, r_l, dims), _, _ = sim_inputs(
+                problem, caps, Bs, nit, dtype, engine, seed=caps[0])
+            name = "closed_sim_" + engine[:4]
+            args = (t, lc, Hm, r_l, nit, iters)
+            kwargs = dict(dims=dims)
+            if engine == "admm_sim":
+                kwargs.update(sigma=1e-6, over_relax=1.6)
+            out_k = getattr(K, name)(*args, **kwargs)
+            torch.cuda.synchronize()
+            if not all(torch.isfinite(x).all() for x in out_k):
+                fail(f"{name} {caps} B={Bs} {tag}: non-finite output")
+            dy, du = follow_plain(name, args, kwargs, out_k)
+            ey, eu = float(dy.max()), float(du.max())
+            med = float(du.median())
+            rows.append(f"{name}{caps}B={Bs}:{tag}=Y {ey:.3e} U {eu:.3e} "
+                        f"(median lane {med:.3e})")
+            if f64:
+                err64[name] = max(err64.get(name, 0.0), ey, eu)
+                ok = max(ey, eu) <= F64_SIM_GATE
+            elif engine == "admm_sim":
+                ok = max(ey, eu) <= F32_SIM_GATE
+            else:
+                ok = (ey <= F32_SIM_GATE and med <= F32_SIM_GATE
+                      and eu <= F32_PDIP_U_CAP)
+            if not ok:
+                fail(f"{rows[-1]}: above its gate")
         for n, Bs in ((n, Bs) for n in (5, 17, 31, 46) for Bs in (B, 37)):
             M, rhs = spd_batch(Bs, n, dtype)
             Lk, Lp = K.spd_factor(M), K.spd_factor_plain(M)
@@ -486,7 +514,8 @@ def phase_kernels(problem):
             rows.append(f"spd(n={n},B={Bs}):{tag}=L {eL:.3e} x {ex:.3e}")
             if max(eL, ex) > (F64_SPD_GATE if f64 else F32_SPD_GATE):
                 fail(f"spd n={n} B={Bs} {dtype}: dL {eL:.3e} dx {ex:.3e}")
-    print(f"[2a kernels] B={B} nit={nit} (the case's 400 steps cut to {nit}), "
+    print(f"[2a kernels] B={B} (whole sims also B=2, 37) nit={nit} (the "
+          f"case's 400 steps cut to {nit}), "
           f"whole sims with the plain version following the kernel's U; "
           f"gates: f64 {F64_SIM_GATE:g}, f32 {F32_SIM_GATE:g} (f32 PDIP U: "
           f"median lane {F32_SIM_GATE:g}, every lane {F32_PDIP_U_CAP:g}); "
@@ -1004,41 +1033,50 @@ def phase_throughput(problem, band_problem):
     f32, f64 = torch.float32, torch.float64
     rec, txt = {}, []
 
-    def sim_record(name, dtype, inputs, N, Nu, call, plain, iters, **fl):
+    def sim_row(name, dtype, inputs, N, Nu, call, iters, **fl):
+        """Event ms per call (3 calls), device ms (``device_ms``) and the
+        bound of one whole-sim launch on ``inputs``."""
         t, lc, Hm, r_l, dims = inputs
         ms, out = timed(call, 3)
-        pm = timed(plain, 1, warm=False)[0]
         read = {k: v for k, v in t.items() if k != "T2T"}  # plain's table
         b, by = bound_ms(nbytes(read, lc, Hm, r_l, out),
                          sim_flops(name, t, dims, r_l.shape[0], iters, N, Nu,
                                    **fl), dtype)
-        return dict(ms=ms, plain_ms=pm, bound_ms=b, bound_by=by,
-                    library_ms=None)
+        return dict(B=r_l.shape[2], n=dims["n"], ms=ms,
+                    device_ms=device_ms(call, reps=3), bound_ms=b,
+                    bound_by=by)
 
-    inp, N, Nu = sim_inputs(problem, (64, 8), 8192, 400, f32, "admm_sim", 1)
-    args = (*inp[:4], 400, 40, 1e-6, 1.6, inp[4])
-    rec["closed_sim_admm"] = sim_record(
-        "closed_sim_admm", f32, inp, N, Nu, lambda: K.closed_sim_admm(*args),
-        lambda: K.closed_sim_admm_plain(*args), 40)
-    # a VNS-neighbourhood-sized batch (9 candidates x 2 selectors)
-    inp18, _, _ = sim_inputs(problem, (64, 8), 18, 400, f32, "admm_sim", 3)
-    args18 = (*inp18[:4], 400, 40, 1e-6, 1.6, inp18[4])
-    admm18 = timed(lambda: K.closed_sim_admm(*args18), 3)[0]
-    inp, N, Nu = sim_inputs(problem, (32, 4), 2048, 400, f32, "pdip_sim", 2,
-                            N=20, Nu=4)
-    args = (*inp[:4], 400, 15, inp[4])
-    rec["closed_sim_pdip"] = sim_record(
-        "closed_sim_pdip", f32, inp, N, Nu, lambda: K.closed_sim_pdip(*args),
-        lambda: K.closed_sim_pdip_plain(*args), 15)
-    txt.append(
-        f"f32 headline admm_sim B=8192 caps=(64,8) nit=400 iters=40: kernel "
-        f"{rec['closed_sim_admm']['ms']:.1f} ms = "
-        f"{8192e3 / rec['closed_sim_admm']['ms']:.0f} sims/s, plain "
-        f"{rec['closed_sim_admm']['plain_ms']:.1f} ms; B=18 kernel "
-        f"{admm18:.1f} ms | GAM pdip_sim B=2048 (N,Nu)=(20,4) caps=(32,4) "
-        f"iters=15: kernel {rec['closed_sim_pdip']['ms']:.1f} ms = "
-        f"{2048e3 / rec['closed_sim_pdip']['ms']:.0f} sims/s, plain "
-        f"{rec['closed_sim_pdip']['plain_ms']:.1f} ms")
+    def sim_record(name, dtype, inputs, N, Nu, call, plain, iters, **fl):
+        row = sim_row(name, dtype, inputs, N, Nu, call, iters, **fl)
+        row["plain_ms"] = timed(plain, 1, warm=False)[0]
+        row["library_ms"] = None
+        return row
+
+    # the bench shapes (the record's row), then the tunes' batches
+    for name, engine, iters, shapes in (
+            ("closed_sim_admm", "admm_sim", 40, ADMM_SHAPES),
+            ("closed_sim_pdip", "pdip_sim", 15, PDIP_SHAPES)):
+        rows = []
+        for caps, B, seed, fixed in shapes:
+            inp, N, Nu = sim_inputs(problem, caps, B, 400, f32, engine, seed,
+                                    **fixed)
+            extra = (1e-6, 1.6) if engine == "admm_sim" else ()
+            args = (*inp[:4], 400, iters, *extra, inp[4])
+            call = lambda: getattr(K, name)(*args)
+            if not rows:
+                row = sim_record(name, f32, inp, N, Nu, call,
+                                 lambda: getattr(K, name + "_plain")(*args),
+                                 iters)
+            else:
+                row = sim_row(name, f32, inp, N, Nu, call, iters)
+            rows.append(dict(row, caps=caps))
+        rec[name] = dict(rows[0], shapes=rows)
+        txt.append(f"{name} f32 nit=400 iters={iters}: " + "; ".join(
+            f"B={r['B']} caps={r['caps']}: kernel {r['ms']:.3f} ms (device "
+            f"{fmt_ms(r['device_ms'])}) = {r['B'] * 1e3 / r['ms']:.0f} "
+            f"sims/s, bound {r['bound_ms']:.5f} ({r['bound_by']})"
+            + (f", plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
+            for r in rows))
 
     M, rhs = spd_batch(1024, 17, f32, seed=0)
     L = K.spd_factor_plain(M)

@@ -56,8 +56,6 @@ def _bind(lib):
     lib.mpc_error_string.restype = ctypes.c_char_p
     lib.mpc_closed_sim_ptr_count.restype = i
     lib.mpc_closed_sim_dim_count.restype = i
-    lib.mpc_closed_sim_work_rows.argtypes = [i, d]
-    lib.mpc_closed_sim_work_rows.restype = ctypes.c_longlong
     lib.mpc_closed_sim.argtypes = [i, i, ctypes.POINTER(vp), d,
                                    ctypes.POINTER(ctypes.c_double), vp]
     lib.mpc_closed_sim.restype = i

@@ -1,30 +1,46 @@
 // Whole closed-loop simulation kernels: the counterparts of the Pallas
 // kernels _closed_sim_admm_kernel and _closed_sim_pdip_kernel
 // (mpc_tuning_tpu/ops/pallas_kernels.py, closed_sim_admm_lanes and
-// closed_sim_pdip_lanes).  One thread runs one candidate lane through all
-// nit steps: plant output -> Kalman update -> free response -> QP data ->
-// warm QP solve -> input update -> model and plant step, streaming Y and U.
+// closed_sim_pdip_lanes).  One warp runs one candidate lane through all nit
+// steps: plant output -> Kalman update -> free response -> QP data -> warm
+// QP solve -> input update -> model and plant step, streaming Y and U.
 //
 // What bounds them on an H100: each lane is a long serial chain of small
-// dependent loops (nit x iters x a few thousand multiply-adds), so time is
-// set by instruction latency per thread and by how many lanes are in
-// flight, not by device memory bandwidth or FLOP/s.  The design therefore
-//  * keeps every per-lane vector in a lane-major scratch buffer
-//    (row * B + lane), so each load of a warp is one coalesced line that
-//    stays in L1/L2;
-//  * reads the shared tables through uniform (broadcast) loads;
-//  * solves each step's QP with the per-lane device code of lane_qp.cuh,
-//    which the single-solve kernels (qp_fused.cu) share: CSR visits of the
-//    shared constraint matrix G0's nonzeros in place of the TPU's T2T;
-//  * runs 32 threads per block so that a batch spreads over many SMs.
-// Padding to the TPU's (8, 128) tiles is dropped throughout: padded rows
-// were exact no-ops there.
+// dependent loops (nit x iters x a few hundred to a few thousand
+// multiply-adds), and the tunes launch them at B = 2 to ~141 lanes, so
+// time is set by the latency of that chain, not by device memory bytes or
+// FLOP/s.  The design shortens the chain:
+//  * one warp per lane, W = SimShape<T>::kW lanes a block (4 at float, 2 at
+//    double, so that the W values of one lane-major element are 16
+//    contiguous bytes), grid ceil(B / W); a warp past B exits at once (no
+//    block-wide barrier follows);
+//  * the lane's loop state, its QP vectors and its n x n matrices (Minv or
+//    Hp, and the PDIP's normal matrix) live in its warp's share of shared
+//    memory (SimLayout); its per-lane constants, lane-major (rows, B) in
+//    device memory (a stride-B access each), are staged there once per
+//    launch through cp.async;
+//  * each step's and each QP iteration's work is spread over rows and
+//    columns (warp_qp.cuh), so a phase is one dot product deep; the PDIP
+//    factors with the warp-per-matrix Cholesky of the SPD factor kernels
+//    (warp_factor.cuh) and solves row-parallel with the right-hand side in
+//    registers;
+//  * the shared tables stay in device memory, read through L1/L2.
+// Each dot keeps the one-thread kernels' order of operations, so the ADMM
+// kernel computes what the one-thread kernel computed; the PDIP's
+// reductions and back substitution round differently.  Padding to the
+// TPU's (8, 128) tiles is dropped throughout: padded rows were exact no-ops
+// there.  Envelope (ops/kernels.sim_envelope holds the same arithmetic):
+// n <= 64 (two rows a lane in the factor) and W SimLayout::total elements
+// of shared memory a block, at most kFactorSmemMax.
 
-#include "lane_qp.cuh"
+#include "warp_qp.cuh"
 
 namespace mpc {
 
-constexpr int kSimThreads = 32;
+template <typename T>
+struct SimShape {
+  static constexpr int kW = sizeof(T) == 8 ? 2 : 4;
+};
 
 template <typename T>
 struct SimArgs {
@@ -40,7 +56,7 @@ struct SimArgs {
   const T* __restrict__ SstF;  // (pny, nu)
   const T* __restrict__ ThT;   // (n, pny)
   const T* __restrict__ Vt;    // (ny + nxa + nxp + pny, nit)
-  Csr<T> g;                    // G0 (mc, n) by rows and by columns
+  GSparse<T> g;                // G0 (mc, n); its entry terms PDIP only
   // per-lane, lane-major (rows, B)
   const T* __restrict__ r;      // (nit, ny, B) setpoints / sf_y
   const T* __restrict__ q;      // (pny, B)
@@ -56,242 +72,306 @@ struct SimArgs {
   const T* __restrict__ Hm;     // (n, n, B) Hp (PDIP) | Minv (ADMM)
   T* __restrict__ Y;            // (nit, ny, B)
   T* __restrict__ U;            // (nit, nu, B)
-  T* __restrict__ work;         // (Offsets::rows, B)
   int B, nit, iters, ny, nu, nxa, nxp, pny, n, mc, m_max;
   T c0, c1, c2;  // ADMM: sigma, over_relax | PDIP: eps_c, ridge, w_cap
 };
 
-// Row offsets of the per-lane scratch vectors.
-struct Offsets {
-  size_t xpl, xpl2, xhp, xhat, uprev, ys, uo, err, f, h, rhs, dz;
-  size_t z, lam, s;                                 // ADMM: x, zc, y
-  size_t bz, rd, blam, rp, w, t, ds, dl, dsa, dla, L;  // PDIP only
-  size_t rows;
-  __host__ __device__ Offsets(int ny, int nu, int nxa, int nxp, int pny,
-                              int n, int mc, bool pdip) {
+// Offsets (in elements of T) of one lane's vectors in its warp's share of
+// shared memory, `total` elements in all: the loop state, the staged
+// per-lane constants, then the engine's QP vectors and tiles (n x n at row
+// stride factor_ld(n)).
+struct SimLayout {
+  size_t xpl, xpl2, xhp, xhat, up, ys, uo, err;
+  size_t rowm, colm, hbase, su, q, sfy, sfu, Hm;
+  size_t Dinv, e, x, rhs, fs, zc, y, hs;                   // ADMM
+  size_t z, bz, rd, dz, f, lam, s, blam, rp, w, t, ds, dl, h, L;  // PDIP
+  size_t total;
+  __host__ __device__ SimLayout(bool pdip, int ny, int nu, int nxa, int nxp,
+                                int pny, int n, int mc) {
+    const size_t nn = (size_t)n * factor_ld(n);
     size_t o = 0;
     xpl = o; o += nxp;
     xpl2 = o; o += nxp;
     xhp = o; o += nxa;
     xhat = o; o += nxa;
-    uprev = o; o += nu;
+    up = o; o += nu;
     ys = o; o += ny;
     uo = o; o += nu;
     err = o; o += pny;
-    f = o; o += n;
-    h = o; o += mc;
-    rhs = o; o += n;
-    dz = o; o += n;
-    z = o; o += n;
-    lam = o; o += mc;
-    s = o; o += mc;
-    bz = rd = blam = rp = w = t = ds = dl = dsa = dla = L = o;
+    rowm = o; o += mc;
+    colm = o; o += n;
+    hbase = o; o += mc;
+    su = o; o += mc;
+    q = o; o += pny;
+    sfy = o; o += ny;
+    sfu = o; o += nu;
+    Hm = o; o += nn;
+    Dinv = e = x = rhs = fs = zc = y = hs = o;
+    z = bz = rd = dz = f = lam = s = blam = rp = w = t = ds = dl = h = L = o;
     if (pdip) {
+      z = o; o += n;
       bz = o; o += n;
       rd = o; o += n;
+      dz = o; o += n;
+      f = o; o += n;
+      lam = o; o += mc;
+      s = o; o += mc;
       blam = o; o += mc;
       rp = o; o += mc;
       w = o; o += mc;
       t = o; o += mc;
       ds = o; o += mc;
       dl = o; o += mc;
-      dsa = o; o += mc;
-      dla = o; o += mc;
-      L = o; o += (size_t)n * n;
+      h = o; o += mc;
+      L = o; o += nn;
+    } else {
+      Dinv = o; o += n;
+      e = o; o += mc;
+      x = o; o += n;
+      rhs = o; o += n;
+      fs = o; o += n;
+      zc = o; o += mc;
+      y = o; o += mc;
+      hs = o; o += mc;
     }
-    rows = o;
+    total = o;
   }
 };
 
+// The lane's loop state and staged constants in shared memory.
 template <typename T>
-struct LoopState {
-  Lane<T> xpl, xpl2, xhp, xhat, uprev, ys, uo, err;
+struct Loop {
+  T *xpl, *xpl2, *xhp, *xhat, *up, *ys, *uo, *err;
+  T *rowm, *colm, *hbase, *su, *q, *sfy, *sfu, *Hm;
 };
 
 template <typename T>
-__device__ LoopState<T> loop_state(const SimArgs<T>& a, const Offsets& o,
-                                   int lane) {
-  LoopState<T> st;
-  st.xpl = lane_at(a.work, o.xpl, a.B, lane);
-  st.xpl2 = lane_at(a.work, o.xpl2, a.B, lane);
-  st.xhp = lane_at(a.work, o.xhp, a.B, lane);
-  st.xhat = lane_at(a.work, o.xhat, a.B, lane);
-  st.uprev = lane_at(a.work, o.uprev, a.B, lane);
-  st.ys = lane_at(a.work, o.ys, a.B, lane);
-  st.uo = lane_at(a.work, o.uo, a.B, lane);
-  st.err = lane_at(a.work, o.err, a.B, lane);
-  for (int i = 0; i < a.nxp; ++i) st.xpl[i] = T(0);
-  for (int i = 0; i < a.nxa; ++i) st.xhp[i] = T(0);
-  for (int i = 0; i < a.nu; ++i) st.uprev[i] = T(0);
-  return st;
+__device__ void stage_rows(T* dst, const T* src, int rows, int B, int b,
+                           int ln) {
+  for (int i = ln; i < rows; i += 32)
+    cp_async(dst + i, src + (size_t)i * B + b);
+}
+
+// Lane b's shared-memory view: the loop state zeroed, the constants staged
+// (Hm into a tile at row stride factor_ld(n)).  The caller waits for the
+// copies (cp_async_wait, __syncwarp).
+template <typename T>
+__device__ Loop<T> loop_state(const SimArgs<T>& a, const SimLayout& lay,
+                              T* sm, int b, int ln) {
+  Loop<T> v;
+  v.xpl = sm + lay.xpl; v.xpl2 = sm + lay.xpl2; v.xhp = sm + lay.xhp;
+  v.xhat = sm + lay.xhat; v.up = sm + lay.up; v.ys = sm + lay.ys;
+  v.uo = sm + lay.uo; v.err = sm + lay.err; v.rowm = sm + lay.rowm;
+  v.colm = sm + lay.colm; v.hbase = sm + lay.hbase; v.su = sm + lay.su;
+  v.q = sm + lay.q; v.sfy = sm + lay.sfy; v.sfu = sm + lay.sfu;
+  v.Hm = sm + lay.Hm;
+  const int B = a.B, n = a.n, ld = factor_ld(n);
+  stage_rows(v.rowm, a.rowm, a.mc, B, b, ln);
+  stage_rows(v.colm, a.colm, n, B, b, ln);
+  stage_rows(v.hbase, a.hbase, a.mc, B, b, ln);
+  stage_rows(v.su, a.su, a.mc, B, b, ln);
+  stage_rows(v.q, a.q, a.pny, B, b, ln);
+  stage_rows(v.sfy, a.sfy, a.ny, B, b, ln);
+  stage_rows(v.sfu, a.sfu, a.nu, B, b, ln);
+  for (int el = ln; el < n * n; el += 32) {
+    const int i = el / n;
+    cp_async(v.Hm + i * ld + (el - i * n), a.Hm + (size_t)el * B + b);
+  }
+  for (int i = ln; i < a.nxp; i += 32) v.xpl[i] = T(0);
+  for (int i = ln; i < a.nxa; i += 32) v.xhp[i] = T(0);
+  for (int i = ln; i < a.nu; i += 32) v.up[i] = T(0);
+  return v;
 }
 
 // Plant output (streamed to Y[k]), Kalman update into xhat, free response
-// and the weighted tracking error err = q * (r_k - free).
+// and the weighted tracking error err = q * (r_k - free); one lane a row.
 template <typename T>
-__device__ void pre_step(const SimArgs<T>& a, int k, int lane,
-                         const LoopState<T>& st) {
-  const int B = a.B;
-  const CLane<T> sfy = clane_at(a.sfy, B, lane);
-  const CLane<T> q = clane_at(a.q, B, lane);
-  for (int i = 0; i < a.ny; ++i) {
+__device__ void pre_step(const SimArgs<T>& a, int k, int b, int ln,
+                         const Loop<T>& v) {
+  const int B = a.B, nit = a.nit;
+  for (int i = ln; i < a.ny; i += 32) {
     T y = T(0);
-    for (int j = 0; j < a.nxp; ++j) y += a.Cpl[i * a.nxp + j] * st.xpl[j];
-    a.Y[((size_t)k * a.ny + i) * B + lane] = y;
-    st.ys[i] = y / sfy[i];
+    for (int j = 0; j < a.nxp; ++j) y += a.Cpl[i * a.nxp + j] * v.xpl[j];
+    a.Y[((size_t)k * a.ny + i) * B + b] = y;
+    const T ys = y / v.sfy[i];
+    T c = T(0);  // innovation, in place of y_s
+    for (int j = 0; j < a.nxa; ++j) c += a.C[i * a.nxa + j] * v.xhp[j];
+    v.ys[i] = ys - c - a.Vt[(size_t)i * nit + k];
   }
-  for (int i = 0; i < a.ny; ++i) {  // innovation, in place of y_s
-    T c = T(0);
-    for (int j = 0; j < a.nxa; ++j) c += a.C[i * a.nxa + j] * st.xhp[j];
-    st.ys[i] = st.ys[i] - c - a.Vt[(size_t)i * a.nit + k];
-  }
-  for (int i = 0; i < a.nxa; ++i) {
+  __syncwarp();
+  for (int i = ln; i < a.nxa; i += 32) {
     T m = T(0);
-    for (int j = 0; j < a.ny; ++j) m += a.Mk[i * a.ny + j] * st.ys[j];
-    st.xhat[i] = st.xhp[i] + m;
+    for (int j = 0; j < a.ny; ++j) m += a.Mk[i * a.ny + j] * v.ys[j];
+    v.xhat[i] = v.xhp[i] + m;
   }
+  __syncwarp();
   const size_t sv_row = (size_t)a.ny + a.nxa + a.nxp;
-  for (int p = 0; p < a.pny; ++p) {
+  for (int p = ln; p < a.pny; p += 32) {
     T f1 = T(0);
-    for (int j = 0; j < a.nxa; ++j) f1 += a.SxF[p * a.nxa + j] * st.xhat[j];
+#pragma unroll 8
+    for (int j = 0; j < a.nxa; ++j) f1 += a.SxF[p * a.nxa + j] * v.xhat[j];
     T f2 = T(0);
-    for (int j = 0; j < a.nu; ++j) f2 += a.SstF[p * a.nu + j] * st.uprev[j];
-    const T fr = f1 + f2 + a.Vt[(sv_row + p) * a.nit + k];
-    const T rk = a.r[((size_t)k * a.ny + p % a.ny) * B + lane];
-    st.err[p] = q[p] * (rk - fr);
+    for (int j = 0; j < a.nu; ++j) f2 += a.SstF[p * a.nu + j] * v.up[j];
+    const T fr = f1 + f2 + a.Vt[(sv_row + p) * nit + k];
+    const T rk = a.r[((size_t)k * a.ny + p % a.ny) * B + b];
+    v.err[p] = v.q[p] * (rk - fr);
   }
+  __syncwarp();
 }
 
 // f_i = -2 (Theta' Q e)_i, before masking or scaling.
 template <typename T>
 __device__ __forceinline__ T lin_term(const SimArgs<T>& a, int i,
-                                      const LoopState<T>& st) {
+                                      const Loop<T>& v) {
   T acc = T(0);
-  for (int p = 0; p < a.pny; ++p) acc += a.ThT[i * a.pny + p] * st.err[p];
+#pragma unroll 8
+  for (int p = 0; p < a.pny; ++p) acc += a.ThT[i * a.pny + p] * v.err[p];
   return T(-2) * acc;
 }
 
 // Constraint rhs h_r = hbase_r + su_r * u_prev (u rows only).
 template <typename T>
-__device__ __forceinline__ T rhs_row(const SimArgs<T>& a, int r, int lane,
-                                     const LoopState<T>& st) {
+__device__ __forceinline__ T rhs_row(const SimArgs<T>& a, int r,
+                                     const Loop<T>& v) {
   const int nmv = 4 * a.m_max * a.nu;
-  const T ut = r < nmv ? st.uprev[r % a.nu] : T(0);
-  const size_t idx = (size_t)r * a.B + lane;
-  return a.hbase[idx] + a.su[idx] * ut;
+  const T ut = r < nmv ? v.up[r % a.nu] : T(0);
+  return v.hbase[r] + v.su[r] * ut;
 }
 
-// uprev holds u_s on entry: stream U[k], step the model and the plant.
+// up holds u_s on entry (lane j wrote up[j]): stream U[k], step the model
+// and the plant (into xpl2, then swap).
 template <typename T>
-__device__ void post_step(const SimArgs<T>& a, int k, int lane,
-                          const LoopState<T>& st) {
-  const int B = a.B;
-  const CLane<T> sfu = clane_at(a.sfu, B, lane);
-  for (int j = 0; j < a.nu; ++j) {
-    const T uo = st.uprev[j] * sfu[j];
-    st.uo[j] = uo;
-    a.U[((size_t)k * a.nu + j) * B + lane] = uo;
+__device__ void post_step(const SimArgs<T>& a, int k, int b, int ln,
+                          Loop<T>& v) {
+  const int nit = a.nit;
+  for (int j = ln; j < a.nu; j += 32) {
+    const T uo = v.up[j] * v.sfu[j];
+    v.uo[j] = uo;
+    a.U[((size_t)k * a.nu + j) * a.B + b] = uo;
   }
-  for (int i = 0; i < a.nxa; ++i) {
+  __syncwarp();
+  for (int i = ln; i < a.nxa; i += 32) {
     T x1 = T(0);
-    for (int j = 0; j < a.nxa; ++j) x1 += a.A[i * a.nxa + j] * st.xhat[j];
+#pragma unroll 8
+    for (int j = 0; j < a.nxa; ++j) x1 += a.A[i * a.nxa + j] * v.xhat[j];
     T x2 = T(0);
-    for (int j = 0; j < a.nu; ++j) x2 += a.Bu[i * a.nu + j] * st.uprev[j];
-    st.xhp[i] = x1 + x2 + a.Vt[((size_t)a.ny + i) * a.nit + k];
+    for (int j = 0; j < a.nu; ++j) x2 += a.Bu[i * a.nu + j] * v.up[j];
+    v.xhp[i] = x1 + x2 + a.Vt[((size_t)a.ny + i) * nit + k];
   }
   const size_t bpl_row = (size_t)a.ny + a.nxa;
-  for (int i = 0; i < a.nxp; ++i) {
+  for (int i = ln; i < a.nxp; i += 32) {
     T x1 = T(0);
-    for (int j = 0; j < a.nxp; ++j) x1 += a.Apl[i * a.nxp + j] * st.xpl[j];
+#pragma unroll 8
+    for (int j = 0; j < a.nxp; ++j) x1 += a.Apl[i * a.nxp + j] * v.xpl[j];
     T x2 = T(0);
-    for (int j = 0; j < a.nu; ++j) x2 += a.Bplu[i * a.nu + j] * st.uo[j];
-    st.xpl2[i] = x1 + x2 + a.Vt[(bpl_row + i) * a.nit + k];
+    for (int j = 0; j < a.nu; ++j) x2 += a.Bplu[i * a.nu + j] * v.uo[j];
+    v.xpl2[i] = x1 + x2 + a.Vt[(bpl_row + i) * nit + k];
   }
-  for (int i = 0; i < a.nxp; ++i) st.xpl[i] = st.xpl2[i];
+  __syncwarp();
+  T* next = v.xpl2;
+  v.xpl2 = v.xpl;
+  v.xpl = next;
 }
 
 // ----------------------------------------------------------------- ADMM
 
 template <typename T>
-__global__ void __launch_bounds__(kSimThreads)
-closed_sim_admm_kernel(const SimArgs<T> a) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.B) return;
+__global__ void __launch_bounds__(32 * SimShape<T>::kW)
+    closed_sim_admm_kernel(const __grid_constant__ SimArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wi = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const int b = blockIdx.x * SimShape<T>::kW + wi;
+  if (b >= a.B) return;
   const int B = a.B, n = a.n, mc = a.mc;
-  const Offsets o(a.ny, a.nu, a.nxa, a.nxp, a.pny, n, mc, false);
-  const LoopState<T> st = loop_state(a, o, lane);
-  AdmmLane<T> v;
-  v.fs = lane_at(a.work, o.f, B, lane);
-  v.hs = lane_at(a.work, o.h, B, lane);
-  v.rhs = lane_at(a.work, o.rhs, B, lane);
-  v.x = lane_at(a.work, o.z, B, lane);
-  v.zc = lane_at(a.work, o.lam, B, lane);
-  v.y = lane_at(a.work, o.s, B, lane);
-  v.arow = clane_at(a.rowm, B, lane);
-  v.acol = clane_at(a.colm, B, lane);
-  v.Minv = clane_at(a.Hm, B, lane);
-  v.rho = a.par[lane];
-  v.rho_inv = a.par[(size_t)B + lane];
-  const CLane<T> Dinv = clane_at(a.Dinv, B, lane);
-  const CLane<T> ev = clane_at(a.e, B, lane);
-  for (int i = 0; i < n; ++i) v.x[i] = T(0);
-  for (int r = 0; r < mc; ++r) { v.zc[r] = T(0); v.y[r] = T(0); }
+  const SimLayout lay(false, a.ny, a.nu, a.nxa, a.nxp, a.pny, n, mc);
+  T* sm = reinterpret_cast<T*>(smem_raw) + (size_t)wi * lay.total;
+  Loop<T> st = loop_state(a, lay, sm, b, ln);
+  T* Dinv = sm + lay.Dinv;
+  T* ev = sm + lay.e;
+  stage_rows(Dinv, a.Dinv, n, B, b, ln);
+  stage_rows(ev, a.e, mc, B, b, ln);
+  WarpAdmm<T> v;
+  T* fs = sm + lay.fs;
+  T* hs = sm + lay.hs;
+  v.fs = fs;
+  v.hs = hs;
+  v.arow = st.rowm;
+  v.acol = st.colm;
+  v.Minv = st.Hm;
+  v.x = sm + lay.x;
+  v.zc = sm + lay.zc;
+  v.y = sm + lay.y;
+  v.rhs = sm + lay.rhs;
+  v.rho = a.par[b];
+  v.rho_inv = a.par[(size_t)B + b];
+  v.ld = factor_ld(n);
+  for (int i = ln; i < n; i += 32) v.x[i] = T(0);
+  for (int r = ln; r < mc; r += 32) { v.zc[r] = T(0); v.y[r] = T(0); }
+  cp_async_wait();
+  __syncwarp();
 
   for (int k = 0; k < a.nit; ++k) {
-    pre_step(a, k, lane, st);
-    for (int i = 0; i < n; ++i) v.fs[i] = lin_term(a, i, st) * Dinv[i];
-    for (int r = 0; r < mc; ++r) v.hs[r] = rhs_row(a, r, lane, st) * ev[r];
-    admm_iterations(a.g, v, n, mc, a.iters, a.c0, a.c1);
-    for (int j = 0; j < a.nu; ++j) st.uprev[j] = st.uprev[j] + v.x[j] * Dinv[j];
-    post_step(a, k, lane, st);
+    pre_step(a, k, b, ln, st);
+    for (int i = ln; i < n; i += 32) fs[i] = lin_term(a, i, st) * Dinv[i];
+    for (int r = ln; r < mc; r += 32) hs[r] = rhs_row(a, r, st) * ev[r];
+    warp_admm(a.g, v, n, mc, a.iters, a.c0, a.c1, ln);
+    for (int j = ln; j < a.nu; j += 32)
+      st.up[j] = st.up[j] + v.x[j] * Dinv[j];
+    post_step(a, k, b, ln, st);
   }
 }
 
 // ----------------------------------------------------------------- PDIP
 
-template <typename T>
-__global__ void __launch_bounds__(kSimThreads)
-closed_sim_pdip_kernel(const SimArgs<T> a) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.B) return;
-  const int B = a.B, n = a.n, mc = a.mc;
-  const Offsets o(a.ny, a.nu, a.nxa, a.nxp, a.pny, n, mc, true);
-  const LoopState<T> st = loop_state(a, o, lane);
-  PdipLane<T> v;
-  v.f = lane_at(a.work, o.f, B, lane);
-  v.h = lane_at(a.work, o.h, B, lane);
-  v.rhs = lane_at(a.work, o.rhs, B, lane);
-  v.dz = lane_at(a.work, o.dz, B, lane);
-  v.z = lane_at(a.work, o.z, B, lane);
-  v.lam = lane_at(a.work, o.lam, B, lane);
-  v.s = lane_at(a.work, o.s, B, lane);
-  v.bz = lane_at(a.work, o.bz, B, lane);
-  v.rd = lane_at(a.work, o.rd, B, lane);
-  v.blam = lane_at(a.work, o.blam, B, lane);
-  v.bs = Lane<T>{nullptr, B};  // s is recomputed at every step
-  v.rp = lane_at(a.work, o.rp, B, lane);
-  v.w = lane_at(a.work, o.w, B, lane);
-  v.t = lane_at(a.work, o.t, B, lane);
-  v.ds = lane_at(a.work, o.ds, B, lane);
-  v.dl = lane_at(a.work, o.dl, B, lane);
-  v.dsa = lane_at(a.work, o.dsa, B, lane);
-  v.dla = lane_at(a.work, o.dla, B, lane);
-  v.L = lane_at(a.work, o.L, B, lane);
-  v.rmask = clane_at(a.rowm, B, lane);
-  v.cmask = clane_at(a.colm, B, lane);
-  v.H = clane_at(a.Hm, B, lane);
-
+template <typename T, int R>
+__global__ void __launch_bounds__(32 * SimShape<T>::kW)
+    closed_sim_pdip_kernel(const __grid_constant__ SimArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wi = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const int b = blockIdx.x * SimShape<T>::kW + wi;
+  if (b >= a.B) return;
+  const int n = a.n, mc = a.mc;
+  const SimLayout lay(true, a.ny, a.nu, a.nxa, a.nxp, a.pny, n, mc);
+  T* sm = reinterpret_cast<T*>(smem_raw) + (size_t)wi * lay.total;
+  Loop<T> st = loop_state(a, lay, sm, b, ln);
+  WarpPdip<T> v;
+  T* f = sm + lay.f;
+  T* h = sm + lay.h;
+  v.f = f;
+  v.h = h;
+  v.rmask = st.rowm;
+  v.cmask = st.colm;
+  v.H = st.Hm;
+  v.z = sm + lay.z;
+  v.lam = sm + lay.lam;
+  v.s = sm + lay.s;
+  v.bz = sm + lay.bz;
+  v.rd = sm + lay.rd;
+  v.dz = sm + lay.dz;
+  v.blam = sm + lay.blam;
+  v.rp = sm + lay.rp;
+  v.w = sm + lay.w;
+  v.t = sm + lay.t;
+  v.ds = sm + lay.ds;
+  v.dl = sm + lay.dl;
+  v.L = sm + lay.L;
+  v.ld = factor_ld(n);
   // warm pair (z, lam) carried across steps: z = 0, lam = 1 initially
-  for (int i = 0; i < n; ++i) v.z[i] = T(0);
-  for (int r = 0; r < mc; ++r) v.lam[r] = T(1);
+  for (int i = ln; i < n; i += 32) v.z[i] = T(0);
+  for (int r = ln; r < mc; r += 32) v.lam[r] = T(1);
+  cp_async_wait();
+  __syncwarp();
+  T nact = T(0);
+  for (int r = ln; r < mc; r += 32) nact += st.rowm[r];
+  v.nact = nmax(warp_sum(nact), T(1));
 
   for (int k = 0; k < a.nit; ++k) {
-    pre_step(a, k, lane, st);
-    for (int i = 0; i < n; ++i) v.f[i] = v.cmask[i] * lin_term(a, i, st);
-    for (int r = 0; r < mc; ++r) v.h[r] = rhs_row(a, r, lane, st);
-    pdip_solve(a.g, v, n, mc, a.iters, a.c0, a.c1, a.c2);
-    for (int j = 0; j < a.nu; ++j) st.uprev[j] = st.uprev[j] + v.z[j];
-    post_step(a, k, lane, st);
+    pre_step(a, k, b, ln, st);
+    for (int i = ln; i < n; i += 32) f[i] = st.colm[i] * lin_term(a, i, st);
+    for (int r = ln; r < mc; r += 32) h[r] = rhs_row(a, r, st);
+    warp_pdip<T, R>(a.g, v, n, mc, a.iters, a.c0, a.c1, a.c2, ln);
+    for (int j = ln; j < a.nu; j += 32) st.up[j] = st.up[j] + v.z[j];
+    post_step(a, k, b, ln, st);
   }
 }
 
@@ -299,9 +379,9 @@ closed_sim_pdip_kernel(const SimArgs<T> a) {
 
 enum {
   P_CPL, P_APL, P_BPLU, P_C, P_MK, P_A, P_BU, P_SXF, P_SSTF, P_THT, P_VT,
-  P_GPTR, P_GCOL, P_GVAL, P_GTPTR, P_GTROW, P_GTVAL,
+  P_GPTR, P_GCOL, P_GVAL, P_GTPTR, P_GTROW, P_GTVAL, P_EPTR, P_EROW, P_ECOEF,
   P_R, P_Q, P_HBASE, P_SU, P_ROWM, P_COLM, P_DINV, P_E, P_PAR, P_SFY, P_SFU,
-  P_HM, P_Y, P_U, P_WORK, P_COUNT
+  P_HM, P_Y, P_U, P_COUNT
 };
 
 enum { D_B, D_NIT, D_ITERS, D_NY, D_NU, D_NXA, D_NXP, D_PNY, D_N, D_MC,
@@ -321,12 +401,15 @@ SimArgs<T> make_args(void* const* p, const int* d, const double* c) {
   a.SstF = static_cast<const T*>(p[P_SSTF]);
   a.ThT = static_cast<const T*>(p[P_THT]);
   a.Vt = static_cast<const T*>(p[P_VT]);
-  a.g = Csr<T>{static_cast<const int*>(p[P_GPTR]),
-               static_cast<const int*>(p[P_GCOL]),
-               static_cast<const T*>(p[P_GVAL]),
-               static_cast<const int*>(p[P_GTPTR]),
-               static_cast<const int*>(p[P_GTROW]),
-               static_cast<const T*>(p[P_GTVAL])};
+  a.g = GSparse<T>{static_cast<const int*>(p[P_GPTR]),
+                   static_cast<const int*>(p[P_GCOL]),
+                   static_cast<const T*>(p[P_GVAL]),
+                   static_cast<const int*>(p[P_GTPTR]),
+                   static_cast<const int*>(p[P_GTROW]),
+                   static_cast<const T*>(p[P_GTVAL]),
+                   static_cast<const int*>(p[P_EPTR]),
+                   static_cast<const int*>(p[P_EROW]),
+                   static_cast<const T*>(p[P_ECOEF])};
   a.r = static_cast<const T*>(p[P_R]);
   a.q = static_cast<const T*>(p[P_Q]);
   a.hbase = static_cast<const T*>(p[P_HBASE]);
@@ -341,7 +424,6 @@ SimArgs<T> make_args(void* const* p, const int* d, const double* c) {
   a.Hm = static_cast<const T*>(p[P_HM]);
   a.Y = static_cast<T*>(p[P_Y]);
   a.U = static_cast<T*>(p[P_U]);
-  a.work = static_cast<T*>(p[P_WORK]);
   a.B = d[D_B];
   a.nit = d[D_NIT];
   a.iters = d[D_ITERS];
@@ -359,16 +441,70 @@ SimArgs<T> make_args(void* const* p, const int* d, const double* c) {
   return a;
 }
 
+namespace {
+// The dynamic shared memory each kernel (engine, dtype, rows a lane) is
+// allowed on each device so far: above 48 KB a block's has to be allowed,
+// once a kernel and device, for the most any launch has needed.  Internal
+// linkage, so two libraries loaded in one process keep their own.
+constexpr int kMaxDevices = 64;
+int g_sim_smem[2][2][kFactorMaxRows][kMaxDevices];
+}  // namespace
+
+// The kernel's entry of g_sim_smem on the current device when `smem` bytes
+// have yet to be allowed there, else nullptr (in `slot`).
+cudaError_t smem_slot(int (&per_device)[kMaxDevices], int smem, int*& slot) {
+  slot = nullptr;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > per_device[dev]) slot = &per_device[dev];
+  return cudaSuccess;
+}
+
+template <typename T, int R>
+int launch_pdip(const SimArgs<T>& a, int blocks, int smem, cudaStream_t st) {
+  int* slot;
+  cudaError_t e = smem_slot(g_sim_smem[1][sizeof(T) == 8][R - 1], smem, slot);
+  if (e == cudaSuccess && slot)
+    e = cudaFuncSetAttribute(closed_sim_pdip_kernel<T, R>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return (int)e;
+  if (slot) *slot = smem;
+  closed_sim_pdip_kernel<T, R>
+      <<<blocks, 32 * SimShape<T>::kW, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_admm(const SimArgs<T>& a, int blocks, int smem, cudaStream_t st) {
+  int* slot;
+  cudaError_t e = smem_slot(g_sim_smem[0][sizeof(T) == 8][0], smem, slot);
+  if (e == cudaSuccess && slot)
+    e = cudaFuncSetAttribute(closed_sim_admm_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return (int)e;
+  if (slot) *slot = smem;
+  closed_sim_admm_kernel<T><<<blocks, 32 * SimShape<T>::kW, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_sim(bool pdip, void* const* p, const int* d, const double* c,
                cudaStream_t st) {
+  constexpr int W = SimShape<T>::kW;
   const SimArgs<T> a = make_args<T>(p, d, c);
-  const int blocks = (a.B + kSimThreads - 1) / kSimThreads;
-  if (pdip)
-    closed_sim_pdip_kernel<T><<<blocks, kSimThreads, 0, st>>>(a);
-  else
-    closed_sim_admm_kernel<T><<<blocks, kSimThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  const SimLayout lay(pdip, a.ny, a.nu, a.nxa, a.nxp, a.pny, a.n, a.mc);
+  const long long smem = (long long)W * lay.total * sizeof(T);
+  if (a.n < 1 || a.n > 32 * kFactorMaxRows || smem > kFactorSmemMax)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (a.B + W - 1) / W;
+  if (!pdip) return launch_admm<T>(a, blocks, (int)smem, st);
+  return a.n <= 32 ? launch_pdip<T, 1>(a, blocks, (int)smem, st)
+                   : launch_pdip<T, 2>(a, blocks, (int)smem, st);
 }
 
 }  // namespace mpc
@@ -379,14 +515,7 @@ int mpc_closed_sim_ptr_count() { return mpc::P_COUNT; }
 
 int mpc_closed_sim_dim_count() { return mpc::D_COUNT; }
 
-// Rows of the lane-major scratch buffer the wrapper allocates (rows * B).
-long long mpc_closed_sim_work_rows(int pdip, const int* d) {
-  const mpc::Offsets o(d[mpc::D_NY], d[mpc::D_NU], d[mpc::D_NXA],
-                       d[mpc::D_NXP], d[mpc::D_PNY], d[mpc::D_N],
-                       d[mpc::D_MC], pdip != 0);
-  return (long long)o.rows;
-}
-
+// Refuses (cudaErrorInvalidValue, nothing launched) outside the envelope.
 int mpc_closed_sim(int pdip, int is_f64, void* const* ptrs, const int* dims,
                    const double* scal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

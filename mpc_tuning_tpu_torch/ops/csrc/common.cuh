@@ -1,7 +1,9 @@
 // Shared helpers of the port's hand-written Hopper kernels.
 //
 // The kernels run one candidate per thread (the SPD factors of spd.cu: one
-// warp per matrix, the tile in shared memory).  Per-candidate data is
+// warp per matrix, the tile in shared memory; the whole-sim tracking
+// kernels of closed_sim.cu: one warp per candidate, its state in shared
+// memory).  Per-candidate data is
 // lane-major: element i of a per-candidate vector lives at p[i * B + lane],
 // so the threads of a warp touch neighbouring addresses.  Lane<T> wraps a
 // pointer already offset by the lane.

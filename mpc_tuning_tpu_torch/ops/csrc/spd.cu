@@ -32,7 +32,7 @@
 // its stores are coalesced (16 bytes a thread batch-major, 32-byte runs
 // lane-major).  The solves stay one thread per system.
 
-#include "common.cuh"
+#include "warp_factor.cuh"
 
 namespace mpc {
 
@@ -63,12 +63,6 @@ struct Vec16<double> {
   using type = double2;
 };
 
-constexpr int kFactorMaxRows = 2;
-constexpr int kFactorCols = 4;  // columns finished per pass over the dots
-constexpr long long kFactorSmemMax = 232448;
-
-__host__ __device__ __forceinline__ int factor_ld(int n) { return n | 1; }
-
 template <typename T>
 long long factor_smem_bytes(int n) {
   return (long long)FactorShape<T>::kW * n * factor_ld(n) * sizeof(T);
@@ -78,140 +72,6 @@ template <typename T>
 bool factor_fits(int n) {
   return n >= 1 && n <= 32 * kFactorMaxRows &&
          factor_smem_bytes<T>(n) <= kFactorSmemMax;
-}
-
-// One element from device memory into shared memory without a register
-// (cp.async, 4 or 8 bytes), so that all of a thread's copies are in flight
-// at once; cp_async_wait() waits for this thread's.
-template <typename T>
-__device__ __forceinline__ void cp_async(T* smem, const T* g) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  if (sizeof(T) == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s), "l"(g));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(g));
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-// The value a[j >> 5] of row j on the lane that owns it, on every lane: one
-// shuffle per row slot (indexing a by j would put it in local memory).
-template <typename T, int R>
-__device__ __forceinline__ T from_row(const T (&a)[R], int j) {
-  T v = __shfl_sync(0xffffffffu, a[0], j & 31);
-#pragma unroll
-  for (int r = 1; r < R; ++r) {
-    const T u = __shfl_sync(0xffffffffu, a[r], j & 31);
-    if ((j >> 5) == r) v = u;
-  }
-  return v;
-}
-
-// Column j from its finished dots a[r] (rows lane + 32 r): the pivot d of
-// row j, ljj = sqrt(d) on every lane, q[r] = a[r] / ljj; returns ljj.
-template <typename T, int R>
-__device__ __forceinline__ T finish_column(const T (&a)[R], T (&q)[R], int j,
-                                           bool& ok) {
-  const T d = from_row(a, j);
-  ok = ok && d > T(0);
-  const T ljj = sqrt(d);
-#pragma unroll
-  for (int r = 0; r < R; ++r) q[r] = a[r] / ljj;
-  return ljj;
-}
-
-// The factor of one n x n matrix in the tile t (row stride ld), in place,
-// by one warp.  Lane l owns rows l + 32 r, r < R; a lane past row n - 1
-// reads row n - 1 and stores nothing, so no load or multiply-add is
-// branched.  Left-looking, C = kFactorCols columns a pass: every row forms
-// the dots of columns j ... j + C - 1 over k < j at once (one load of L[i][k]
-// serves C columns), then the C columns are finished in order, each one's
-// entries entering the later columns' dots as their terms k = j, j + 1, ...
-// So every entry sees A[i][j] - sum_k L[i][k] L[j][k] in ascending k, then
-// the sqrt or the division.  Ends with the upper triangle zero, or, if a
-// pivot was not > 0, the whole tile NaN (as the plain version).
-template <typename T, int R>
-__device__ void warp_factor(T* t, int n, int ld, int lane) {
-  constexpr int C = kFactorCols;
-  int off[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) off[r] = min(lane + 32 * r, n - 1) * ld;
-  bool ok = true;
-  int j = 0;
-  for (; j + C <= n; j += C) {
-    T a[C][R], q[C][R], diag[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int r = 0; r < R; ++r) a[c][r] = t[off[r] + j + c];
-    const T* Lj = t + j * ld;
-#pragma unroll 8
-    for (int k = 0; k < j; ++k) {
-      T lc[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) lc[c] = Lj[c * ld + k];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const T lik = t[off[r] + k];
-#pragma unroll
-        for (int c = 0; c < C; ++c) a[c][r] -= lik * lc[c];
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      diag[c] = finish_column(a[c], q[c], j + c, ok);
-#pragma unroll
-      for (int c2 = c + 1; c2 < C; ++c2) {
-        const T l = from_row(q[c], j + c2);
-#pragma unroll
-        for (int r = 0; r < R; ++r) a[c2][r] -= q[c][r] * l;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = lane + 32 * r;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        if (i > j + c && i < n) t[off[r] + j + c] = q[c][r];
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      if (lane == ((j + c) & 31)) t[(j + c) * ld + j + c] = diag[c];
-    __syncwarp();
-  }
-  for (; j < n; ++j) {  // the last n % C columns, one at a time
-    T a[R], q[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) a[r] = t[off[r] + j];
-    const T* Lj = t + j * ld;
-#pragma unroll 8
-    for (int k = 0; k < j; ++k) {
-      const T ljk = Lj[k];
-#pragma unroll
-      for (int r = 0; r < R; ++r) a[r] -= t[off[r] + k] * ljk;
-    }
-    const T ljj = finish_column(a, q, j, ok);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = lane + 32 * r;
-      if (i > j && i < n) t[off[r] + j] = q[r];
-    }
-    if (lane == (j & 31)) t[j * ld + j] = ljj;
-    __syncwarp();
-  }
-  const T nan = nan_value<T>();
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = lane + 32 * r;
-    if (i < n) {
-      if (!ok)
-        for (int c = 0; c < n; ++c) t[i * ld + c] = nan;
-      else
-        for (int c = i + 1; c < n; ++c) t[i * ld + c] = T(0);
-    }
-  }
 }
 
 // Batch-major (B, n, n): block x takes matrices x W ... x W + W - 1, which

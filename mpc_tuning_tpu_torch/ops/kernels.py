@@ -42,15 +42,16 @@ __all__ = ["spd_factor", "spd_factor_solve", "spd_solve", "factor_lanes",
            "closed_sim_pdip_plain", "closed_sim_band_plain",
            "g_shared", "step_loop",
            "pdip_step", "admm_step", "band_envelope", "reset_launches",
-           "launch_counts", "require_device"]
+           "launch_counts", "require_device", "sim_envelope"]
 
 _SIM_TABLES = ("Cpl", "Apl", "Bplu", "C", "Mk", "A", "Bu", "SxF", "SstF",
                "ThT", "Vt")
 # argument order of the C launcher (ops/csrc/closed_sim.cu, enum P_*)
 _SIM_PTRS = _SIM_TABLES + (
     "g_ptr", "g_col", "g_val", "gt_ptr", "gt_row", "gt_val",
+    "e_ptr", "e_row", "e_coef",
     "r", "q", "hbase", "su", "rowm", "colm", "Dinv", "e", "par", "sfy", "sfu",
-    "Hm", "Y", "U", "work")
+    "Hm", "Y", "U")
 _SIM_DIMS = ("B", "nit", "iters", "ny", "nu", "nxa", "nxp", "pny", "n", "mc",
              "m_max")
 
@@ -299,10 +300,11 @@ solve_lanes.launches = 0
 #                'pdip_ws_fused');
 #   admm_fused — replaces admm_fused_lanes / _admm_fused_kernel: `iters`
 #                warm equilibrated ADMM iterations (engine 'admm_fused').
-# Both run the per-lane device code that the whole-sim kernels run at every
-# step (ops/csrc/lane_qp.cuh; see ops/csrc/qp_fused.cu for what bounds
-# them).  The shared constraint matrix comes as ``g_shared(G0, T2T)``,
-# built once per evaluation.
+# Both run one thread per lane (ops/csrc/lane_qp.cuh; see
+# ops/csrc/qp_fused.cu for what bounds them), the algorithms that the
+# whole-sim kernels run one warp per lane at every step.  The shared
+# constraint matrix comes as ``g_shared(G0, T2T)``, built once per
+# evaluation.
 
 _QP_CSR = ("g_ptr", "g_col", "g_val", "gt_ptr", "gt_row", "gt_val")
 # argument order of the C launchers (ops/csrc/qp_fused.cu, enums PF_* / AF_*)
@@ -605,6 +607,49 @@ def _csr(G):
     return ptr, cols.to(torch.int32).contiguous(), G[rows, cols].contiguous()
 
 
+def _entry_terms(G):
+    """Per lower-triangle entry (a, b) of G'WG, row-major (entry a (a + 1)
+    / 2 + b), the list of G's rows r with G[r, a] G[r, b] != 0, ascending,
+    and those terms, as CSR over the entries: (e_ptr, e_row, e_coef)."""
+    n = G.shape[1]
+    rows = torch.nonzero(G.abs().sum(1)).flatten()
+    P = G[rows][:, :, None] * G[rows][:, None, :]          # (rows, n, n)
+    a_idx, b_idx = torch.tril_indices(n, n, device=G.device)
+    terms = P[:, a_idx, b_idx].T                           # (entries, rows)
+    nz = terms != 0
+    e_ptr = torch.zeros(terms.shape[0] + 1, dtype=torch.int32,
+                        device=G.device)
+    e_ptr[1:] = torch.cumsum(nz.sum(1), 0)
+    e_i, r_i = nz.nonzero(as_tuple=True)
+    return (e_ptr, rows[r_i].to(torch.int32).contiguous(),
+            terms[e_i, r_i].contiguous())
+
+
+def sim_envelope(pdip: bool, dtype, n, mc, pny, ny, nu, nxa, nxp):
+    """(lanes per block, shared-memory bytes per block) of the whole-sim
+    kernels (ops/csrc/closed_sim.cu, SimShape / SimLayout): one warp per
+    lane, 4 lanes a block at float32 and 2 at float64; each lane's loop
+    state, staged constants, QP vectors and n x n tiles (row stride n | 1)
+    in shared memory, at most FACTOR_SMEM_MAX bytes a block, and n <=
+    64 (the PDIP factor's two rows a lane; both engines).  Raises
+    ValueError outside the envelope."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"kernels take float32 or float64, got {dtype}")
+    f64 = dtype == torch.float64
+    per_block = 2 if f64 else 4
+    nn = n * (n | 1)
+    el = (2 * nxp + 2 * nxa + 3 * nu + 2 * ny + 2 * pny + 3 * mc + n + nn
+          + (5 * n + 9 * mc + nn if pdip else 4 * n + 4 * mc))
+    smem = per_block * el * (8 if f64 else 4)
+    if not (1 <= n <= 32 * FACTOR_MAX_ROWS and smem <= FACTOR_SMEM_MAX):
+        raise ValueError(
+            f"whole-sim {'PDIP' if pdip else 'ADMM'} kernel: n = {n}, mc = "
+            f"{mc}, pny = {pny} at {dtype} needs {smem} bytes of shared "
+            f"memory a block, at most {FACTOR_SMEM_MAX}, and n <= "
+            f"{32 * FACTOR_MAX_ROWS}")
+    return per_block, smem
+
+
 def _launch_sim(pdip: bool, tables, lc, Hm, r_l, nit, iters, dims, scal,
                 row_key, col_key):
     ny, nu, n, mc, m_max = (dims[k] for k in ("ny", "nu", "n", "mc", "m_max"))
@@ -628,6 +673,7 @@ def _launch_sim(pdip: bool, tables, lc, Hm, r_l, nit, iters, dims, scal,
         _require(lc[k], (rows, B), dtype, k)
     _require(Hm, (n, n, B), dtype, "Minv/Hp")
     _require(r_l, (nit, ny, B), dtype, "r_l")
+    sim_envelope(pdip, dtype, n, mc, pny, ny, nu, nxa, nxp)
 
     lib = _build.library()
     G = g_shared(tables["G0"])
@@ -637,16 +683,17 @@ def _launch_sim(pdip: bool, tables, lc, Hm, r_l, nit, iters, dims, scal,
     if lib.mpc_closed_sim_ptr_count() != len(_SIM_PTRS) or \
             lib.mpc_closed_sim_dim_count() != len(_SIM_DIMS):
         raise RuntimeError("closed_sim argument layout mismatch")
-    rows = lib.mpc_closed_sim_work_rows(int(pdip), dims_c)
     kw = dict(dtype=dtype, device=r_l.device)
     Y = torch.empty((nit, ny, B), **kw)
     U = torch.empty((nit, nu, B), **kw)
-    work = torch.empty((rows * B,), **kw)
     bufs = dict(tables, **{k: G[k] for k in _QP_CSR}, r=r_l, q=lc["q"],
                 hbase=lc["hbase"], su=lc["su"], rowm=lc[row_key],
                 colm=lc[col_key], sfy=lc["sfy"], sfu=lc["sfu"], Hm=Hm, Y=Y,
-                U=U, work=work)
-    if not pdip:
+                U=U)
+    if pdip:
+        bufs.update(zip(("e_ptr", "e_row", "e_coef"),
+                        _entry_terms(tables["G0"])))
+    else:
         bufs.update(Dinv=lc["Dinv"], e=lc["e"], par=lc["par"])
     for k, v in bufs.items():
         if isinstance(v, torch.Tensor) and v.device != r_l.device:
@@ -663,13 +710,15 @@ def _launch_sim(pdip: bool, tables, lc, Hm, r_l, nit, iters, dims, scal,
 
 # Replaces closed_sim_admm_lanes / _closed_sim_admm_kernel
 # (mpc_tuning_tpu/ops/pallas_kernels.py); see ops/csrc/closed_sim.cu for
-# what bounds it and the design.
+# what bounds it and the design: one warp per candidate lane, its state in
+# shared memory, within ``sim_envelope``.
 
 
 def closed_sim_admm(tables, lane_consts, Minv_t, r_l, nit, iters, sigma,
                     over_relax, dims):
     """Whole closed loop with `iters` warm equilibrated ADMM iterations per
-    step against the per-lane Minv_t (n, n, B); returns (Y, U)."""
+    step against the per-lane Minv_t (n, n, B); returns (Y, U).  Raises
+    outside ``sim_envelope``."""
     if _on_cpu(r_l, Minv_t):
         return closed_sim_admm_plain(tables, lane_consts, Minv_t, r_l, nit,
                                      iters, sigma, over_relax, dims)
@@ -683,15 +732,15 @@ closed_sim_admm.launches = 0
 
 
 # Replaces closed_sim_pdip_lanes / _closed_sim_pdip_kernel
-# (mpc_tuning_tpu/ops/pallas_kernels.py).  Solves with the factor by
-# substitution in place of the TPU kernel's explicit L^{-1}; the two differ
-# only in rounding.
+# (mpc_tuning_tpu/ops/pallas_kernels.py), the same design as
+# closed_sim_admm.  Solves with the factor by substitution in place of the
+# TPU kernel's explicit L^{-1}; the two differ only in rounding.
 
 
 def closed_sim_pdip(tables, lane_consts, Hp_t, r_l, nit, iters, dims):
     """Whole closed loop with a warm masked Mehrotra PDIP of `iters`
     iterations per step against the per-lane Hessians Hp_t (n, n, B);
-    returns (Y, U)."""
+    returns (Y, U).  Raises outside ``sim_envelope``."""
     if _on_cpu(r_l, Hp_t):
         return closed_sim_pdip_plain(tables, lane_consts, Hp_t, r_l, nit,
                                      iters, dims)
@@ -793,23 +842,11 @@ def band_envelope(G0, dims, pny):
 
 def _band_sparse(G0, nmv, pny):
     """G0 without its band rows as CSR and CSC, and per lower-triangle
-    entry (a, b) of the normal matrix the list of those rows' terms
-    G0[r, a] G0[r, b] (CSR over entries a (a + 1) / 2 + b)."""
+    entry of the normal matrix the list of those rows' terms
+    (``_entry_terms``)."""
     Gs = G0.clone()
     Gs[nmv:nmv + 2 * pny] = 0.0
-    n = G0.shape[1]
-    rows = torch.nonzero(Gs.abs().sum(1)).flatten()
-    P = Gs[rows][:, :, None] * Gs[rows][:, None, :]        # (rows, n, n)
-    a_idx, b_idx = torch.tril_indices(n, n, device=G0.device)
-    terms = P[:, a_idx, b_idx].T                           # (entries, rows)
-    nz = terms != 0
-    e_ptr = torch.zeros(terms.shape[0] + 1, dtype=torch.int32,
-                        device=G0.device)
-    e_ptr[1:] = torch.cumsum(nz.sum(1), 0)
-    e_i, r_i = nz.nonzero(as_tuple=True)
-    return (_csr(Gs) + _csr(Gs.T.contiguous())
-            + (e_ptr, rows[r_i].to(torch.int32).contiguous(),
-               terms[e_i, r_i].contiguous()))
+    return _csr(Gs) + _csr(Gs.T.contiguous()) + _entry_terms(Gs)
 
 
 def closed_sim_band(tables, lane_consts, Hp_t, r_l, nit, lp_iters, s2_iters,

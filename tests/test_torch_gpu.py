@@ -3,6 +3,7 @@
 on hosts without a CUDA device; on a GPU host run
 ``python -m pytest --noconftest tests/test_torch_gpu.py``."""
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -71,18 +72,120 @@ def test_spd_kernels_match_plain(cuda, n, B):
                                atol=1e-10)
 
 
-def test_closed_sim_admm_matches_plain(cuda):
-    t, lc, Minv, r_l, dims = _inputs("admm_sim")
-    args = (t, lc, Minv, r_l, r_l.shape[0], 40, 1e-6, 1.6, dims)
-    for a, b in zip(K.closed_sim_admm(*args), K.closed_sim_admm_plain(*args)):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-9)
+# The whole-sim kernels, one warp per lane (W = 4 lanes a block at float32,
+# 2 at float64): B = 1, 2 and 18 are the tunes' batches, 37 leaves the last
+# block part-filled; Wood-Berry's (64, 8) and (127, 15) buckets and, for the
+# PDIP, Shell3x3's widest (n = 46: two rows a lane, over 48 KB of shared
+# memory).  Held step by step (the plain version follows the kernel's U) at
+# chip_smoke.py's gates: float64 1e-9; float32 1e-3, float32 PDIP U at the
+# median lane 1e-3 and on every lane 0.1 (PDIP answers scatter at float32).
+SIM_B = [1, 2, 18, 37]
+SIM_CASES = {"wb64x8": (woodberry, (64, 8)),
+             "wb127x15": (woodberry, (127, 15)),
+             "s3127x15": (shell3x3, (127, 15))}
+F32_SIM_GATE, F32_PDIP_U_CAP = 1e-3, 0.1
 
 
-def test_closed_sim_pdip_matches_plain(cuda):
-    t, lc, Hp, r_l, dims = _inputs("pdip_sim")
-    args = (t, lc, Hp, r_l, r_l.shape[0], 15, dims)
-    for a, b in zip(K.closed_sim_pdip(*args), K.closed_sim_pdip_plain(*args)):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-9)
+def _sim_check(name, args, dims, dtype):
+    """Launch whole-sim kernel ``name`` once and hold it step by step."""
+    kernel = getattr(K, name)
+    before = kernel.launches
+    Y, U = kernel(*args, dims=dims)
+    assert kernel.launches == before + 1
+    assert torch.isfinite(Y).all() and torch.isfinite(U).all()
+    Yp, Up = getattr(K, name + "_plain")(*args, dims=dims, u_follow=U)
+    dy = (Y - Yp).abs().amax((0, 1))
+    du = (U - Up).abs().amax((0, 1))
+    if dtype == F64:
+        assert max(float(dy.max()), float(du.max())) <= 1e-9
+    elif name == "closed_sim_admm":
+        assert max(float(dy.max()), float(du.max())) <= F32_SIM_GATE
+    else:
+        assert float(dy.max()) <= F32_SIM_GATE
+        assert float(du.median()) <= F32_SIM_GATE
+        assert float(du.max()) <= F32_PDIP_U_CAP
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("cell", ["wb64x8", "wb127x15"])
+@pytest.mark.parametrize("B", SIM_B)
+def test_closed_sim_admm_matches_plain(cuda, B, cell, dtype):
+    case, caps = SIM_CASES[cell]
+    t, lc, Minv, r_l, dims = _inputs("admm_sim", B=B, caps=caps, case=case,
+                                     dtype=dtype)
+    _sim_check("closed_sim_admm",
+               (t, lc, Minv, r_l, r_l.shape[0], 40, 1e-6, 1.6), dims, dtype)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("cell", ["wb64x8", "wb127x15", "s3127x15"])
+@pytest.mark.parametrize("B", SIM_B)
+def test_closed_sim_pdip_matches_plain(cuda, B, cell, dtype):
+    case, caps = SIM_CASES[cell]
+    t, lc, Hp, r_l, dims = _inputs("pdip_sim", B=B, caps=caps, case=case,
+                                   dtype=dtype)
+    _sim_check("closed_sim_pdip", (t, lc, Hp, r_l, r_l.shape[0], 15), dims,
+               dtype)
+
+
+def _pad_rows(engine, inputs, extra):
+    """The inputs with `extra` all-zero constraint rows appended to G0:
+    0 <= 1, inactive at every step, so the loop is unchanged."""
+    t, lc, Hm, r_l, dims = inputs
+    B = r_l.shape[2]
+    t = dict(t, G0=torch.cat([t["G0"], t["G0"].new_zeros(
+        (extra, t["G0"].shape[1]))]))
+    pad = {"hbase": 1.0, "su": 0.0, "rmask": 1.0, "arow": 1.0, "e": 1.0}
+    lc = dict(lc, **{k: torch.cat([lc[k], lc[k].new_full((extra, B), v)])
+                     for k, v in pad.items() if k in lc})
+    if engine == "pdip_sim":
+        n = t["G0"].shape[1]
+        t["T2T"] = torch.einsum("ki,kj->ijk", t["G0"], t["G0"]).reshape(
+            n * n, -1).contiguous()
+    return t, lc, Hm, r_l, dict(dims, mc=dims["mc"] + extra)
+
+
+@pytest.mark.parametrize("engine", ["admm_sim", "pdip_sim"])
+def test_sim_envelope_matches_the_launcher(cuda, engine):
+    """At the largest mc sim_envelope admits (Wood-Berry (127, 15), G0
+    padded with zero rows, float64: ~227 KB a block) the kernel runs and
+    follows its plain version; one row more, the wrapper raises without
+    launching and the C launcher itself refuses."""
+    from mpc_tuning_tpu_torch.ops import _build
+
+    pdip = engine == "pdip_sim"
+    name = "closed_sim_" + engine[:4]
+    inputs = _inputs(engine, B=3, nit=4, caps=(127, 15))
+    t, _, _, _, dims = inputs
+    shape = lambda mc: (dims["n"], mc, t["SxF"].shape[0], dims["ny"],
+                        dims["nu"], t["A"].shape[0], t["Apl"].shape[0])
+    edge = dims["mc"]
+    while True:
+        try:
+            K.sim_envelope(pdip, F64, *shape(edge + 1))
+        except ValueError:
+            break
+        edge += 1
+    assert K.sim_envelope(pdip, F64, *shape(edge))[1] > 226 * 1024
+    iters = (15,) if pdip else (40, 1e-6, 1.6)
+    t, lc, Hm, r_l, d = _pad_rows(engine, inputs, edge - dims["mc"])
+    _sim_check(name, (t, lc, Hm, r_l, 4, *iters), d, F64)
+
+    t, lc, Hm, r_l, d = _pad_rows(engine, inputs, edge + 1 - dims["mc"])
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="whole-sim"):
+        getattr(K, name)(t, lc, Hm, r_l, 4, *iters, dims=d)
+    assert K.launch_counts() == before
+    lib = _build.library()
+    vals = dict(B=3, nit=4, iters=iters[0], ny=d["ny"], nu=d["nu"],
+                nxa=t["A"].shape[0], nxp=t["Apl"].shape[0],
+                pny=t["SxF"].shape[0], n=d["n"], mc=d["mc"],
+                m_max=d["m_max"])
+    dims_c = (ctypes.c_int * len(K._SIM_DIMS))(*[vals[k] for k in K._SIM_DIMS])
+    ptrs = (ctypes.c_void_p * len(K._SIM_PTRS))()
+    scal = (ctypes.c_double * 3)(0.0, 0.0, 0.0)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    assert lib.mpc_closed_sim(int(pdip), 1, ptrs, dims_c, scal, stream) != 0
 
 
 def _band_inputs(cuda, caps, B=4, nit=30):
