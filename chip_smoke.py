@@ -19,7 +19,10 @@ Phases, each printing one line (with its wall time):
     2b the band kernel on Shell7x5 in float64, the only dtype band cases
        run at (caps (32,4), (127,2), (127,15), B=256, nit=200, the seeded
        candidates of tools/band_spread.band_inputs), held at the limits
-       that tools/band_spread.py derives from two correct runs;
+       that tools/band_spread.py derives from two correct runs; then held
+       step by step by the LP certificate (ops/band_cert.hold: every
+       step's slack at the LP minimum, the first move where du is well
+       posed) at the reference's tuned point and on two seeded lanes;
     2c the per-step engines' kernels in float64 and float32: the lane-major
        factor/solve at n = 7, 17, 46 (B = 1024 and 37) and the
        single-solve PDIP and ADMM kernels on one real Shell3x3 step's QPs
@@ -64,8 +67,8 @@ Phases, each printing one line (with its wall time):
     of the same algorithm, and one NMPC closed-loop evaluation with its
     launches and device time.  The whole-sim kernels are timed at the
     bench shapes and at the batch sizes the tunes launch (ADMM_SHAPES,
-    PDIP_SHAPES), each with its device time and bound.  The two SPD factor
-    kernels are timed at
+    PDIP_SHAPES, BAND_SHAPES), each with its device time and bound.  The
+    two SPD factor kernels are timed at
     FACTOR_SHAPES: float32 B=1024 n=17 and the float64 batches the tunes
     launch, (B, n) = (8, 5), (36, 31), (141, 46), each beside
     torch.linalg.cholesky_ex and the plain version, by CUDA events and by
@@ -267,6 +270,14 @@ ADMM_SHAPES = (((64, 8), 8192, 1, {}), ((64, 8), 2, 3, {}),
                ((64, 8), 18, 3, {}), ((127, 15), 2, 3, {}))
 PDIP_SHAPES = (((32, 4), 2048, 2, dict(N=20, Nu=4)),
                ((32, 4), 8, 2, dict(N=20, Nu=4)))
+# ... and of the band kernel (caps, B, seed), float64, nit 200: the bench
+# row (the record's) first, then B = 1 and 8 at the first GAM bucket and
+# B = 8 at the widest (the band tune's most frequent launch, B = 1 at
+# (48, 4), is timed by scripts/band_tune_profile_torch.py)
+BAND_SHAPES = (((48, 4), 256, 7), ((127, 2), 1, 7), ((127, 2), 8, 7),
+               ((127, 15), 8, 7))
+# phase 2b's per-step certificate: seeded lanes beside the tuned point
+CERT_LANES = ((32, 4), 3, 11)  # caps, B (lane 0, the corner, is skipped), seed
 
 
 def factor_record(lanes: bool):
@@ -559,7 +570,63 @@ def phase_band_kernels(band_problem):
           + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
     if bad:
         fail("band rows above their limits: " + " | ".join(bad))
+    held = band_cert_hold(K.closed_sim_band, band_problem)
+    txt = " | ".join(f"{name}: steps {h['steps']} well posed "
+                     f"{h['well_posed']} slack > 0 {h['eps_pos']} "
+                     f"uncertified {h['uncertified']} slack {h['deps_rel']:.3e}"
+                     f" du {h['du_well_posed']:.3e}"
+                     for name, h in held["lanes"].items())
+    print(f"[2b band certificate] the kernel's run, B=1 at the tuned point "
+          f"and {CERT_LANES[1] - 1} seeded lanes at {CERT_LANES[0]}, nit 200, "
+          f"each step's QP harvested along its U and certified on the host "
+          f"(gates: {held['gates']}) | {txt} | wall_s={held['wall_s']:.1f}",
+          flush=True)
+    bad = [k for k, h in held["lanes"].items() if not h["ok"]]
+    if bad:
+        fail(f"band kernel off its certificate on {bad}: {txt}")
     return err64
+
+
+def band_cert_hold(kernel, band_problem):
+    """The band kernel ``kernel`` (closed_sim_band's arguments; (Y, U, E))
+    held step by step by the LP certificate (ops/band_cert.hold): at the
+    reference's tuned point (its own conditioning frame, B = 1, nit 200)
+    and on CERT_LANES' seeded lanes of ``band_problem``.  Returns
+    {"lanes": {name: hold's dict}, "gates": text, "wall_s": s}."""
+    import os
+
+    from mpc_tuning_tpu_torch.cases import shell7x5
+    from mpc_tuning_tpu_torch.ops import band_cert as bc
+    from mpc_tuning_tpu_torch.tools.band_spread import band_candidates
+    from mpc_tuning_tpu_torch.tuning.api import build_problem
+
+    t0 = time.perf_counter()
+    workers = min(8, os.cpu_count() or 1)
+    ref = shell7x5.REF_TUNED
+    nit = 200
+    tuned, _ = build_problem(shell7x5.make_case(), L=np.diag(ref.L),
+                             R=np.diag(ref.R), device="cuda")
+    caps, B, seed = CERT_LANES
+    N, Nu, lam = band_candidates(caps, B, seed)
+    runs = (("tuned", tuned, [ref.N], [int(ref.Nu.max())], ref.lam[None],
+             None, [0]),
+            ("seeded", band_problem, N, Nu, lam, caps, range(1, B)))
+    lanes = {}
+    with bc.certify_pool(workers) as pool:
+        for name, problem, N, Nu, lam, caps, take in runs:
+            r_b = np.broadcast_to(problem.r[:nit], (len(N), nit, 7))
+            t, lc, Hp, r_l, dims = problem.loop.sim_inputs(
+                r_b, problem.v, N, Nu, np.zeros((len(N), 7)), lam, nit,
+                torch.float64, "band_sim", "cuda", caps=caps)
+            _, U, E = kernel(t, lc, Hp, r_l, nit, 20, 12, dims)
+            U, E = U.cpu().numpy(), E.cpu().numpy()
+            for b in take:
+                lanes[f"{name} lane {b} (N {N[b]}, Nu {Nu[b]})"] = bc.hold(
+                    problem, N[b], Nu[b], np.zeros(7), lam[b], U[:, :, b],
+                    E[:, b], caps=(int(N[b]), int(Nu[b])), pool=pool)
+    gates = (f"slack {bc.HOLD_EPS_REL:g} relative on every step, first move "
+             f"{bc.HOLD_DU:g} where du_sens < {bc.DU_SENS_BAR:g}")
+    return dict(lanes=lanes, gates=gates, wall_s=time.perf_counter() - t0)
 
 
 STEP_TAKE = 85  # the Shell3x3 step whose QPs phase 2c solves (after the
@@ -1092,22 +1159,31 @@ def phase_throughput(problem, band_problem):
                f"{sol['ms']:.4f} ms (plain {sol['plain_ms']:.4f}, "
                f"cholesky_solve {sol['library_ms']:.4f})")
 
-    # B = 1 (the final simulation's latency; kernel only) and the record's
-    # B = 256 at caps (48, 4)
-    inp1, _, _ = band_inputs(band_problem, (127, 2), 1, 200, f64, 7)
-    args1 = (*inp1[:4], 200, 20, 12, inp1[4])
-    band = [f"B=1 caps=(127, 2): kernel "
-            f"{timed(lambda: K.closed_sim_band(*args1), 3)[0]:.1f} ms"]
-    inp, N, Nu = band_inputs(band_problem, (48, 4), 256, 200, f64, 7)
-    args = (*inp[:4], 200, 20, 12, inp[4])
-    r = sim_record("closed_sim_band", f64, inp, N, Nu,
-                   lambda: K.closed_sim_band(*args),
-                   lambda: K.closed_sim_band_plain(*args), 0, lp=20, s2=12)
-    band.append(f"B=256 caps=(48, 4): kernel {r['ms']:.1f} ms, plain "
-                f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']})")
-    rec["closed_sim_band"] = r
-    txt.append("band f64 nit=200 lp/s2=20/12: " + "; ".join(band))
+    # the band kernel at BAND_SHAPES: the record's row, then the tune's
+    rows = []
+    for caps, B, seed in BAND_SHAPES:
+        inp, N, Nu = band_inputs(band_problem, caps, B, 200, f64, seed)
+        args = (*inp[:4], 200, 20, 12, inp[4])
+        call = lambda: K.closed_sim_band(*args)
+        if not rows:
+            row = sim_record("closed_sim_band", f64, inp, N, Nu, call,
+                             lambda: K.closed_sim_band_plain(*args), 0,
+                             lp=20, s2=12)
+        else:
+            row = sim_row("closed_sim_band", f64, inp, N, Nu, call, 0, lp=20,
+                          s2=12)
+        t, dims = inp[0], inp[4]
+        clusters = K.band_plan(dims["n"], dims["mc"], t["SxF"].shape[0],
+                               dims["ny"], dims["nu"], t["A"].shape[0],
+                               t["Apl"].shape[0])[0]
+        rows.append(dict(row, caps=caps, clusters=clusters))
+    rec["closed_sim_band"] = dict(rows[0], shapes=rows)
+    txt.append("closed_sim_band f64 nit=200 lp/s2=20/12: " + "; ".join(
+        f"B={r['B']} caps={r['caps']} ({r['clusters']} blocks a cluster): "
+        f"kernel {r['ms']:.3f} ms (device {fmt_ms(r['device_ms'])}), bound "
+        f"{r['bound_ms']:.5f} ({r['bound_by']})"
+        + (f", plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
+        for r in rows))
     print("[4 throughput] " + " | ".join(txt)
           + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
     return rec

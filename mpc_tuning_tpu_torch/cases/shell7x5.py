@@ -9,6 +9,8 @@ check) waits for the port of ``cases/verify_horizons``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from mpc_tuning_tpu_torch.cases._common import ref_trajectory
@@ -25,6 +27,29 @@ W_PARETO = np.array([1e-4, 1e-4, 1.0, 0.5, 1.0, 0.5, 1.0])  # Shell7x5.m:202
 YMN = np.array([-0.005, -0.005, -0.5, -0.5, -0.5, -0.5, -0.5])
 YMX = np.array([0.005, 0.005, 0.5, 0.5, 0.5, 0.5, 0.5])
 UMX = np.array([0.5, 0.5, 0.5])
+
+
+@dataclasses.dataclass(frozen=True)
+class TunedPoint:
+    """One tuned parameter set in its own conditioning frame: L and R the
+    diagonals of the output and input scalings (R with the MD columns)."""
+
+    N: int
+    Nu: np.ndarray
+    delta: np.ndarray
+    lam: np.ndarray
+    L: np.ndarray
+    R: np.ndarray
+
+
+# The reference's own tuning of this case (BASELINE.md): every output
+# weight 0 (band control), Nu 2 on every input.
+REF_TUNED = TunedPoint(
+    N=27, Nu=np.array([2, 2, 2]), delta=np.zeros(7),
+    lam=np.array([0.0559, 0.0167, 1.6102]),
+    L=np.array([0.4401, 0.2319, 0.6265, 0.5431, 0.6006, 0.2069, 0.3942]),
+    R=np.array([0.2640, 0.1351, 0.1156, 0.7819, 0.4665]),
+)
 
 
 def make_case(nit: int = NIT, nbp: int = NBP, nbc: int = NBC) -> LinearCase:
