@@ -1172,15 +1172,10 @@ def phase_throughput(problem, band_problem):
         else:
             row = sim_row("closed_sim_band", f64, inp, N, Nu, call, 0, lp=20,
                           s2=12)
-        t, dims = inp[0], inp[4]
-        clusters = K.band_plan(dims["n"], dims["mc"], t["SxF"].shape[0],
-                               dims["ny"], dims["nu"], t["A"].shape[0],
-                               t["Apl"].shape[0])[0]
-        rows.append(dict(row, caps=caps, clusters=clusters))
+        rows.append(dict(row, caps=caps))
     rec["closed_sim_band"] = dict(rows[0], shapes=rows)
     txt.append("closed_sim_band f64 nit=200 lp/s2=20/12: " + "; ".join(
-        f"B={r['B']} caps={r['caps']} ({r['clusters']} blocks a cluster): "
-        f"kernel {r['ms']:.3f} ms (device {fmt_ms(r['device_ms'])}), bound "
+        f"B={r['B']} caps={r['caps']}: kernel {r['ms']:.3f} ms (device {fmt_ms(r['device_ms'])}), bound "
         f"{r['bound_ms']:.5f} ({r['bound_by']})"
         + (f", plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
         for r in rows))

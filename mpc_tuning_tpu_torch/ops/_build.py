@@ -18,7 +18,7 @@ import pathlib
 import shutil
 import subprocess
 
-__all__ = ["library", "build_seconds", "bind_band"]
+__all__ = ["library", "build_seconds"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "_build"
@@ -59,7 +59,14 @@ def _bind(lib):
     lib.mpc_closed_sim.argtypes = [i, i, ctypes.POINTER(vp), d,
                                    ctypes.POINTER(ctypes.c_double), vp]
     lib.mpc_closed_sim.restype = i
-    bind_band(lib)
+    lib.mpc_closed_sim_band_ptr_count.restype = i
+    lib.mpc_closed_sim_band_dim_count.restype = i
+    lib.mpc_closed_sim_band_max_n.restype = i
+    lib.mpc_closed_sim_band_work_per_lane.argtypes = [d]
+    lib.mpc_closed_sim_band_work_per_lane.restype = ctypes.c_longlong
+    lib.mpc_closed_sim_band.argtypes = [ctypes.POINTER(vp), d,
+                                        ctypes.POINTER(ctypes.c_double), vp]
+    lib.mpc_closed_sim_band.restype = i
     lib.mpc_pdip_fused_ptr_count.restype = i
     lib.mpc_admm_fused_ptr_count.restype = i
     lib.mpc_qp_fused_dim_count.restype = i
@@ -69,22 +76,6 @@ def _bind(lib):
         fn.argtypes = [i, ctypes.POINTER(vp), d,
                        ctypes.POINTER(ctypes.c_double), vp]
         fn.restype = i
-    return lib
-
-
-def bind_band(lib):
-    """Declare the band kernel's C functions on ``lib`` (the port's library
-    or another build of ops/csrc/closed_sim_band.cu); returns lib."""
-    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    lib.mpc_closed_sim_band_ptr_count.restype = i
-    lib.mpc_closed_sim_band_dim_count.restype = i
-    lib.mpc_closed_sim_band_max_n.restype = i
-    lib.mpc_closed_sim_band_plan.argtypes = [d, ctypes.POINTER(
-        ctypes.c_longlong)]
-    lib.mpc_closed_sim_band_plan.restype = i
-    lib.mpc_closed_sim_band.argtypes = [ctypes.POINTER(vp), d,
-                                        ctypes.POINTER(ctypes.c_double), vp]
-    lib.mpc_closed_sim_band.restype = i
     return lib
 
 

@@ -8,118 +8,61 @@
 //
 // What bounds it on an H100: per PDIP iteration the soft band rows dominate
 // (mc = 4 m nu + 1 + 2 p ny, up to 1,959 rows on Shell7x5): the normal
-// matrix G' W G costs ~n^2/2 multiply-adds per band row and G z, G' y ~n
-// per row, in a serial chain of nit x (lp + s2) iterations per candidate.
-// The tunes launch 1 to ~20 candidates at a time, so the chain's latency,
-// not the card's rates, sets the time.  The design spreads a candidate
-// over a thread-block cluster and cuts the barriers per iteration:
-//  * a cluster of C = 1, 2 or 4 blocks per candidate (grid B C; C the
-//    smallest that fits, band_plan): the candidate's active constraint
-//    rows, as "K-rows" (a band +-pair, whose rows share Theta up to sign,
-//    or one other row), are split into C contiguous slices; each block
-//    keeps its slice's G0 coefficients (the tile) and row state in shared
-//    memory for the whole launch, so nothing streams from device memory
-//    inside the PDIP;
-//  * a thread owns its K-rows for the whole launch: a row's own updates
-//    (s, lam, ds, dl, r_p, the best iterate, the warm pair) need no
-//    barrier; only G'y, the normal matrix and the scalar sums cross rows;
-//  * those cross-row sums are one register-blocked product per iteration
-//    (4 x 4 outputs a thread from 8 shared loads per row, in place of two
-//    loads per multiply-add): Theta' [W Theta | w s | y | t] over the
-//    block's K-rows gives the normal matrix, G'lam and the predictor's G't
-//    at once; the corrector's G't is a second, narrower one; the slack
-//    column's scalar sums ride along as warp reductions;
-//  * the reductions run in a fixed order (lanes by a shuffle tree, warps,
-//    then the blocks in rank order through distributed shared memory), so
-//    every block ends with the same bits and factors and solves
-//    redundantly on one warp (warp_factor.cuh with reciprocal pivots, then
-//    substitutions by blocks of 8 rows), and the result does not depend on
-//    B or the run;
-//  * a PDIP iteration passes at most 10 block barriers and 4 cluster
-//    barriers (block barriers too when C = 1); the block-per-candidate
-//    design passed 27-29 (PERF.md).
-// Envelope (band_plan; ops/kernels.band_envelope): n <= kBandMaxN and the
-// slice of C = 4 blocks within kBandSmem bytes of shared memory; G0's
-// y_lo rows the negated y_hi rows outside the slack column; 0/1 masks.
+// matrix G' W G costs ~n^2/2 multiply-adds per band row, the G and G'
+// products ~n per row, all in a serial chain of nit x (lp + s2) iterations.
+// A thread per candidate (closed_sim.cu) would run that chain on one
+// thread, so the design spreads each candidate over a thread block:
+//  * one block of kBandThreads threads per candidate lane (grid = B);
+//  * row work (G z, G' y, residuals, step-length minima, merit norms) is
+//    spread over the threads, with deterministic block reductions that
+//    keep jnp.min / jnp.max NaN semantics (nmin / nmax, common.cuh);
+//  * the band rows come in +-pairs that share Theta up to sign, so the
+//    kernel works on pairs: one dot product gives both rows of G z, and
+//    G' W G takes Theta' diag(w_hi + w_lo) Theta (the same sum, regrouped)
+//    plus the slack column; only the candidate's active rows and columns
+//    (rmask, cmask) are visited, exact since the rest add exact zeros;
+//  * the normal matrix is spread over the active entries of its lower
+//    triangle (registers per thread) and, when they are few, over groups
+//    of band rows too; G0's few other rows (move, input and slack bounds)
+//    enter through a precomputed list of their G0[r,a] G0[r,b] terms per
+//    entry;
+//  * the normal matrix, its factor and Hp stay in shared memory; one warp
+//    factors it and runs the substitutions;
+//  * the per-lane mc-vectors (with the lane's rmask and G0's slack column)
+//    live in shared memory where they fit, else in a global scratch buffer
+//    (per block, contiguous); the active Theta block takes the rest of
+//    shared memory: held there for the whole launch when it fits, else
+//    streamed through it in chunks of band rows at each normal matrix.
+// Measured on the H100 (PERF.md): latency-bound by the serial chain of
+// block-wide phases, far above the operation bound.
+// Envelope: n <= kBandMaxN variables (checked by the wrapper).
 
-#include <cooperative_groups.h>
-
-#include "warp_qp.cuh"
+#include "common.cuh"
 
 namespace mpc {
-
-namespace cg = cooperative_groups;
 
 constexpr int kBandThreads = 256;
 constexpr int kBandWarps = kBandThreads / 32;
 constexpr int kBandMaxN = 64;
-constexpr int kBandMaxCluster = 4;
-constexpr long long kBandSmem = 232448;
-// per K-row arrays of shared memory: the row state (two rows each) and
-// the reduction's inputs (W Theta's weight, then w s, y, t and a pad)
-enum {
-  RS_H, RS_LAM = 2, RS_S = 4, RS_BLAM = 6, RS_LAMW = 8, RS_RP = 10,
-  RS_DS = 12, RS_DL = 14, RS_SCV = 16, RS_WSUM = 18, RS_EXT = 19,
-  RS_COUNT = 23
-};
-// scalar sums of a reduction (the slack entries and the merit's parts)
-enum { SC_WSS, SC_SL, SC_ST, SC_RPSQ, SC_GAP, SC_COUNT };
-
-struct BandShape {
-  int n, mc, pny, ny, nu, nxa, nxp, nmv;
-};
-
-// Shared-memory layout of one block (offsets in elements of 8 bytes) for a
-// cluster of C blocks; C = 0 when even kBandMaxCluster blocks do not fit.
-struct BandPlan {
-  int C, kcap, kb, ld, ldn, part;
-  size_t L, H, dinv, vec, est, red, xsc, slot, flag, tile, rows, grow, buf,
-      total;
-};
-
-__host__ __device__ inline BandPlan band_plan_for(const BandShape& s, int C) {
-  BandPlan p;
-  p.C = C;
-  p.kcap = s.mc - s.pny;  // non-band rows and one K-row per band pair
-  p.kb = (p.kcap + C - 1) / C;
-  p.ld = (s.n - 1) | 1;
-  p.ldn = s.n | 1;
-  const int nt = (s.n + 2) / 4, tiles = nt * (nt + 1) / 2 + nt;
-  int part = 16 * (tiles > kBandThreads ? tiles : kBandThreads);
-  part = part > 2 * s.pny ? part : 2 * s.pny;  // the step's free response
-  p.part = part > p.kcap ? part : p.kcap;      // the K-row list (ints)
-  size_t o = 0;
-  p.L = o; o += (size_t)s.n * p.ldn;
-  p.H = o; o += (size_t)s.n * (s.n + 1) / 2;
-  p.dinv = o; o += (size_t)64 * ((s.n + 7) / 8);
-  p.vec = o; o += (size_t)14 * s.n;
-  p.est = o; o += (size_t)2 * s.nxp + 2 * s.nxa + s.ny + 2 * s.nu;
-  p.red = o; o += (size_t)kBandWarps * 8;
-  p.xsc = o; o += 8;
-  p.slot = o; o += 8;
-  p.flag = o; o += 4;
-  p.tile = o; o += (size_t)p.kb * p.ld + 4;
-  p.rows = o; o += (size_t)RS_COUNT * p.kb;
-  p.grow = o; o += ((size_t)p.kb + 1) / 2;
-  p.buf = o; o += (size_t)p.part;
-  p.total = o;
-  return p;
-}
-
-__host__ __device__ inline BandPlan band_plan(const BandShape& s) {
-  for (int C = 1; C <= kBandMaxCluster; C *= 2) {
-    const BandPlan p = band_plan_for(s, C);
-    if ((long long)p.total * 8 <= kBandSmem) return p;
-  }
-  BandPlan p = band_plan_for(s, kBandMaxCluster);
-  p.C = 0;
-  return p;
-}
+constexpr int kBandEntries =
+    (kBandMaxN * (kBandMaxN + 1) / 2 + kBandThreads - 1) / kBandThreads;
+constexpr int kBandChunk = 32;     // least band rows of the Theta tile
+constexpr int kBandMaxRows = 1024;  // most band rows of the Theta tile
+constexpr int kBandVecs = 12;       // per-lane mc-vectors
+constexpr size_t kSmemLimit = 232448;
 
 template <typename T>
 struct BandArgs {
-  // shared tables, row-major; Cpl, Apl, C, Mk, A and SxF transposed
-  const T *Cpl, *Apl, *Bplu, *C, *Mk, *A, *Bu, *SxF, *SstF, *ThT, *Vt, *G0;
+  // shared tables, row-major
+  const T *Cpl, *Apl, *Bplu, *C, *Mk, *A, *Bu, *SxF, *SstF, *ThT, *Vt;
+  const int *s_ptr, *s_col;  // G0 without its band rows, by rows (CSR)
+  const T* s_val;
+  const int *st_ptr, *st_row;  // the same, by columns
+  const T* st_val;
+  const int *e_ptr, *e_row;  // their G0[r,a] G0[r,b] terms per lower entry
+  const T* e_coef;
+  const T* GbT;   // (n - 1, pny): G0's y_hi rows without the slack column
+  const T* scol;  // (mc): G0's slack column
   // per lane, batch-major (B, rows)
   const T *q, *hbu, *su, *hbyh, *rmyh, *hbyl, *rmyl, *rmask, *cmask,
       *cmask2, *lpd, *sfy, *sfu, *Hp;
@@ -127,363 +70,526 @@ struct BandArgs {
   T* Y;        // (nit, ny, B)
   T* U;        // (nit, nu, B)
   T* E;        // (nit, B): each step's frozen slack ehat
-  BandShape s;
-  int B, nit, lp_iters, s2_iters, cluster;  // cluster: blocks a candidate
+  T* work;     // (B, kBandVecs * mc) when the vectors leave shared memory
+  int B, nit, lp_iters, s2_iters, ny, nu, nxa, nxp, pny, n, mc, nmv;
   T eps_c, ridge, w_cap, m_rel, m_abs;
 };
 
-// One block's view of its candidate: shared-memory arrays, the active
-// sizes and this block's K-rows.
-template <typename T>
-struct Band {
-  const BandArgs<T>& a;
-  int n, ld, ldn, ncol, nt, ntri, kb, kbc, C, slot;
-  T nact;
-  T *L, *H, *dinv, *z, *bz, *dz, *zc, *rd, *fq, *fl, *zw, *lpd, *cm, *cm2, *gl, *gt,
-      *ri, *xpl, *xpl2, *xhp, *xhat, *ys, *up, *uo, *red, *xsc, *slots, *tile,
-      *rs, *buf;
-  int *flag, *grow;
-  const T* f;  // the QP's linear term: fq (stage 2) or fl (the LP)
-
-  __device__ Band(const BandArgs<T>& args) : a(args) {}
-
-  // row-state array v (RS_*) of K-row k; the lo row of a pair at v + 1
-  __device__ __forceinline__ T& at(int v, int k) const {
-    return rs[(size_t)v * kbc + k];
-  }
-  // the block barrier, and the cluster barrier (the block's when C = 1)
-  __device__ __forceinline__ void sync_cluster() const {
-    if (C > 1)
-      cg::this_cluster().sync();
-    else
-      __syncthreads();
-  }
-  // the sum over the cluster's blocks, in rank order, of the value at p in
-  // each block's shared memory
-  // (the C loads are issued together, then combined in rank order)
-  __device__ __forceinline__ void xload(T* p, T (&v)[kBandMaxCluster]) const {
-    cg::cluster_group cl = cg::this_cluster();
-#pragma unroll
-    for (int r = 0; r < kBandMaxCluster; ++r)
-      if (r < C) v[r] = *cl.map_shared_rank(p, r);
-  }
-  __device__ __forceinline__ T xsum(T* p) const {
-    if (C == 1) return *p;
-    T v[kBandMaxCluster];
-    xload(p, v);
-    T s = T(0);
-#pragma unroll
-    for (int r = 0; r < kBandMaxCluster; ++r)
-      if (r < C) s += v[r];
-    return s;
-  }
-  __device__ __forceinline__ T xmin(T* p) const {
-    T v[kBandMaxCluster];
-    xload(p, v);
-    T s = v[0];
-#pragma unroll
-    for (int r = 1; r < kBandMaxCluster; ++r)
-      if (r < C) s = nmin(s, v[r]);
-    return s;
-  }
-  __device__ __forceinline__ T xmax(T* p) const {
-    T v[kBandMaxCluster];
-    xload(p, v);
-    T s = v[0];
-#pragma unroll
-    for (int r = 1; r < kBandMaxCluster; ++r)
-      if (r < C) s = nmax(s, v[r]);
-    return s;
+// Offsets (in elements of T) into the block's dynamic shared memory.
+struct BandLayout {
+  size_t z, bz, dz, rd, rhs, f, fl, zw, lpd, cm, cm2, L, H, part, xpl, xpl2,
+      xhp, xhat, ys, up, uo, red, vec, tile, wb, trows, total;
+  bool vec_smem;
+  __host__ __device__ BandLayout(int n, int nxa, int nxp, int ny, int nu,
+                                 int mc, size_t tsize) {
+    size_t o = 0;
+    z = o; o += n;
+    bz = o; o += n;
+    dz = o; o += n;
+    rd = o; o += n;
+    rhs = o; o += n;
+    f = o; o += n;
+    fl = o; o += n;
+    zw = o; o += n;
+    lpd = o; o += n;
+    cm = o; o += n;
+    cm2 = o; o += n;
+    L = o; o += (size_t)n * n;
+    H = o; o += (size_t)n * n;
+    part = o;
+    o += (size_t)(n * (n + 1) / 2 > kBandThreads ? n * (n + 1) / 2 : kBandThreads);
+    xpl = o; o += nxp;
+    xpl2 = o; o += nxp;
+    xhp = o; o += nxa;
+    xhat = o; o += nxa;
+    ys = o; o += ny;
+    up = o; o += nu;
+    uo = o; o += nu;
+    red = o; o += 3 * kBandWarps;
+    // the mc-vectors first, if they fit beside the least tile; then the
+    // Theta tile takes what is left, up to kBandMaxRows band rows
+    const size_t cap = kSmemLimit / tsize, row_el = (size_t)n + 3;
+    const size_t vec_el = (size_t)kBandVecs * mc;
+    vec_smem = o + vec_el + kBandChunk * row_el <= cap;
+    vec = o;
+    if (vec_smem) o += vec_el;
+    size_t rows = (cap - o) / row_el;
+    rows = rows < (size_t)kBandMaxRows ? rows : (size_t)kBandMaxRows;
+    trows = rows - rows % kBandChunk;
+    tile = o; o += trows * n;
+    wb = o; o += 3 * trows;
+    total = o;
   }
 };
 
-// x[r] for a runtime r < R, picked among registers (indexing x by r would
-// put x in local memory).
-template <typename T, int R>
-__device__ __forceinline__ T pick(const T (&x)[R], int r) {
-  T v = x[0];
-#pragma unroll
-  for (int i = 1; i < R; ++i)
-    if (r == i) v = x[i];
+struct SumOp {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const { return a + b; }
+};
+struct MinOp {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const { return nmin(a, b); }
+};
+struct MaxOp {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const { return nmax(a, b); }
+};
+
+// Butterfly reduction: every lane ends with the same value (the pairings
+// are commutative, so sums agree to the bit across lanes).
+template <typename T, typename Op>
+__device__ __forceinline__ T warp_reduce(T v, Op op) {
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
-// The inverses of the factor's 8 x 8 diagonal blocks (kSolveBlock), lower
-// triangles (zero above, and past row n - 1), from the pivots' reciprocals
-// rinv: lane jobs (block, column), each a substitution of at most 8 rows.
-// dinv[64 b + 8 i + m] = (D_b^-1)[i][m].  By one warp.
+// Block-wide reduction in a fixed order; every thread gets the result.
+template <typename T, typename Op>
+__device__ T block_reduce(T v, T* red, Op op) {
+  v = warp_reduce(v, op);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T r = red[0];
+  for (int i = 1; i < kBandWarps; ++i) r = op(r, red[i]);
+  __syncthreads();
+  return r;
+}
+
 template <typename T>
-__device__ void diag_block_inverses(const T* L, const T* rinv, int ld, int n,
-                                    T* dinv, int ln) {
-  for (int job = ln; job < 8 * ((n + 7) / 8); job += 32) {
-    const int b = job >> 3, m = job & 7, r0 = 8 * b;
-    T y[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = r0 + i;
-      T v = T(0);
-      if (row < n && i == m) {
-        v = rinv[row];
-      } else if (row < n && i > m) {
-        T acc = T(0);
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          if (k >= m && k < i) acc += L[row * ld + r0 + k] * y[k];
-        v = -acc * rinv[row];
-      }
-      y[i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dinv[64 * b + 8 * i + m] = y[i];
-  }
-}
-
-// x = (L L')^-1 x by blocks of 8 rows: per block, its 8 values by 8
-// independent shuffles, times the block's inverse (diag_block_inverses),
-// then one update of the later (forward) or earlier (back) rows: ~n / 8
-// dependent steps in place of n.  x[r] holds row ln + 32 r on its lane
-// (zero past row n - 1).  By one warp.
-template <typename T, int R>
-__device__ void warp_solve_blocked(const T* L, const T* dinv, int ld, int n,
-                                   T (&x)[R], int ln) {
-  const int nb = (n + 7) / 8;
-  for (int b = 0; b < nb; ++b) {
-    const int r0 = 8 * b;
-    const T xs = pick(x, r0 >> 5);
-    const T* D = dinv + 64 * b;
-    T v[8], y[8];
-#pragma unroll
-    for (int m = 0; m < 8; ++m)
-      v[m] = __shfl_sync(kWarpMask, xs, (r0 + m) & 31);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      T acc = T(0);
-#pragma unroll
-      for (int m = 0; m <= i; ++m) acc += D[8 * i + m] * v[m];
-      y[i] = acc;
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = ln + 32 * r;
-      if (row < n && row >= r0 + 8) {
-        T acc = x[r];
-#pragma unroll
-        for (int m = 0; m < 8; ++m)
-          if (r0 + m < n) acc -= L[row * ld + r0 + m] * y[m];
-        x[r] = acc;
-      } else if (row < n && row >= r0) {
-        x[r] = pick(y, row - r0);
-      }
-    }
-  }
-  for (int b = nb - 1; b >= 0; --b) {
-    const int r0 = 8 * b;
-    const T xs = pick(x, r0 >> 5);
-    const T* D = dinv + 64 * b;
-    T v[8], y[8];
-#pragma unroll
-    for (int m = 0; m < 8; ++m)
-      v[m] = __shfl_sync(kWarpMask, xs, (r0 + m) & 31);
-#pragma unroll
-    for (int m = 0; m < 8; ++m) {
-      T acc = T(0);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (i >= m) acc += D[8 * i + m] * v[i];
-      y[m] = acc;
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = ln + 32 * r;
-      if (row < r0) {
-        T acc = x[r];
-#pragma unroll
-        for (int m = 0; m < 8; ++m)
-          if (r0 + m < n) acc -= L[(r0 + m) * ld + row] * y[m];
-        x[r] = acc;
-      } else if (row < n && row < r0 + 8) {
-        x[r] = pick(y, row - r0);
-      }
-    }
-  }
-}
-
-// Hessian entry (i, j) from its packed lower triangle.
-template <typename T>
-__device__ __forceinline__ T hess(const T* H, int i, int j) {
-  return i >= j ? H[i * (i + 1) / 2 + j] : H[j * (j + 1) / 2 + i];
-}
-
-// G0 row of K-row k (its hi row for a pair) times x (x = colm * the
-// variables, from xc): the du part over the tile, without the slack term.
-template <typename T>
-__device__ __forceinline__ T row_dot(const Band<T>& c, int k, const T* xc) {
-  const T* t = c.tile + (size_t)k * c.ld;
-  T d = T(0);
-#pragma unroll 4
-  for (int i = 0; i < c.ncol; ++i) d += t[i] * xc[i];
-  return d;
-}
-
-// G x on K-row k: the hi row rm_h (d + scv_h xs), the lo row rm_l (-d +
-// scv_l xs); rm_h = 1 and rm_l = 1 for a pair, 0 for a single row.
-template <typename T>
-__device__ __forceinline__ void row_g(const Band<T>& c, int k, const T* xc,
-                                      T& gh, T& gl) {
-  const T d = row_dot(c, k, xc), xs = xc[c.n - 1];
-  const T rml = c.grow[k] >= 0 ? T(1) : T(0);
-  gh = d + c.at(RS_SCV, k) * xs;
-  gl = rml * (-d + c.at(RS_SCV + 1, k) * xs);
-}
-
-// Warp sums of NS values, lane 0 stores them at red[warp * 8 + idx[j]].
-template <typename T, int NS>
-__device__ __forceinline__ void warp_scalars(const Band<T>& c, T (&v)[NS],
-                                             const int (&idx)[NS]) {
-#pragma unroll
-  for (int j = 0; j < NS; ++j) v[j] = warp_sum(v[j]);
+__device__ void block_sum3(T& a, T& b, T& c, T* red) {
+  a = warp_reduce(a, SumOp());
+  b = warp_reduce(b, SumOp());
+  c = warp_reduce(c, SumOp());
   if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int j = 0; j < NS; ++j) c.red[(threadIdx.x >> 5) * 8 + idx[j]] = v[j];
+    const int w = threadIdx.x >> 5;
+    red[w] = a;
+    red[kBandWarps + w] = b;
+    red[2 * kBandWarps + w] = c;
   }
-}
-
-// After a block barrier: xsc[idx] = the warps' sums in warp order.
-template <typename T, int NS>
-__device__ __forceinline__ void block_scalars(const Band<T>& c,
-                                              const int (&idx)[NS]) {
-  if (threadIdx.x < NS) {
-    const int j = idx[threadIdx.x];
-    T v = c.red[j];
-    for (int w = 1; w < kBandWarps; ++w) v += c.red[w * 8 + j];
-    c.xsc[j] = v;
+  __syncthreads();
+  a = red[0];
+  b = red[kBandWarps];
+  c = red[2 * kBandWarps];
+  for (int i = 1; i < kBandWarps; ++i) {
+    a += red[i];
+    b += red[kBandWarps + i];
+    c += red[2 * kBandWarps + i];
   }
+  __syncthreads();
 }
 
-// The sum over the warp's 32 lanes of each of the 16 values v, in a fixed
-// tree (a transpose reduction: 16 shuffles in place of 16 x 5): the sum of
-// v[q] lands on the lanes 2 q' + {0, 1} with q' the lane's bits 4..1
-// read as q (returned in q).
+// One block's view: arguments, shared vectors, the active band-pair count
+// prow and active du-column count ncol.
 template <typename T>
-__device__ __forceinline__ T warp_sum16(const T (&v)[16], int ln, int& q) {
-  T a[8], b[4], d[2];
-  const bool s16 = ln & 16, s8 = ln & 8, s4 = ln & 4, s2 = ln & 2;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    a[i] = (s16 ? v[i + 8] : v[i]) +
-           __shfl_xor_sync(kWarpMask, s16 ? v[i] : v[i + 8], 16);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    b[i] = (s8 ? a[i + 4] : a[i]) +
-           __shfl_xor_sync(kWarpMask, s8 ? a[i] : a[i + 4], 8);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    d[i] = (s4 ? b[i + 2] : b[i]) +
-           __shfl_xor_sync(kWarpMask, s4 ? b[i] : b[i + 2], 4);
-  T e = (s2 ? d[1] : d[0]) + __shfl_xor_sync(kWarpMask, s2 ? d[0] : d[1], 2);
-  e += __shfl_xor_sync(kWarpMask, e, 1);
-  q = (s16 ? 8 : 0) + (s8 ? 4 : 0) + (s4 ? 2 : 0) + (s2 ? 1 : 0);
-  return e;
-}
+struct Band {
+  const BandArgs<T>& a;
+  int n, nmv, pny, prow, ncol, ntail, nrows, trows;
+  bool resident;  // the whole active Theta block lives in the tile
+  T *z, *bz, *dz, *rd, *rhs, *f, *fq, *fl, *zw, *lpd, *cm, *cm2, *L, *H,
+      *part, *tile, *wsum, *ws, *wss, *red;
+  T *h, *lam, *s, *blam, *rp, *w, *ds, *dl, *t, *lamw, *rm, *scv;  // mc
+  T nact;
 
-// acc[i][j] += the 4 x 4 tile tl's terms of K-rows k0, k0 + dk, ... < k1:
-// W tiles (tl < ntri) sum_k wsum_k a_k[4 ta + i] a_k[4 tb + j]; E tiles
-// (after the ntri W tiles) sum_k a_k[4 ta + i] ext_k[j] (ext = w s, y_lam,
-// t, 0).
+  __device__ Band(const BandArgs<T>& args) : a(args) {}
+
+  // G0[y_hi row p, column i], from the tile when it holds every band row
+  __device__ __forceinline__ T gb(int i, int p) const {
+    return resident ? tile[p * n + i] : a.GbT[(size_t)i * pny + p];
+  }
+
+  // active row j -> row index: move/input rows, active y_hi, active y_lo,
+  // then the slack row(s)
+  __device__ __forceinline__ int row(int j) const {
+    if (j < nmv + prow) return j;
+    if (j < nmv + 2 * prow) return j - prow + pny;
+    return j - 2 * prow + 2 * pny;
+  }
+};
+
+// out = rmask * (G0 (colmask * x)) on the active rows.
 template <typename T>
-__device__ __forceinline__ void tile_terms(const Band<T>& c, int tl, int k0,
-                                           int k1, int dk, T (&acc)[4][4]) {
-  if (tl < c.ntri) {
-    int ta = 0;
-    while ((ta + 1) * (ta + 2) / 2 <= tl) ++ta;
-    const int tb = tl - ta * (ta + 1) / 2;
-    const T* pa = c.tile + 4 * ta;
-    const T* pb = c.tile + 4 * tb;
-    const T* ws = &c.at(RS_WSUM, 0);
-#pragma unroll 2
-    for (int k = k0; k < k1; k += dk) {
-      const size_t o = (size_t)k * c.ld;
-      const T w = ws[k];
-      T x[4], y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        x[i] = pa[o + i];
-        y[i] = pb[o + i] * w;
+__device__ void gmat(const Band<T>& c, const T* x, const T* colm, T* out) {
+  const BandArgs<T>& a = c.a;
+  const T xs = colm[c.n - 1] * x[c.n - 1];
+  for (int j = threadIdx.x; j < c.nmv + c.prow + c.ntail; j += kBandThreads) {
+    if (j >= c.nmv && j < c.nmv + c.prow) {
+      const int p = j - c.nmv;
+      T d = T(0);
+#pragma unroll 8
+      for (int i = 0; i < c.ncol; ++i) d += c.gb(i, p) * (colm[i] * x[i]);
+      const int rh = c.nmv + p, rl = rh + c.pny;
+      out[rh] = c.rm[rh] * (d + c.scv[rh] * xs);
+      out[rl] = c.rm[rl] * (-d + c.scv[rl] * xs);
+    } else {
+      const int r = j < c.nmv ? j : j - c.prow + 2 * c.pny;
+      T acc = T(0);
+      for (int k = a.s_ptr[r]; k < a.s_ptr[r + 1]; ++k) {
+        const int i = a.s_col[k];
+        acc += a.s_val[k] * (colm[i] * x[i]);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += x[i] * y[j];
-    }
-  } else {
-    const T* pa = c.tile + 4 * (tl - c.ntri);
-    const T* pe = &c.at(RS_EXT, 0);
-#pragma unroll 2
-    for (int k = k0; k < k1; k += dk) {
-      const size_t o = (size_t)k * c.ld;
-      T x[4], y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        x[i] = pa[o + i];
-        y[i] = pe[(size_t)i * c.kbc + k];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += x[i] * y[j];
+      out[r] = c.rm[r] * acc;
     }
   }
 }
 
-// The register-blocked cross-row product over this block's K-rows, tiles
-// [t0, t1) (tile_terms).  A tile's lanes take every 32nd K-row (so the 32
-// lanes read 32 tile rows, at the odd stride apart: no bank conflict) and
-// their sums meet by warp_sum16; with at most kBandWarps tiles, wpt warps
-// share a tile (every 32 wpt-th K-row) and their sums meet in order, else
-// the warps take the tiles in turn.  Warp g of a tile stores its 16 sums
-// of tile t at buf[g 16 T + 16 (t - t0) + 4 i + j]; then buf[16 (t - t0) +
-// 4 i + j] holds the block's sum.  Ends before a barrier.
+// out = colmask * (G0' y) for y already multiplied by rmask; one warp per
+// column.
 template <typename T>
-__device__ void cross_rows(const Band<T>& c, int t0, int t1) {
-  const int nT = t1 - t0, nout = 16 * nT;
-  const int ln = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wpt = nT <= kBandWarps ? kBandWarps / nT : 1, L = 32 * wpt;
-  for (int job = warp; job < nT * wpt; job += kBandWarps) {
-    const int tl = t0 + job / wpt, g = job % wpt;
-    T acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
-    tile_terms(c, tl, 32 * g + ln, c.kb, L, acc);
-    T v[16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[4 * i + j] = acc[i][j];
-    int q;
-    const T sum = warp_sum16(v, ln, q);
-    if ((ln & 1) == 0) c.buf[(size_t)g * nout + 16 * (tl - t0) + q] = sum;
+__device__ void gtmat(const Band<T>& c, const T* y, const T* colm, T* out) {
+  const BandArgs<T>& a = c.a;
+  const int ln = threadIdx.x & 31;
+  for (int i = threadIdx.x >> 5; i < c.n; i += kBandWarps) {
+    const bool slack = i == c.n - 1;
+    T acc = T(0);
+    if (slack || i < c.ncol) {
+      if (slack) {
+        for (int p = ln; p < c.prow; p += 32) {
+          const int rh = c.nmv + p, rl = rh + c.pny;
+          acc += c.scv[rh] * y[rh] + c.scv[rl] * y[rl];
+        }
+      } else {
+#pragma unroll 8
+        for (int p = ln; p < c.prow; p += 32)
+          acc += c.gb(i, p) * (y[c.nmv + p] - y[c.nmv + c.pny + p]);
+      }
+      for (int k = a.st_ptr[i] + ln; k < a.st_ptr[i + 1]; k += 32)
+        acc += a.st_val[k] * y[a.st_row[k]];
+      acc = warp_reduce(acc, SumOp());
+    }
+    if (ln == 0) out[i] = colm[i] * acc;
   }
-  if (wpt > 1) {
+}
+
+// Row and column of lower-triangle entry e (row-major order).
+__device__ __forceinline__ void tri_entry(int e, int& ia, int& ib) {
+  int r = (int)((sqrt(8.0 * e + 1.0) - 1.0) * 0.5);
+  while ((r + 1) * (r + 2) / 2 <= e) ++r;
+  while (r * (r + 1) / 2 > e) --r;
+  ia = r;
+  ib = e - r * (r + 1) / 2;
+}
+
+// Stage band rows [p0, p0 + np) of the active Theta columns in the tile.
+template <typename T>
+__device__ void load_tile(Band<T>& c, int p0, int np) {
+  for (int idx = threadIdx.x; idx < np * c.ncol; idx += kBandThreads) {
+    const int i = idx / np, pp = idx - i * np;
+    c.tile[pp * c.n + i] = c.a.GbT[(size_t)i * c.pny + p0 + pp];
+  }
+}
+
+// L (lower triangle) = Hbase + (G0' W G0) o (colm colm') + ridge I.  The
+// band part runs over the ta active entries (du-du and the slack row) and
+// the active band rows; with few entries the threads split the rows into
+// groups, and the groups' partial sums meet in `part`.
+template <typename T>
+__device__ void normal_matrix(Band<T>& c, bool diag_h, const T* colm) {
+  const BandArgs<T>& a = c.a;
+  const int n = c.n, nc = c.ncol;
+  const int tdd = nc * (nc + 1) / 2, ta = tdd + nc + 1;
+  const int G = max(1, kBandThreads / ta);
+  const int g = G > 1 ? threadIdx.x / ta : 0;
+  T acc[kBandEntries];
+  int ea[kBandEntries], eb[kBandEntries], ee[kBandEntries];
+  int ne = 0;
+#pragma unroll
+  for (int k = 0; k < kBandEntries; ++k) {
+    acc[k] = T(0);
+    ea[k] = eb[k] = ee[k] = 0;
+    const int e = G > 1 ? (k == 0 && g < G ? threadIdx.x - g * ta : ta)
+                        : threadIdx.x + k * kBandThreads;
+    if (e < ta) {
+      if (e < tdd) {
+        tri_entry(e, ea[k], eb[k]);
+      } else {
+        ea[k] = n - 1;
+        eb[k] = e - tdd == nc ? n - 1 : e - tdd;
+      }
+      ee[k] = e;
+      ne = k + 1;
+    }
+  }
+  for (int p0 = 0; p0 < c.prow; p0 += c.trows) {
+    const int np = min(c.trows, c.prow - p0);
+    if (!c.resident) load_tile(c, p0, np);
+    for (int pp = threadIdx.x; pp < np; pp += kBandThreads) {
+      const int rh = c.nmv + p0 + pp, rl = rh + c.pny;
+      const T wh = c.w[rh], wl = c.w[rl], sh = c.scv[rh], sl = c.scv[rl];
+      c.wsum[pp] = wh + wl;
+      c.ws[pp] = wh * sh - wl * sl;
+      c.wss[pp] = wh * sh * sh + wl * sl * sl;
+    }
     __syncthreads();
-    for (int o = threadIdx.x; o < nout; o += kBandThreads) {
-      T v = c.buf[o];
-      for (int g = 1; g < wpt; ++g) v += c.buf[(size_t)g * nout + o];
-      c.buf[o] = v;
+    for (int pp = g; pp < np; pp += G) {
+      const T* tr = c.tile + pp * n;
+      const T w1 = c.wsum[pp], w2 = c.ws[pp], w3 = c.wss[pp];
+#pragma unroll
+      for (int k = 0; k < kBandEntries; ++k) {
+        if (k < ne) {
+          const int ia = ea[k], ib = eb[k];
+          acc[k] += ia < nc ? tr[ia] * tr[ib] * w1
+                            : (ib < nc ? tr[ib] * w2 : w3);
+        }
+      }
     }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < kBandEntries; ++k)
+    if (k < ne) c.part[g * ta + ee[k]] = acc[k];
+  __syncthreads();
+  for (int e = threadIdx.x; e < n * (n + 1) / 2; e += kBandThreads) {
+    int ia, ib;
+    tri_entry(e, ia, ib);
+    const int ae = ia < nc ? ia * (ia + 1) / 2 + ib
+                 : ia != n - 1 ? -1
+                 : ib < nc ? tdd + ib
+                 : ib == n - 1 ? tdd + nc : -1;
+    T v = T(0);
+    if (ae >= 0)
+      for (int gg = 0; gg < G; ++gg) v += c.part[gg * ta + ae];
+    for (int qq = a.e_ptr[e]; qq < a.e_ptr[e + 1]; ++qq)
+      v += c.w[a.e_row[qq]] * a.e_coef[qq];
+    const T hv = diag_h ? (ia == ib ? c.lpd[ia] : T(0)) : c.H[ia * n + ib];
+    T m = hv + v * (colm[ia] * colm[ib]);
+    if (ia == ib) m += a.ridge;
+    c.L[ia * n + ib] = m;
+  }
+  __syncthreads();
+}
+
+// In-place lower Cholesky of L by warp 0; a non-positive pivot gives NaN
+// (torch.linalg.cholesky_ex reports it and the plain factor returns NaN).
+template <typename T>
+__device__ void factor(Band<T>& c) {
+  if (threadIdx.x >= 32) return;
+  const int ln = threadIdx.x, n = c.n;
+  T* L = c.L;
+  for (int j = 0; j < n; ++j) {
+    T part = T(0);
+    for (int k = ln; k < j; k += 32) part += L[j * n + k] * L[j * n + k];
+    const T d = L[j * n + j] - warp_reduce(part, SumOp());
+    const T ljj = d > T(0) ? sqrt(d) : inf_value<T>() - inf_value<T>();
+    for (int i = j + 1 + ln; i < n; i += 32) {
+      T v = L[i * n + j];
+      for (int k = 0; k < j; ++k) v -= L[i * n + k] * L[j * n + k];
+      L[i * n + j] = v / ljj;
+    }
+    __syncwarp();
+    if (ln == 0) L[j * n + j] = ljj;
+    __syncwarp();
   }
 }
 
-// Reduction buffers' entry of E tile column j for variable i (tiles
-// counted from t0).
+// dz = (L L')^{-1} rhs by warp 0 (column-oriented substitutions).
 template <typename T>
-__device__ __forceinline__ T* ext_out(const Band<T>& c, int t0, int i, int j) {
-  return c.buf + 16 * (c.ntri + i / 4 - t0) + 4 * (i % 4) + j;
+__device__ void solve(Band<T>& c) {
+  if (threadIdx.x >= 32) return;
+  const int ln = threadIdx.x, n = c.n;
+  const T* L = c.L;
+  T* x = c.dz;
+  for (int i = ln; i < n; i += 32) x[i] = c.rhs[i];
+  __syncwarp();
+  for (int j = 0; j < n; ++j) {
+    const T xj = x[j] / L[j * n + j];
+    __syncwarp();
+    for (int i = j + 1 + ln; i < n; i += 32) x[i] -= L[i * n + j] * xj;
+    if (ln == 0) x[j] = xj;
+    __syncwarp();
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    const T xj = x[j] / L[j * n + j];
+    __syncwarp();
+    for (int i = ln; i < j; i += 32) x[i] -= L[j * n + i] * xj;
+    if (ln == 0) x[j] = xj;
+    __syncwarp();
+  }
 }
 
-// One warp's rows of M x for a row-major table M (rows, cols); lane 0 hands
-// (row, value) to put.
+// r_d = H z + f + G' lam, r_p = G z + s - h; returns the merit
+// ||r_d|| + ||r_p|| + lam's and sets gap = lam's.  With `newton` also the
+// weights w = min(lam / s, w_cap) rmask and the predictor's
+// t = rmask (lam - w r_p).
+template <typename T>
+__device__ T residuals(Band<T>& c, bool diag_h, const T* colm, T& gap,
+                       bool newton) {
+  for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+    const int r = c.row(j);
+    c.t[r] = c.rm[r] * c.lam[r];
+  }
+  __syncthreads();
+  gmat(c, c.z, colm, c.rp);
+  gtmat(c, c.t, colm, c.rhs);
+  __syncthreads();
+  T nd = T(0), np = T(0), g = T(0);
+  for (int i = threadIdx.x; i < c.n; i += kBandThreads) {
+    T hz;
+    if (diag_h) {
+      hz = c.lpd[i] * c.z[i];
+    } else {
+      hz = T(0);
+      for (int j = 0; j < c.n; ++j) hz += c.H[i * c.n + j] * c.z[j];
+    }
+    const T rd = hz + c.f[i] + c.rhs[i];
+    c.rd[i] = rd;
+    nd += rd * rd;
+  }
+  for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+    const int r = c.row(j);
+    const T rp = c.rp[r] + c.s[r] - c.h[r];
+    c.rp[r] = rp;
+    np += rp * rp;
+    g += c.lam[r] * c.s[r];
+    if (newton) {
+      const T wr = nmin(c.lam[r] / c.s[r], c.a.w_cap) * c.rm[r];
+      c.w[r] = wr;
+      c.t[r] = c.rm[r] * (c.lam[r] - wr * rp);
+    }
+  }
+  block_sum3(nd, np, g, c.red);
+  gap = g;
+  return sqrt(nd) + sqrt(np) + g;
+}
+
+// min(1, 0.995 * the smallest fraction-to-the-boundary ratio of (s, ds) and
+// (lam, dl)); NaN propagates.
+template <typename T>
+__device__ T step_length(Band<T>& c) {
+  const T inf = inf_value<T>();
+  T mn = inf;
+  for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+    const int r = c.row(j);
+    const T rs = c.ds[r] < T(0) ? -c.s[r] / c.ds[r] : inf;
+    const T rl = c.dl[r] < T(0) ? -c.lam[r] / c.dl[r] : inf;
+    mn = nmin(mn, nmin(rs, rl));
+  }
+  mn = block_reduce(mn, c.red, MinOp());
+  return nmin(T(1), T(0.995) * mn);
+}
+
+// rhs = -r_d + G' t, then dz by the factor; then ds = -(r_p + G dz).
+template <typename T>
+__device__ void newton_dir(Band<T>& c, const T* colm) {
+  gtmat(c, c.t, colm, c.rhs);
+  __syncthreads();
+  for (int i = threadIdx.x; i < c.n; i += kBandThreads)
+    c.rhs[i] = -c.rd[i] + c.rhs[i];
+  __syncthreads();
+  solve(c);
+  __syncthreads();
+  gmat(c, c.dz, colm, c.ds);
+  __syncthreads();
+}
+
+// Warm-started masked Mehrotra PDIP (the _pdip_fused_kernel body): z and
+// lam hold the start on entry and the best iterate by merit on exit; s is
+// recomputed from this h.  diag_h: the quadratic term is diag(lpd), else H.
+template <typename T>
+__device__ void pdip(Band<T>& c, bool diag_h, const T* colm, int iters) {
+  const BandArgs<T>& a = c.a;
+  gmat(c, c.z, colm, c.ds);
+  __syncthreads();
+  for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+    const int r = c.row(j);
+    const T l = nmax(c.lam[r], a.eps_c) * c.rm[r];
+    c.lam[r] = l;
+    c.blam[r] = l;
+    c.s[r] = nmax(c.h[r] - c.ds[r], a.eps_c);
+  }
+  for (int i = threadIdx.x; i < c.n; i += kBandThreads) c.bz[i] = c.z[i];
+  __syncthreads();
+  T bm = inf_value<T>();
+  for (int it = 0; it < iters; ++it) {
+    T gap;
+    const T mnew = residuals(c, diag_h, colm, gap, true);
+    const T mu = gap / c.nact;
+    if (mnew < bm) {  // block-uniform; NaN never wins
+      for (int i = threadIdx.x; i < c.n; i += kBandThreads) c.bz[i] = c.z[i];
+      for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+        const int r = c.row(j);
+        c.blam[r] = c.lam[r];
+      }
+      bm = mnew;
+    }
+    normal_matrix(c, diag_h, colm);
+    factor(c);
+    __syncthreads();
+
+    // predictor
+    newton_dir(c, colm);
+    for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+      const int r = c.row(j);
+      const T dsa = -(c.rp[r] + c.ds[r]);
+      c.ds[r] = dsa;
+      c.dl[r] = -(c.lam[r] * c.s[r] + c.lam[r] * dsa) / c.s[r] * c.rm[r];
+    }
+    __syncthreads();
+    const T a_aff = step_length(c);
+    T mu_aff = T(0);
+    for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+      const int r = c.row(j);
+      mu_aff += (c.lam[r] + a_aff * c.dl[r]) * (c.s[r] + a_aff * c.ds[r]);
+    }
+    mu_aff = block_reduce(mu_aff, c.red, SumOp()) / c.nact;
+    const T sig_r = mu_aff / (mu + T(1e-30));
+    const T sigma = sig_r * sig_r * sig_r;
+
+    // corrector; r_cent overwrites dl
+    for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+      const int r = c.row(j);
+      const T rc = (c.lam[r] * c.s[r] - sigma * mu + c.dl[r] * c.ds[r]) * c.rm[r];
+      c.dl[r] = rc;
+      c.t[r] = c.rm[r] * (rc / c.s[r] - c.w[r] * c.rp[r]);
+    }
+    __syncthreads();
+    newton_dir(c, colm);
+    for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+      const int r = c.row(j);
+      const T dsr = -(c.rp[r] + c.ds[r]);
+      c.ds[r] = dsr;
+      c.dl[r] = -(c.dl[r] + c.lam[r] * dsr) / c.s[r] * c.rm[r];
+    }
+    __syncthreads();
+    const T step = step_length(c);
+    for (int i = threadIdx.x; i < c.n; i += kBandThreads)
+      c.z[i] = c.z[i] + step * c.dz[i];
+    for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+      const int r = c.row(j);
+      c.lam[r] = c.lam[r] + step * c.dl[r];
+      c.s[r] = c.s[r] + step * c.ds[r];
+    }
+    __syncthreads();
+  }
+  T gap;
+  const T mlast = residuals(c, diag_h, colm, gap, false);
+  if (!(mlast < bm)) {  // keep the best iterate
+    for (int i = threadIdx.x; i < c.n; i += kBandThreads) c.z[i] = c.bz[i];
+    for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+      const int r = c.row(j);
+      c.lam[r] = c.blam[r];
+    }
+  }
+  __syncthreads();
+}
+
+// Largest soft-row violation of z per unit of slack coefficient (the
+// shared core of the slack seeding and the stage-2 slack freeze).
+template <typename T>
+__device__ T slack_violation(Band<T>& c) {
+  gmat(c, c.z, c.cm, c.ds);
+  __syncthreads();
+  T mx = T(0);
+  for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+    const int r = c.row(j);
+    const T viol = nmax(c.ds[r] - c.h[r], T(0));
+    const T V = nmax(-c.scv[r], T(0));
+    mx = nmax(mx, V > T(1e-12) ? viol / nmax(V, T(1e-12)) : T(0));
+  }
+  return block_reduce(mx, c.red, MaxOp());
+}
+
+// y = M x for a row-major (rows, cols) table, one warp per row; lane 0
+// hands (row, value) to put.
 template <typename T, typename Put>
 __device__ void warp_rows(const T* M, int rows, int cols, const T* x,
                           Put put) {
@@ -491,517 +597,45 @@ __device__ void warp_rows(const T* M, int rows, int cols, const T* x,
   for (int i = threadIdx.x >> 5; i < rows; i += kBandWarps) {
     T acc = T(0);
     for (int j = ln; j < cols; j += 32) acc += M[(size_t)i * cols + j] * x[j];
-    acc = warp_sum(acc);
+    acc = warp_reduce(acc, SumOp());
     if (ln == 0) put(i, acc);
   }
 }
 
-// M x for a table M (rows, cols) given transposed, MT (cols, rows): a
-// thread a row (neighbouring threads on neighbouring addresses), each dot
-// in ascending column order; put(row, value).
-template <typename T, typename Put>
-__device__ void thread_rows(const T* MT, int rows, int cols, const T* x,
-                            Put put) {
-  for (int i = threadIdx.x; i < rows; i += kBandThreads) {
-    T acc = T(0);
-#pragma unroll 4
-    for (int j = 0; j < cols; ++j) acc += MT[(size_t)j * rows + i] * x[j];
-    put(i, acc);
-  }
-}
-
-// The cluster's largest soft-row violation of z per unit of slack
-// coefficient (the slack seeding's and the slack freeze's core); ends
-// after a cluster barrier.
 template <typename T>
-__device__ T slack_violation(Band<T>& c, const T* cmz) {
-  for (int i = threadIdx.x; i < c.n; i += kBandThreads) c.zc[i] = cmz[i] * c.z[i];
-  __syncthreads();
-  T mx = T(0);
-  for (int k = threadIdx.x; k < c.kb; k += kBandThreads) {
-    T gh, gl;
-    row_g(c, k, c.zc, gh, gl);
-    const T vh = nmax(gh - c.at(RS_H, k), T(0));
-    const T vl = nmax(gl - c.at(RS_H + 1, k), T(0));
-    const T Vh = nmax(-c.at(RS_SCV, k), T(0));
-    const T Vl = nmax(-c.at(RS_SCV + 1, k), T(0));
-    mx = nmax(mx, Vh > T(1e-12) ? vh / nmax(Vh, T(1e-12)) : T(0));
-    mx = nmax(mx, Vl > T(1e-12) ? vl / nmax(Vl, T(1e-12)) : T(0));
-  }
-  for (int o = 16; o > 0; o >>= 1)
-    mx = nmax(mx, __shfl_xor_sync(kWarpMask, mx, o));
-  if ((threadIdx.x & 31) == 0) c.red[(threadIdx.x >> 5) * 8] = mx;
-  __syncthreads();
-  T* s = c.slots + 4 * c.slot;
-  c.slot ^= 1;
-  if (threadIdx.x == 0) {
-    T v = c.red[0];
-    for (int w = 1; w < kBandWarps; ++w) v = nmax(v, c.red[w * 8]);
-    s[0] = v;
-  }
-  c.sync_cluster();
-  return c.C == 1 ? s[0] : c.xmax(s);
-}
-
-// The least fraction-to-the-boundary ratio num / den (den > 0) over a
-// thread's rows, compared by cross-multiplication: one division at the end
-// in place of one per row.  A NaN numerator makes it NaN, as nmin over the
-// quotients would.
-template <typename T>
-struct MinRatio {
-  T num, den;
-  bool nan;
-  __device__ MinRatio() : num(inf_value<T>()), den(T(1)), nan(false) {}
-  // the candidate a / b of a row whose step -b < 0 would cross a = 0
-  __device__ __forceinline__ void add(T a, T b) {
-    nan = nan || a != a;
-    if (a * den < num * b) {
-      num = a;
-      den = b;
-    }
-  }
-  __device__ __forceinline__ T value() const {
-    return nan ? nan_value<T>() : num / den;
-  }
-};
-
-// min over the cluster of a per-thread fraction-to-the-boundary ratio and,
-// with S (aff), the sums S1, S2; ends after a cluster barrier.
-template <typename T, bool Aff>
-__device__ T cluster_step(Band<T>& c, T mn, T s1, T s2, T& S1, T& S2) {
-  for (int o = 16; o > 0; o >>= 1) {
-    mn = nmin(mn, __shfl_xor_sync(kWarpMask, mn, o));
-    if (Aff) {
-      s1 += __shfl_xor_sync(kWarpMask, s1, o);
-      s2 += __shfl_xor_sync(kWarpMask, s2, o);
-    }
-  }
-  const int w = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    c.red[w * 8] = mn;
-    c.red[w * 8 + 1] = s1;
-    c.red[w * 8 + 2] = s2;
-  }
-  __syncthreads();
-  T* s = c.slots + 4 * c.slot;
-  c.slot ^= 1;
-  if (threadIdx.x < (Aff ? 3 : 1)) {
-    const int j = threadIdx.x;
-    T v = c.red[j];
-    for (int ww = 1; ww < kBandWarps; ++ww)
-      v = j == 0 ? nmin(v, c.red[ww * 8]) : v + c.red[ww * 8 + j];
-    s[j] = v;
-  }
-  c.sync_cluster();
-  if (c.C == 1) {
-    S1 = s[1];
-    S2 = s[2];
-    return s[0];
-  }
-  // every block's three values in flight together, then combined in rank
-  // order
-  cg::cluster_group cl = cg::this_cluster();
-  T v[3][kBandMaxCluster];
-#pragma unroll
-  for (int r = 0; r < kBandMaxCluster; ++r)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      if (r < c.C && (Aff || j == 0)) v[j][r] = *cl.map_shared_rank(s + j, r);
-  T m = v[0][0];
-  S1 = S2 = T(0);
-#pragma unroll
-  for (int r = 0; r < kBandMaxCluster; ++r) {
-    if (r >= c.C) continue;
-    if (r > 0) m = nmin(m, v[0][r]);
-    if (Aff) {
-      S1 += v[1][r];
-      S2 += v[2][r];
-    }
-  }
-  return m;
-}
-
-// Warm-started masked Mehrotra PDIP (the plain pdip_lanes): z and the
-// K-rows' lam hold the start on entry and the best iterate by merit on
-// exit; s is recomputed from this h.  diag_h: the quadratic term is
-// diag(lpd), else H.  colm: the variable mask (cmask or cmask2).
-template <typename T, int R>
-__device__ void pdip(Band<T>& c, bool diag_h, const T* colm, int iters) {
-  const BandArgs<T>& a = c.a;
-  const int n = c.n, ln = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ncol = c.ncol;
-  const T w_cap = a.w_cap, eps_c = a.eps_c;
-  for (int i = threadIdx.x; i < n; i += kBandThreads) {
-    c.zc[i] = colm[i] * c.z[i];
-    c.bz[i] = c.z[i];
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < c.kb; k += kBandThreads) {
-    T gh, gl;
-    row_g(c, k, c.zc, gh, gl);
-    const T rml = c.grow[k] >= 0 ? T(1) : T(0);
-    const T lh = nmax(c.at(RS_LAM, k), eps_c);
-    const T ll = nmax(c.at(RS_LAM + 1, k), eps_c) * rml;
-    c.at(RS_LAM, k) = lh;
-    c.at(RS_LAM + 1, k) = ll;
-    c.at(RS_BLAM, k) = lh;
-    c.at(RS_BLAM + 1, k) = ll;
-    c.at(RS_S, k) = nmax(c.at(RS_H, k) - gh, eps_c);
-    c.at(RS_S + 1, k) = nmax(c.at(RS_H + 1, k) - gl, eps_c);
-  }
-  const int t_e = c.ntri, t_end = c.ntri + c.nt;
-  T bm = inf_value<T>();  // warp 0's
-  for (int it = 0; it <= iters; ++it) {
-    const bool last = it == iters;  // the final merit only
-    __syncthreads();
-    // rows: r_p = G z + s - h, w, the predictor's t, the reduction's
-    // inputs and the scalar sums
-    {
-      T v[5] = {T(0), T(0), T(0), T(0), T(0)};
-#pragma unroll 2
-      for (int k = threadIdx.x; k < c.kb; k += kBandThreads) {
-        T gh, gl;
-        row_g(c, k, c.zc, gh, gl);
-        const T rml = c.grow[k] >= 0 ? T(1) : T(0);
-        const T lh = c.at(RS_LAM, k), ll = c.at(RS_LAM + 1, k);
-        const T sh = c.at(RS_S, k), sl = c.at(RS_S + 1, k);
-        const T ch = c.at(RS_SCV, k), cl = c.at(RS_SCV + 1, k);
-        const T ph = gh + sh - c.at(RS_H, k);
-        const T pl = gl + sl - c.at(RS_H + 1, k);
-        c.at(RS_RP, k) = ph;
-        c.at(RS_RP + 1, k) = pl;
-        const T yl = ll * rml;
-        v[SC_RPSQ] += ph * ph + pl * pl;
-        v[SC_GAP] += lh * sh + ll * sl;
-        v[SC_SL] += ch * lh + cl * yl;
-        c.at(RS_EXT + 1, k) = lh - yl;
-        if (!last) {
-          const T wh = nmin(lh / sh, w_cap), wl = nmin(ll / sl, w_cap) * rml;
-          const T th = lh - wh * ph, tl = rml * (ll - wl * pl);
-          c.at(RS_WSUM, k) = wh + wl;
-          c.at(RS_EXT, k) = wh * ch - wl * cl;
-          c.at(RS_EXT + 2, k) = th - tl;
-          c.at(RS_EXT + 3, k) = T(0);
-          v[SC_WSS] += wh * ch * ch + wl * cl * cl;
-          v[SC_ST] += ch * th + cl * tl;
-        }
-      }
-      const int idx[5] = {SC_WSS, SC_SL, SC_ST, SC_RPSQ, SC_GAP};
-      warp_scalars(c, v, idx);
-      __syncthreads();
-      block_scalars(c, idx);
-      cross_rows(c, last ? t_e : 0, t_end);
-    }
-    c.sync_cluster();
-    const int t0 = last ? t_e : 0;
-    // the normal matrix M = Hbase + (G'WG) o (colm colm') + ridge I
-    if (!last) {
-      for (int e = threadIdx.x; e < n * (n + 1) / 2; e += kBandThreads) {
-        int ia = 0;
-        while ((ia + 1) * (ia + 2) / 2 <= e) ++ia;
-        const int ib = e - ia * (ia + 1) / 2;
-        T v = T(0);
-        if (ia < ncol) {
-          v = c.xsum(c.buf + 16 * ((ia / 4) * (ia / 4 + 1) / 2 + ib / 4) +
-                     4 * (ia % 4) + ib % 4);
-        } else if (ia == n - 1) {
-          if (ib < ncol)
-            v = c.xsum(ext_out(c, 0, ib, 0));
-          else if (ib == n - 1)
-            v = c.xsum(c.xsc + SC_WSS);
-        }
-        const T hv = diag_h ? (ia == ib ? c.lpd[ia] : T(0)) : hess(c.H, ia, ib);
-        T m = hv + v * (colm[ia] * colm[ib]);
-        if (ia == ib) m += a.ridge;
-        c.L[ia * c.ldn + ib] = m;
-      }
-    }
-    for (int i = threadIdx.x; i < n; i += kBandThreads) {
-      const bool du = i < ncol, sl = i == n - 1;
-      c.gl[i] = du ? c.xsum(ext_out(c, t0, i, 1))
-                   : sl ? c.xsum(c.xsc + SC_SL) : T(0);
-      if (!last)
-        c.gt[i] = du ? c.xsum(ext_out(c, t0, i, 2))
-                     : sl ? c.xsum(c.xsc + SC_ST) : T(0);
-    }
-    if (threadIdx.x == 0) {  // slots 6, 7: never read by another block
-      c.xsc[6] = c.xsum(c.xsc + SC_RPSQ);
-      c.xsc[7] = c.xsum(c.xsc + SC_GAP);
-    }
-    __syncthreads();
-    const T gap = c.xsc[7];
-    const T mu = gap / c.nact;
-    // warp 0: r_d, the merit and the best iterate; the factor and the
-    // predictor's direction
-    if (warp == 0) {
-      T x[R], nd = T(0);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = ln + 32 * r;
-        x[r] = T(0);
-        if (i < n) {
-          T hz;
-          if (diag_h) {
-            hz = c.lpd[i] * c.z[i];
-          } else {
-            hz = T(0);
-            for (int j = 0; j < n; ++j) hz += hess(c.H, i, j) * c.z[j];
-          }
-          const T rd = hz + c.f[i] + colm[i] * c.gl[i];
-          c.rd[i] = rd;
-          nd += rd * rd;
-          if (!last) x[r] = -rd + colm[i] * c.gt[i];
-        }
-      }
-      nd = warp_sum(nd);
-      const T m = sqrt(nd) + sqrt(c.xsc[6]) + gap;
-      const bool take = m < bm;  // NaN never wins
-      if (last) {
-        if (ln == 0) c.flag[0] = take ? 0 : 1;  // restore the best
-        if (!take)
-          for (int i = ln; i < n; i += 32) c.z[i] = c.bz[i];
-      } else {
-        if (take) {
-          bm = m;
-          for (int i = ln; i < n; i += 32) c.bz[i] = c.z[i];
-        }
-        if (ln == 0) c.flag[0] = take ? 1 : 0;
-        __syncwarp();
-        warp_factor<T, R, true>(c.L, n, c.ldn, ln, c.ri);
-        __syncwarp();
-        diag_block_inverses(c.L, c.ri, c.ldn, n, c.dinv, ln);
-        __syncwarp();
-        warp_solve_blocked<T, R>(c.L, c.dinv, c.ldn, n, x, ln);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int i = ln + 32 * r;
-          if (i < n) {
-            c.dz[i] = x[r];
-            c.zc[i] = colm[i] * x[r];
-          }
-        }
-      }
-    }
-    __syncthreads();
-    if (last) break;
-
-    // predictor: ds, dl, the step's ratios and the mu_aff sums
-    MinRatio<T> mr;
-    T s1 = T(0), s2 = T(0);
-    const bool take = c.flag[0] != 0;
-#pragma unroll 2
-    for (int k = threadIdx.x; k < c.kb; k += kBandThreads) {
-      if (take) {
-        c.at(RS_BLAM, k) = c.at(RS_LAM, k);
-        c.at(RS_BLAM + 1, k) = c.at(RS_LAM + 1, k);
-      }
-      T gh, gl;
-      row_g(c, k, c.zc, gh, gl);
-      const T rml = c.grow[k] >= 0 ? T(1) : T(0);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const T rm = h ? rml : T(1);
-        const T lam = c.at(RS_LAM + h, k), s = c.at(RS_S + h, k);
-        const T ds = -(c.at(RS_RP + h, k) + (h ? gl : gh));
-        const T dl = -(lam * s + lam * ds) / s * rm;
-        c.at(RS_DS + h, k) = ds;
-        c.at(RS_DL + h, k) = dl;
-        if (ds < T(0)) mr.add(s, -ds);
-        if (dl < T(0)) mr.add(lam, -dl);
-        s1 += lam * ds + s * dl;
-        s2 += dl * ds;
-      }
-    }
-    T S1, S2;
-    T mn = cluster_step<T, true>(c, mr.value(), s1, s2, S1, S2);
-    const T a_aff = nmin(T(1), T(0.995) * mn);
-    const T mu_aff = (gap + a_aff * S1 + a_aff * a_aff * S2) / c.nact;
-    const T sig_r = mu_aff / (mu + T(1e-30));
-    const T sigma = sig_r * sig_r * sig_r;
-
-    // corrector: r_cent (over dl) and t
-    {
-      T v[1] = {T(0)};
-#pragma unroll 2
-      for (int k = threadIdx.x; k < c.kb; k += kBandThreads) {
-        const T rml = c.grow[k] >= 0 ? T(1) : T(0);
-        T t2[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const T rm = h ? rml : T(1);
-          const T lam = c.at(RS_LAM + h, k), s = c.at(RS_S + h, k);
-          const T rc = (lam * s - sigma * mu + c.at(RS_DL + h, k) *
-                        c.at(RS_DS + h, k)) * rm;
-          c.at(RS_DL + h, k) = rc;
-          const T w = nmin(lam / s, w_cap) * rm;
-          t2[h] = rm * (rc / s - w * c.at(RS_RP + h, k));
-        }
-        c.at(RS_EXT + 2, k) = t2[0] - t2[1];
-        v[0] += c.at(RS_SCV, k) * t2[0] + c.at(RS_SCV + 1, k) * t2[1];
-      }
-      const int idx[1] = {SC_ST};
-      warp_scalars(c, v, idx);
-      __syncthreads();
-      block_scalars(c, idx);
-      cross_rows(c, t_e, t_end);
-    }
-    c.sync_cluster();
-    if (warp == 0) {
-      T x[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = ln + 32 * r;
-        x[r] = T(0);
-        if (i < n) {
-          const T g = i < ncol ? c.xsum(ext_out(c, t_e, i, 2))
-                      : i == n - 1 ? c.xsum(c.xsc + SC_ST) : T(0);
-          x[r] = -c.rd[i] + colm[i] * g;
-        }
-      }
-      warp_solve_blocked<T, R>(c.L, c.dinv, c.ldn, n, x, ln);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = ln + 32 * r;
-        if (i < n) {
-          c.dz[i] = x[r];
-          c.zc[i] = colm[i] * x[r];
-        }
-      }
-    }
-    __syncthreads();
-    MinRatio<T> mr2;
-#pragma unroll 2
-    for (int k = threadIdx.x; k < c.kb; k += kBandThreads) {
-      T gh, gl;
-      row_g(c, k, c.zc, gh, gl);
-      const T rml = c.grow[k] >= 0 ? T(1) : T(0);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const T rm = h ? rml : T(1);
-        const T lam = c.at(RS_LAM + h, k), s = c.at(RS_S + h, k);
-        const T ds = -(c.at(RS_RP + h, k) + (h ? gl : gh));
-        const T dl = -(c.at(RS_DL + h, k) + lam * ds) / s * rm;
-        c.at(RS_DS + h, k) = ds;
-        c.at(RS_DL + h, k) = dl;
-        if (ds < T(0)) mr2.add(s, -ds);
-        if (dl < T(0)) mr2.add(lam, -dl);
-      }
-    }
-    T unused;
-    mn = cluster_step<T, false>(c, mr2.value(), T(0), T(0), unused, unused);
-    const T step = nmin(T(1), T(0.995) * mn);
-    for (int k = threadIdx.x; k < c.kb; k += kBandThreads) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        c.at(RS_LAM + h, k) = c.at(RS_LAM + h, k) + step * c.at(RS_DL + h, k);
-        c.at(RS_S + h, k) = c.at(RS_S + h, k) + step * c.at(RS_DS + h, k);
-      }
-    }
-    for (int i = threadIdx.x; i < n; i += kBandThreads) {
-      c.z[i] = c.z[i] + step * c.dz[i];
-      c.zc[i] = colm[i] * c.z[i];
-    }
-  }
-  // the best iterate, if the last was not better (flag from warp 0)
-  if (c.flag[0]) {
-    for (int k = threadIdx.x; k < c.kb; k += kBandThreads) {
-      c.at(RS_LAM, k) = c.at(RS_BLAM, k);
-      c.at(RS_LAM + 1, k) = c.at(RS_BLAM + 1, k);
-    }
-  }
-  __syncthreads();
-}
-
-// The block's K-rows: the candidate's active rows (rmask != 0) in the
-// order [non-band rows | slack rows | band pairs], cut into C contiguous
-// slices; this block's slice lands in grow (its hi row; -1 - row for a
-// row without a lo partner).  The list is built in buf (as ints).
-template <typename T>
-__device__ void k_rows(Band<T>& c, const T* rm, int rank) {
-  const BandShape& s = c.a.s;
-  int* list = reinterpret_cast<int*>(c.buf);
-  int* wcnt = c.flag;  // kBandWarps ints fit in the 4 T of flag
-  const int ln = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nsingle = s.mc - 2 * s.pny;
-  int count = 0;
-  for (int base = 0; base < nsingle + s.pny; base += kBandThreads) {
-    const int j = base + threadIdx.x;
-    int r = -1;
-    if (j < nsingle)
-      r = j < s.nmv ? j : j + 2 * s.pny;  // the tail rows after the bands
-    else if (j < nsingle + s.pny)
-      r = s.nmv + (j - nsingle);  // a pair's hi row
-    const bool f = r >= 0 && rm[r] != T(0);
-    const unsigned m = __ballot_sync(kWarpMask, f);
-    if (ln == 0) wcnt[w] = __popc(m);
-    __syncthreads();
-    int off = count, tot = count;
-    for (int ww = 0; ww < kBandWarps; ++ww) {
-      if (ww < w) off += wcnt[ww];
-      tot += wcnt[ww];
-    }
-    if (f) {
-      const bool pair = j >= nsingle;
-      list[off + __popc(m & ((1u << ln) - 1u))] = pair ? r : -1 - r;
-    }
-    __syncthreads();
-    count = tot;
-  }
-  const int k0 = (int)((long long)count * rank / c.C);
-  const int k1 = (int)((long long)count * (rank + 1) / c.C);
-  c.kb = k1 - k0;
-  for (int k = threadIdx.x; k < c.kb; k += kBandThreads)
-    c.grow[k] = list[k0 + k];
-  __syncthreads();
-}
-
-template <typename T, int R>
-__global__ void __launch_bounds__(kBandThreads, 1)
+__global__ void __launch_bounds__(kBandThreads)
 closed_sim_band_kernel(const __grid_constant__ BandArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const BandShape& s = a.s;
-  const BandPlan p = band_plan_for(s, a.cluster);
+  const int lane = blockIdx.x, B = a.B, n = a.n, mc = a.mc;
+  const BandLayout lay(n, a.nxa, a.nxp, a.ny, a.nu, mc, sizeof(T));
   Band<T> c(a);
-  const int rank = a.cluster > 1 ? (int)cg::this_cluster().block_rank() : 0;
-  const int lane = blockIdx.x / a.cluster, B = a.B, n = s.n;
   c.n = n;
-  c.ld = p.ld;
-  c.ldn = p.ldn;
-  c.kbc = p.kb;
-  c.C = a.cluster;
-  c.slot = 0;
-  c.L = sm + p.L;
-  c.H = sm + p.H;
-  c.dinv = sm + p.dinv;
-  T* v = sm + p.vec;
-  T** vecs[14] = {&c.z, &c.bz, &c.dz, &c.zc, &c.rd, &c.fq, &c.fl, &c.zw,
-                  &c.lpd, &c.cm, &c.cm2, &c.gl, &c.gt, &c.ri};
-  for (int i = 0; i < 14; ++i) *vecs[i] = v + (size_t)i * n;
-  c.xpl = sm + p.est;
-  c.xpl2 = c.xpl + s.nxp;
-  c.xhp = c.xpl2 + s.nxp;
-  c.xhat = c.xhp + s.nxa;
-  c.ys = c.xhat + s.nxa;
-  c.up = c.ys + s.ny;
-  c.uo = c.up + s.nu;
-  c.red = sm + p.red;
-  c.xsc = sm + p.xsc;
-  c.slots = sm + p.slot;
-  c.flag = reinterpret_cast<int*>(sm + p.flag);
-  c.tile = sm + p.tile;
-  c.rs = sm + p.rows;
-  c.grow = reinterpret_cast<int*>(sm + p.grow);
-  c.buf = sm + p.buf;
+  c.nmv = a.nmv;
+  c.pny = a.pny;
+  c.ntail = mc - a.nmv - 2 * a.pny;
+  c.z = sm + lay.z; c.bz = sm + lay.bz; c.dz = sm + lay.dz;
+  c.rd = sm + lay.rd; c.rhs = sm + lay.rhs;
+  c.fq = sm + lay.f; c.fl = sm + lay.fl;  // the QP's f, the LP's e_slack
+  c.zw = sm + lay.zw; c.lpd = sm + lay.lpd; c.cm = sm + lay.cm;
+  c.cm2 = sm + lay.cm2; c.L = sm + lay.L; c.H = sm + lay.H;
+  c.part = sm + lay.part;
+  c.trows = (int)lay.trows;
+  c.tile = sm + lay.tile; c.wsum = sm + lay.wb;
+  c.ws = c.wsum + c.trows; c.wss = c.ws + c.trows;
+  c.red = sm + lay.red;
+  T* vb = lay.vec_smem ? sm + lay.vec
+                       : a.work + (size_t)lane * kBandVecs * mc;
+  T** vecs[kBandVecs] = {&c.h, &c.lam, &c.s, &c.blam, &c.rp, &c.w, &c.ds,
+                         &c.dl, &c.t, &c.lamw, &c.rm, &c.scv};
+  for (int v = 0; v < kBandVecs; ++v) *vecs[v] = vb + (size_t)v * mc;
+  T* xpl = sm + lay.xpl; T* xpl2 = sm + lay.xpl2;
+  T* xhp = sm + lay.xhp; T* xhat = sm + lay.xhat;
+  T* ys = sm + lay.ys; T* up = sm + lay.up; T* uo = sm + lay.uo;
 
-  // lane constants, the active sizes and this block's K-rows
-  const T* rm = a.rmask + (size_t)lane * s.mc;
+  // lane constants, active sizes and this thread's normal-matrix entries
   const T* Hg = a.Hp + (size_t)lane * n * n;
-  for (int e = threadIdx.x; e < n * (n + 1) / 2; e += kBandThreads) {
-    int i = 0;
-    while ((i + 1) * (i + 2) / 2 <= e) ++i;
-    c.H[e] = Hg[i * n + (e - i * (i + 1) / 2)];
-  }
+  for (int i = threadIdx.x; i < n * n; i += kBandThreads) c.H[i] = Hg[i];
   for (int i = threadIdx.x; i < n; i += kBandThreads) {
     c.lpd[i] = a.lpd[(size_t)lane * n + i];
     c.cm[i] = a.cmask[(size_t)lane * n + i];
@@ -1010,199 +644,170 @@ closed_sim_band_kernel(const __grid_constant__ BandArgs<T> a) {
     c.fl[i] = i == n - 1 ? T(1) : T(0);
   }
   T nact = T(0);
-  for (int r = threadIdx.x; r < s.mc; r += kBandThreads) nact += rm[r];
-  nact = warp_sum(nact);
-  if ((threadIdx.x & 31) == 0) c.red[(threadIdx.x >> 5) * 8] = nact;
-  for (int i = threadIdx.x; i < s.nxp; i += kBandThreads) c.xpl[i] = T(0);
-  for (int i = threadIdx.x; i < s.nxa; i += kBandThreads) c.xhp[i] = T(0);
-  for (int i = threadIdx.x; i < s.nu; i += kBandThreads) c.up[i] = T(0);
-  __syncthreads();
-  nact = c.red[0];
-  for (int w = 1; w < kBandWarps; ++w) nact += c.red[w * 8];
-  c.nact = nmax(nact, T(1));
-  int ncol = 0;
-  for (int i = 0; i < n - 1; ++i)
-    if (c.cm[i] != T(0)) ncol = i + 1;
-  c.ncol = ncol;
-  c.nt = (ncol + 3) / 4;
-  c.ntri = c.nt * (c.nt + 1) / 2;
-  __syncthreads();  // red is read before k_rows reuses flag and buf
-  k_rows(c, rm, rank);
-  // the slice's G0 coefficients and slack column; the warm pair
-  for (int idx = threadIdx.x; idx < c.kb * p.ld + 4; idx += kBandThreads) {
-    const int k = idx / p.ld, i = idx - k * p.ld;
-    T val = T(0);
-    if (k < c.kb && i < ncol) {
-      const int g = c.grow[k];
-      val = a.G0[(size_t)(g >= 0 ? g : -1 - g) * n + i];
-    }
-    c.tile[idx] = val;
+  int prow = 0, ncol = 0;
+  for (int r = threadIdx.x; r < mc; r += kBandThreads) {
+    c.rm[r] = a.rmask[(size_t)lane * mc + r];
+    c.scv[r] = a.scol[r];
+    nact += c.rm[r];
+    c.lamw[r] = T(1);
+    const int p = r - a.nmv;
+    if (p >= 0 && p < 2 * a.pny && c.rm[r] != T(0))
+      prow = max(prow, (p < a.pny ? p : p - a.pny) + 1);
   }
-  for (int k = threadIdx.x; k < c.kb; k += kBandThreads) {
-    const int g = c.grow[k], r = g >= 0 ? g : -1 - g;
-    c.at(RS_SCV, k) = a.G0[(size_t)r * n + n - 1];
-    c.at(RS_SCV + 1, k) = g >= 0 ? a.G0[(size_t)(r + s.pny) * n + n - 1] : T(0);
-    c.at(RS_LAMW, k) = T(1);
-    c.at(RS_LAMW + 1, k) = g >= 0 ? T(1) : T(0);
-    c.at(RS_EXT + 3, k) = T(0);
-  }
+  for (int i = threadIdx.x; i < n - 1; i += kBandThreads)
+    if (a.cmask[(size_t)lane * n + i] != T(0)) ncol = i + 1;
+  c.nact = nmax(block_reduce(nact, c.red, SumOp()), T(1));
+  c.prow = (int)block_reduce(T(prow), c.red, MaxOp());
+  c.ncol = (int)block_reduce(T(ncol), c.red, MaxOp());
+  c.nrows = c.nmv + 2 * c.prow + c.ntail;
+  c.resident = c.prow <= c.trows;
+  if (c.resident) load_tile(c, 0, c.prow);
+  for (int i = threadIdx.x; i < a.nxp; i += kBandThreads) xpl[i] = T(0);
+  for (int i = threadIdx.x; i < a.nxa; i += kBandThreads) xhp[i] = T(0);
+  for (int i = threadIdx.x; i < a.nu; i += kBandThreads) up[i] = T(0);
   __syncthreads();
 
-  const T* sfy = a.sfy + (size_t)lane * s.ny;
-  const T* sfu = a.sfu + (size_t)lane * s.nu;
-  const T* q = a.q + (size_t)lane * s.pny;
-  const T* hbu = a.hbu + (size_t)lane * s.nmv;
-  const T* su = a.su + (size_t)lane * s.nmv;
-  const T* hbyh = a.hbyh + (size_t)lane * s.pny;
-  const T* rmyh = a.rmyh + (size_t)lane * s.pny;
-  const T* hbyl = a.hbyl + (size_t)lane * s.pny;
-  const T* rmyl = a.rmyl + (size_t)lane * s.pny;
-  const size_t bv_row = s.ny, bpl_row = (size_t)s.ny + s.nxa,
-               sv_row = (size_t)s.ny + s.nxa + s.nxp;
-  T* fr = c.buf;           // the free response of every band row
-  T* trk = c.buf + s.pny;  // the tracking error
-  const bool out = rank == 0;
+  const T* sfy = a.sfy + (size_t)lane * a.ny;
+  const T* sfu = a.sfu + (size_t)lane * a.nu;
+  const T* q = a.q + (size_t)lane * a.pny;
+  const T* hbu = a.hbu + (size_t)lane * a.nmv;
+  const T* su = a.su + (size_t)lane * a.nmv;
+  const T* hbyh = a.hbyh + (size_t)lane * a.pny;
+  const T* rmyh = a.rmyh + (size_t)lane * a.pny;
+  const T* hbyl = a.hbyl + (size_t)lane * a.pny;
+  const T* rmyl = a.rmyl + (size_t)lane * a.pny;
+  const size_t bv_row = a.ny, bpl_row = (size_t)a.ny + a.nxa,
+               sv_row = (size_t)a.ny + a.nxa + a.nxp;
 
   for (int k = 0; k < a.nit; ++k) {
     const T* Vk = a.Vt + k;  // column k: Vk[row * nit]
     const int nit = a.nit;
     // plant output, Kalman update
-    thread_rows(a.Cpl, s.ny, s.nxp, c.xpl, [&](int i, T y) {
-      if (out) a.Y[((size_t)k * s.ny + i) * B + lane] = y;
-      c.ys[i] = y / sfy[i];
+    warp_rows(a.Cpl, a.ny, a.nxp, xpl, [&](int i, T y) {
+      a.Y[((size_t)k * a.ny + i) * B + lane] = y;
+      ys[i] = y / sfy[i];
     });
     __syncthreads();
-    thread_rows(a.C, s.ny, s.nxa, c.xhp, [&](int i, T cx) {
-      c.ys[i] = c.ys[i] - cx - Vk[(size_t)i * nit];
+    warp_rows(a.C, a.ny, a.nxa, xhp, [&](int i, T cx) {
+      ys[i] = ys[i] - cx - Vk[(size_t)i * nit];
     });
     __syncthreads();
-    thread_rows(a.Mk, s.nxa, s.ny, c.ys,
-              [&](int i, T m) { c.xhat[i] = c.xhp[i] + m; });
+    warp_rows(a.Mk, a.nxa, a.ny, ys, [&](int i, T m) { xhat[i] = xhp[i] + m; });
     __syncthreads();
-    // free response -> tracking error and the band rows' rhs
-    thread_rows(a.SxF, s.pny, s.nxa, c.xhat, [&](int pp, T f1) {
+    // free response -> tracking error (in t) and the band rows of h
+    warp_rows(a.SxF, a.pny, a.nxa, xhat, [&](int p, T f1) {
       T f2 = T(0);
-      for (int j = 0; j < s.nu; ++j) f2 += a.SstF[pp * s.nu + j] * c.up[j];
-      const T f = f1 + f2 + Vk[(sv_row + pp) * nit];
-      const T rk = a.r[((size_t)k * s.ny + pp % s.ny) * B + lane];
-      fr[pp] = f;
-      trk[pp] = q[pp] * (rk - f);
+      for (int j = 0; j < a.nu; ++j) f2 += a.SstF[p * a.nu + j] * up[j];
+      const T fr = f1 + f2 + Vk[(sv_row + p) * nit];
+      const T rk = a.r[((size_t)k * a.ny + p % a.ny) * B + lane];
+      c.t[p] = q[p] * (rk - fr);
+      c.h[a.nmv + p] = hbyh[p] - rmyh[p] * fr;
+      c.h[a.nmv + a.pny + p] = hbyl[p] + rmyl[p] * fr;
     });
+    for (int r = threadIdx.x; r < a.nmv; r += kBandThreads)
+      c.h[r] = hbu[r] + su[r] * up[r % a.nu];
+    for (int r = a.nmv + 2 * a.pny + threadIdx.x; r < mc; r += kBandThreads)
+      c.h[r] = T(0);
     __syncthreads();
-    warp_rows(a.ThT, n, s.pny, trk,
-              [&](int i, T vv) { c.fq[i] = c.cm[i] * (T(-2) * vv); });
-    for (int kk = threadIdx.x; kk < c.kb; kk += kBandThreads) {
-      const int g = c.grow[kk];
-      T hh = T(0), hl = T(1);
-      if (g >= 0) {
-        const int pp = g - s.nmv;
-        hh = hbyh[pp] - rmyh[pp] * fr[pp];
-        hl = hbyl[pp] + rmyl[pp] * fr[pp];
-      } else if (-1 - g < s.nmv) {
-        const int r = -1 - g;
-        hh = hbu[r] + su[r] * c.up[r % s.nu];
-      }
-      c.at(RS_H, kk) = hh;
-      c.at(RS_H + 1, kk) = hl;
-    }
-    for (int i = threadIdx.x; i < n; i += kBandThreads) c.z[i] = c.zw[i];
+    warp_rows(a.ThT, n, a.pny, c.t, [&](int i, T v) {
+      c.fq[i] = c.cm[i] * (T(-2) * v);
+    });
     __syncthreads();
 
     // slack seeding from the carried pair (z, lam) = (zw, lamw)
+    for (int i = threadIdx.x; i < n; i += kBandThreads) c.z[i] = c.zw[i];
+    __syncthreads();
     {
-      const T extra = slack_violation(c, c.cm);
+      const T extra = slack_violation(c);
       const T eps_w = nmax(c.zw[n - 1], T(0));
       const bool jumped = extra > T(1e-3) * (T(1) + eps_w);
       if (threadIdx.x == 0) c.z[n - 1] = eps_w + extra + T(1e-6);
-      for (int kk = threadIdx.x; kk < c.kb; kk += kBandThreads) {
-        c.at(RS_LAM, kk) = jumped ? T(1) : c.at(RS_LAMW, kk);
-        c.at(RS_LAM + 1, kk) = jumped ? T(1) : c.at(RS_LAMW + 1, kk);
+      for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+        const int r = c.row(j);
+        c.lam[r] = jumped ? T(1) : c.lamw[r];
       }
       __syncthreads();
     }
     // stage 0: the slack LP, f = e_slack against diag(lpd)
     c.f = c.fl;
-    pdip<T, R>(c, true, c.cm, a.lp_iters);
+    pdip(c, true, c.cm, a.lp_iters);
     // carry (z1, lam1); stage 2 freezes the slack
     for (int i = threadIdx.x; i < n; i += kBandThreads) c.zw[i] = c.z[i];
-    for (int kk = threadIdx.x; kk < c.kb; kk += kBandThreads) {
-      c.at(RS_LAMW, kk) = c.at(RS_LAM, kk);
-      c.at(RS_LAMW + 1, kk) = c.at(RS_LAM + 1, kk);
+    for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+      const int r = c.row(j);
+      c.lamw[r] = c.lam[r];
     }
+    __syncthreads();
     {
-      const T extra = slack_violation(c, c.cm);
-      const T ehat =
-          (nmax(c.z[n - 1], T(0)) + extra) * (T(1) + a.m_rel) + a.m_abs;
-      if (out && threadIdx.x == 0) a.E[(size_t)k * B + lane] = ehat;
-      for (int kk = threadIdx.x; kk < c.kb; kk += kBandThreads) {
-        const T rml = c.grow[kk] >= 0 ? T(1) : T(0);
-        c.at(RS_H, kk) = c.at(RS_H, kk) - c.at(RS_SCV, kk) * ehat;
-        c.at(RS_H + 1, kk) =
-            c.at(RS_H + 1, kk) - c.at(RS_SCV + 1, kk) * rml * ehat;
+      const T extra = slack_violation(c);
+      const T ehat = (nmax(c.z[n - 1], T(0)) + extra) * (T(1) + a.m_rel) + a.m_abs;
+      if (threadIdx.x == 0) a.E[(size_t)k * B + lane] = ehat;
+      for (int j = threadIdx.x; j < c.nrows; j += kBandThreads) {
+        const int r = c.row(j);
+        c.h[r] = c.h[r] - c.scv[r] * c.rm[r] * ehat;
       }
       __syncthreads();
       if (threadIdx.x == 0) c.z[n - 1] = T(0);
       __syncthreads();
     }
     c.f = c.fq;
-    pdip<T, R>(c, false, c.cm2, a.s2_iters);
+    pdip(c, false, c.cm2, a.s2_iters);
 
     // input, model and plant steps
-    for (int j = threadIdx.x; j < s.nu; j += kBandThreads) {
-      const T us = c.up[j] + c.z[j];
-      c.up[j] = us;
-      c.uo[j] = us * sfu[j];
-      if (out) a.U[((size_t)k * s.nu + j) * B + lane] = c.uo[j];
+    for (int j = threadIdx.x; j < a.nu; j += kBandThreads) {
+      const T us = up[j] + c.z[j];
+      up[j] = us;
+      uo[j] = us * sfu[j];
+      a.U[((size_t)k * a.nu + j) * B + lane] = uo[j];
     }
     __syncthreads();
-    thread_rows(a.A, s.nxa, s.nxa, c.xhat, [&](int i, T x1) {
+    warp_rows(a.A, a.nxa, a.nxa, xhat, [&](int i, T x1) {
       T x2 = T(0);
-      for (int j = 0; j < s.nu; ++j) x2 += a.Bu[i * s.nu + j] * c.up[j];
-      c.xhp[i] = x1 + x2 + Vk[(bv_row + i) * nit];
+      for (int j = 0; j < a.nu; ++j) x2 += a.Bu[i * a.nu + j] * up[j];
+      xhp[i] = x1 + x2 + Vk[(bv_row + i) * nit];
     });
-    thread_rows(a.Apl, s.nxp, s.nxp, c.xpl, [&](int i, T x1) {
+    warp_rows(a.Apl, a.nxp, a.nxp, xpl, [&](int i, T x1) {
       T x2 = T(0);
-      for (int j = 0; j < s.nu; ++j) x2 += a.Bplu[i * s.nu + j] * c.uo[j];
-      c.xpl2[i] = x1 + x2 + Vk[(bpl_row + i) * nit];
+      for (int j = 0; j < a.nu; ++j) x2 += a.Bplu[i * a.nu + j] * uo[j];
+      xpl2[i] = x1 + x2 + Vk[(bpl_row + i) * nit];
     });
     __syncthreads();
-    for (int i = threadIdx.x; i < s.nxp; i += kBandThreads) c.xpl[i] = c.xpl2[i];
-    // the next step writes buf, which the cluster's blocks read up to the
-    // last merit; and no block leaves while another may read its memory
-    c.sync_cluster();
+    for (int i = threadIdx.x; i < a.nxp; i += kBandThreads) xpl[i] = xpl2[i];
+    __syncthreads();
   }
 }
+
 
 // ----------------------------------------------------------------- launch
 
 enum {
   BP_CPL, BP_APL, BP_BPLU, BP_C, BP_MK, BP_A, BP_BU, BP_SXF, BP_SSTF, BP_THT,
-  BP_VT, BP_G0, BP_Q, BP_HBU, BP_SU, BP_HBYH, BP_RMYH, BP_HBYL, BP_RMYL,
-  BP_RMASK, BP_CMASK, BP_CMASK2, BP_LPD, BP_SFY, BP_SFU, BP_HP, BP_R, BP_Y,
-  BP_U, BP_E, BP_COUNT
+  BP_VT, BP_SPTR, BP_SCOL, BP_SVAL, BP_STPTR, BP_STROW, BP_STVAL, BP_EPTR,
+  BP_EROW, BP_ECOEF, BP_GBT, BP_SCOLV, BP_Q, BP_HBU, BP_SU, BP_HBYH, BP_RMYH,
+  BP_HBYL, BP_RMYL, BP_RMASK, BP_CMASK, BP_CMASK2, BP_LPD, BP_SFY, BP_SFU,
+  BP_HP, BP_R, BP_Y, BP_U, BP_E, BP_WORK, BP_COUNT
 };
 
 enum { BD_B, BD_NIT, BD_LP, BD_S2, BD_NY, BD_NU, BD_NXA, BD_NXP, BD_PNY,
        BD_N, BD_MC, BD_NMV, BD_COUNT };
 
-inline BandShape band_shape(const int* d) {
-  return BandShape{d[BD_N], d[BD_MC], d[BD_PNY], d[BD_NY], d[BD_NU],
-                   d[BD_NXA], d[BD_NXP], d[BD_NMV]};
-}
-
-// The launcher's envelope: n in [2, kBandMaxN], the rows laid out as
-// [nmv move/input rows | pny y_hi | pny y_lo | slack rows], and a plan.
-inline bool band_inside(const BandShape& s, const BandPlan& p) {
-  return s.n >= 2 && s.n <= kBandMaxN && s.nmv >= 0 && s.pny >= 1 &&
-         s.mc > s.nmv + 2 * s.pny && p.C > 0;
-}
-
 template <typename T>
 BandArgs<T> make_band_args(void* const* p, const int* d, const double* c) {
   BandArgs<T> a;
   const T** tabs[] = {&a.Cpl, &a.Apl, &a.Bplu, &a.C, &a.Mk, &a.A, &a.Bu,
-                      &a.SxF, &a.SstF, &a.ThT, &a.Vt, &a.G0};
-  for (int i = 0; i < 12; ++i) *tabs[i] = static_cast<const T*>(p[BP_CPL + i]);
+                      &a.SxF, &a.SstF, &a.ThT, &a.Vt};
+  for (int i = 0; i < 11; ++i) *tabs[i] = static_cast<const T*>(p[BP_CPL + i]);
+  a.s_ptr = static_cast<const int*>(p[BP_SPTR]);
+  a.s_col = static_cast<const int*>(p[BP_SCOL]);
+  a.s_val = static_cast<const T*>(p[BP_SVAL]);
+  a.st_ptr = static_cast<const int*>(p[BP_STPTR]);
+  a.st_row = static_cast<const int*>(p[BP_STROW]);
+  a.st_val = static_cast<const T*>(p[BP_STVAL]);
+  a.e_ptr = static_cast<const int*>(p[BP_EPTR]);
+  a.e_row = static_cast<const int*>(p[BP_EROW]);
+  a.e_coef = static_cast<const T*>(p[BP_ECOEF]);
+  a.GbT = static_cast<const T*>(p[BP_GBT]);
+  a.scol = static_cast<const T*>(p[BP_SCOLV]);
   const T** lcs[] = {&a.q, &a.hbu, &a.su, &a.hbyh, &a.rmyh, &a.hbyl, &a.rmyl,
                      &a.rmask, &a.cmask, &a.cmask2, &a.lpd, &a.sfy, &a.sfu,
                      &a.Hp, &a.r};
@@ -1210,11 +815,19 @@ BandArgs<T> make_band_args(void* const* p, const int* d, const double* c) {
   a.Y = static_cast<T*>(p[BP_Y]);
   a.U = static_cast<T*>(p[BP_U]);
   a.E = static_cast<T*>(p[BP_E]);
-  a.s = band_shape(d);
+  a.work = static_cast<T*>(p[BP_WORK]);
   a.B = d[BD_B];
   a.nit = d[BD_NIT];
   a.lp_iters = d[BD_LP];
   a.s2_iters = d[BD_S2];
+  a.ny = d[BD_NY];
+  a.nu = d[BD_NU];
+  a.nxa = d[BD_NXA];
+  a.nxp = d[BD_NXP];
+  a.pny = d[BD_PNY];
+  a.n = d[BD_N];
+  a.mc = d[BD_MC];
+  a.nmv = d[BD_NMV];
   a.eps_c = static_cast<T>(c[0]);
   a.ridge = static_cast<T>(c[1]);
   a.w_cap = static_cast<T>(c[2]);
@@ -1223,28 +836,24 @@ BandArgs<T> make_band_args(void* const* p, const int* d, const double* c) {
   return a;
 }
 
-template <typename T, int R>
-int launch_band(BandArgs<T> a, const BandPlan& p, cudaStream_t st) {
-  const size_t bytes = p.total * sizeof(T);
-  auto kern = closed_sim_band_kernel<T, R>;
+template <typename T>
+BandLayout band_layout(const int* d) {
+  return BandLayout(d[BD_N], d[BD_NXA], d[BD_NXP], d[BD_NY], d[BD_NU],
+                    d[BD_MC], sizeof(T));
+}
+
+template <typename T>
+int launch_band(void* const* p, const int* d, const double* c,
+                cudaStream_t st) {
+  const BandArgs<T> a = make_band_args<T>(p, d, c);
+  if (a.n > kBandMaxN || a.n < 2) return (int)cudaErrorInvalidValue;
+  const size_t bytes = band_layout<T>(d).total * sizeof(T);
+  if (bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      closed_sim_band_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  a.cluster = p.C;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(a.B * p.C));
-  cfg.blockDim = dim3(kBandThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = st;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = (unsigned)p.C;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kern, a);
-  if (e != cudaSuccess) return (int)e;
+  closed_sim_band_kernel<T><<<a.B, kBandThreads, bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1258,27 +867,20 @@ int mpc_closed_sim_band_dim_count() { return mpc::BD_COUNT; }
 
 int mpc_closed_sim_band_max_n() { return mpc::kBandMaxN; }
 
-// Blocks a cluster of the launch of this shape (0 outside the envelope),
-// and in bytes its shared memory a block.
-int mpc_closed_sim_band_plan(const int* dims, long long* bytes) {
-  const mpc::BandShape s = mpc::band_shape(dims);
-  const mpc::BandPlan p = mpc::band_plan(s);
-  *bytes = (long long)p.total * 8;
-  return mpc::band_inside(s, p) ? p.C : 0;
-}
-
 // Band cases run at float64 only (float32 band loops leave the hard input
 // bounds; see ops/kernels.closed_sim_band), so only double is instantiated.
+
+// Elements of the global scratch buffer per lane: 0 when the per-lane
+// mc-vectors fit in shared memory.
+long long mpc_closed_sim_band_work_per_lane(const int* d) {
+  const mpc::BandLayout lay = mpc::band_layout<double>(d);
+  return lay.vec_smem ? 0LL : (long long)mpc::kBandVecs * d[mpc::BD_MC];
+}
+
 int mpc_closed_sim_band(void* const* ptrs, const int* dims, const double* scal,
                         void* stream) {
-  const mpc::BandShape s = mpc::band_shape(dims);
-  const mpc::BandPlan p = mpc::band_plan(s);
-  if (!mpc::band_inside(s, p) || dims[mpc::BD_B] < 1)
-    return (int)cudaErrorInvalidValue;
-  const mpc::BandArgs<double> a = mpc::make_band_args<double>(ptrs, dims, scal);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return s.n <= 32 ? mpc::launch_band<double, 1>(a, p, st)
-                   : mpc::launch_band<double, 2>(a, p, st);
+  return mpc::launch_band<double>(ptrs, dims, scal,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -50,21 +50,11 @@ __device__ __forceinline__ T from_row(const T (&a)[R], int j) {
 
 // Column j from its finished dots a[r] (rows lane + 32 r): the pivot d of
 // row j, ljj = sqrt(d) on every lane, q[r] = a[r] / ljj; returns ljj.
-// Rsq: ri = rsqrt(d), ljj = d ri and q[r] = a[r] ri (one long-latency
-// operation on the column's chain in place of a sqrt and a division;
-// other rounding), and *rinv = ri.
-template <typename T, int R, bool Rsq = false>
+template <typename T, int R>
 __device__ __forceinline__ T finish_column(const T (&a)[R], T (&q)[R], int j,
-                                           bool& ok, T* rinv = nullptr) {
+                                           bool& ok) {
   const T d = from_row(a, j);
   ok = ok && d > T(0);
-  if (Rsq) {
-    const T ri = rsqrt(d);
-    *rinv = ri;
-#pragma unroll
-    for (int r = 0; r < R; ++r) q[r] = a[r] * ri;
-    return d * ri;
-  }
   const T ljj = sqrt(d);
 #pragma unroll
   for (int r = 0; r < R; ++r) q[r] = a[r] / ljj;
@@ -80,12 +70,9 @@ __device__ __forceinline__ T finish_column(const T (&a)[R], T (&q)[R], int j,
 // entries entering the later columns' dots as their terms k = j, j + 1, ...
 // So every entry sees A[i][j] - sum_k L[i][k] L[j][k] in ascending k, then
 // the sqrt or the division.  Ends with the upper triangle zero, or, if a
-// pivot was not > 0, the whole tile NaN (as the plain version).  Rsq
-// (finish_column): the pivots through rsqrt, their reciprocals stored in
-// rinv[j], so that the substitutions multiply.
-template <typename T, int R, bool Rsq = false>
-__device__ void warp_factor(T* t, int n, int ld, int lane,
-                            T* rinv = nullptr) {
+// pivot was not > 0, the whole tile NaN (as the plain version).
+template <typename T, int R>
+__device__ void warp_factor(T* t, int n, int ld, int lane) {
   constexpr int C = kFactorCols;
   int off[R];
 #pragma unroll
@@ -113,9 +100,7 @@ __device__ void warp_factor(T* t, int n, int ld, int lane,
     }
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      T ri;
-      diag[c] = finish_column<T, R, Rsq>(a[c], q[c], j + c, ok, &ri);
-      if (Rsq && lane == 0) rinv[j + c] = ri;
+      diag[c] = finish_column(a[c], q[c], j + c, ok);
 #pragma unroll
       for (int c2 = c + 1; c2 < C; ++c2) {
         const T l = from_row(q[c], j + c2);
@@ -146,9 +131,7 @@ __device__ void warp_factor(T* t, int n, int ld, int lane,
 #pragma unroll
       for (int r = 0; r < R; ++r) a[r] -= t[off[r] + k] * ljk;
     }
-    T ri;
-    const T ljj = finish_column<T, R, Rsq>(a, q, j, ok, &ri);
-    if (Rsq && lane == 0) rinv[j] = ri;
+    const T ljj = finish_column(a, q, j, ok);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = lane + 32 * r;

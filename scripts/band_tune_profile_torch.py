@@ -7,18 +7,16 @@ per-step certificate (ops/band_cert.hold) of the closed loop its result
 scores, then once under torch.profiler (CUDA activity only) for the
 device time of every kernel it ran.
 
-    PYTHONPATH=.:scripts python scripts/band_tune_profile_torch.py \\
-        [--old DIR] [--top 12] [--out FILE]
+    PYTHONPATH=. python scripts/band_tune_profile_torch.py [--top 12] \\
+        [--out FILE]
 
-With ``--old`` (an earlier ops/csrc, see scripts/band_old_vs_new.py) the
-same two runs follow with that source's band kernel in place of this
-tree's, on the same card: before and after.  Prints the card, per run the
+Prints the card, per run the
 tune's result, wall and launches, the band kernel's launches and ms by
 shape, the profiled run's wall, device busy time and idle share (of
 either wall), the device time by group (the band kernel, the SPD factor
 and solve kernels, every other kernel: the open leg's eager PyTorch ops)
-and the ``--top`` kernels by device time.  Needs one card (about four
-minutes; fifteen with ``--old``).
+and the ``--top`` kernels by device time.  Needs one card (about six
+minutes).
 """
 
 from __future__ import annotations
@@ -148,8 +146,6 @@ def runs(name, kernel, top):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--old", type=pathlib.Path,
-                    help="directory of an earlier ops/csrc")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", type=pathlib.Path)
     args = ap.parse_args()
@@ -159,18 +155,7 @@ def main():
     print(card, flush=True)
     _build.library()  # the build is set-up, not the tune's
     kernel = K.closed_sim_band
-    res = dict(card=card, new=runs("new", kernel, args.top))
-    if args.old:
-        from band_old_vs_new import build_old, old_band
-
-        lib = build_old(args.old)
-
-        def old(*a):
-            out = old_band(lib, *a)
-            K.closed_sim_band.launches += 1
-            return out
-
-        res["old"] = runs("old", old, args.top)
+    res = dict(card=card, tune=runs("tune", kernel, args.top))
     mpc_loop.closed_sim_band = kernel
     if args.out:
         args.out.write_text(json.dumps(res, indent=1))

@@ -199,7 +199,8 @@ def _band_inputs(cuda, caps, B=4, nit=30):
 def test_closed_sim_band_matches_plain(cuda, caps):
     """Step by step (the plain version follows the kernel's U), at the
     limits of chip_smoke.py's band rows (tools/band_spread.BAND_LIMITS).
-    (127, 15) runs a cluster of four blocks a candidate, (32, 4) one."""
+    (127, 15) keeps the per-lane vectors in global scratch, (32, 4) in
+    shared memory."""
     args = _band_inputs(cuda, caps)
     before = K.closed_sim_band.launches
     out_k = K.closed_sim_band(*args)
@@ -221,8 +222,7 @@ def _lanes(x, b):
 @pytest.mark.parametrize("caps", [(127, 2), (48, 4), (127, 15)])
 def test_closed_sim_band_bits_do_not_depend_on_b(cuda, caps):
     """A lane's (Y, U, E) are the same bits at B = 1, 8 and 37 and in two
-    runs: each candidate's cluster reduces in a fixed order (1, 2 and 4
-    blocks a cluster at these buckets)."""
+    runs: each candidate's block reduces in a fixed order."""
     t, lc, Hp, r_l, nit, lp, s2, dims = _band_inputs(cuda, caps, B=37, nit=40)
     run = lambda b: K.closed_sim_band(t, _lanes(lc, b), _lanes(Hp, b),
                                       _lanes(r_l, b), nit, lp, s2, dims)
@@ -254,84 +254,6 @@ def test_closed_sim_band_certified_at_the_tuned_point(cuda):
                    caps=(N, Nu), pool=pool)
     assert out["steps"] == nit and out["eps_pos"] > 20, out
     assert out["ok"], out
-
-
-def _pad_pairs(inputs, extra):
-    """Band inputs with `extra` band pairs more, all masked: zero rows of
-    G0 after the y_hi and the y_lo blocks, zero rows of the free-response
-    tables, rhs 1 and mask 0.  The loop is unchanged."""
-    t, lc, Hp, r_l, nit, lp, s2, dims = inputs
-    B = r_l.shape[2]
-    pny = t["SxF"].shape[0]
-    nmv = 4 * dims["m_max"] * dims["nu"]
-    zrows = lambda x, k: torch.cat([x, x.new_zeros((k,) + x.shape[1:])])
-
-    def ins(x, fill):  # rows after the y_hi block and after the y_lo block
-        new = x.new_full((extra,) + x.shape[1:], fill)
-        return torch.cat([x[:nmv + pny], new, x[nmv + pny:nmv + 2 * pny],
-                          new, x[nmv + 2 * pny:]])
-
-    t = dict(t, G0=ins(t["G0"], 0.0), SxF=zrows(t["SxF"], extra),
-             SstF=zrows(t["SstF"], extra), Vt=zrows(t["Vt"], extra),
-             ThT=torch.cat([t["ThT"], t["ThT"].new_zeros((t["ThT"].shape[0],
-                                                          extra))], 1))
-    lc = dict(lc, rmask=ins(lc["rmask"], 0.0), q=zrows(lc["q"], extra),
-              **{k: torch.cat([lc[k], lc[k].new_full((extra, B), v)])
-                 for k, v in (("hbyh", 1.0), ("hbyl", 1.0), ("rmyh", 0.0),
-                              ("rmyl", 0.0))})
-    return t, lc, Hp, r_l, nit, lp, s2, dict(dims, mc=dims["mc"] + 2 * extra)
-
-
-def test_band_envelope_matches_the_launcher(cuda):
-    """The C side's plan (mpc_closed_sim_band_plan) is band_plan's at
-    every Shell7x5 bucket shape and at the edge; at the edge (the widest
-    bucket with 114 masked band pairs more: four blocks of ~227 KB) the
-    kernel runs and gives the unpadded run's bits; one pair more, the
-    wrapper raises without launching and the C launcher refuses."""
-    from mpc_tuning_tpu_torch.ops import _build
-
-    lib = _build.library()
-    inputs = _band_inputs(cuda, (127, 15), B=2, nit=6)
-    t, lc, Hp, r_l, nit, lp, s2, dims = inputs
-    nxa, nxp = t["A"].shape[0], t["Apl"].shape[0]
-
-    def c_plan(n, mc, pny, ny, nu):
-        vals = dict(B=2, nit=nit, lp_iters=lp, s2_iters=s2, ny=ny, nu=nu,
-                    nxa=nxa, nxp=nxp, pny=pny, n=n, mc=mc,
-                    nmv=mc - 2 * pny - 1)
-        d = (ctypes.c_int * len(K._BAND_DIMS))(*[vals[k]
-                                                 for k in K._BAND_DIMS])
-        b = ctypes.c_longlong()
-        return lib.mpc_closed_sim_band_plan(d, ctypes.byref(b)), b.value, d
-
-    for p_cap in (7, 15, 31, 48, 63, 127):
-        for m_cap in (1, 2, 4, 7, 15):
-            n, pny = 3 * m_cap + 1, 7 * p_cap
-            mc = 12 * m_cap + 2 * pny + 1
-            assert c_plan(n, mc, pny, 7, 3)[:2] == K.band_plan(
-                n, mc, pny, 7, 3, nxa, nxp), (p_cap, m_cap)
-    ref = K.closed_sim_band(*inputs)
-    pny = t["SxF"].shape[0]
-    for extra, fits in ((114, True), (115, False)):
-        padded = _pad_pairs(inputs, extra)
-        d = padded[-1]
-        C, b = K.band_plan(d["n"], d["mc"], pny + extra, 7, 3, nxa, nxp)
-        assert c_plan(d["n"], d["mc"], pny + extra, 7, 3)[:2] == (C, b)
-        if fits:
-            assert C == 4 and b > 226 * 1024
-            for x, y in zip(K.closed_sim_band(*padded), ref):
-                assert torch.equal(x, y)
-        else:
-            assert C == 0
-            before = K.launch_counts()
-            with pytest.raises(ValueError, match="shared memory"):
-                K.closed_sim_band(*padded)
-            assert K.launch_counts() == before
-            dims_c = c_plan(d["n"], d["mc"], pny + extra, 7, 3)[2]
-            ptrs = (ctypes.c_void_p * len(K._BAND_PTRS))()
-            scal = (ctypes.c_double * 5)()
-            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-            assert lib.mpc_closed_sim_band(ptrs, dims_c, scal, stream) != 0
 
 
 def test_closed_sim_band_refuses_float32(cuda):
