@@ -18,16 +18,23 @@ Phases, each printing one line (with its wall time):
        and at a ragged B = 37);
     2b the band kernel on Shell7x5 in float64, the only dtype band cases
        run at (caps (32,4), (127,2), (127,15), B=256, nit=200, the seeded
-       candidates of tools/band_spread.band_inputs), held at the limits
-       that tools/band_spread.py derives from two correct runs; then held
-       step by step by the LP certificate (ops/band_cert.hold: every
+       candidates of tools/band_spread.band_inputs), held at twice what
+       two correct runs differ by along the kernel's own U, measured in
+       the same run (tools/band_spread.band_witness / band_gate: the plain
+       version following the kernel's U moved one ulp up and down, and
+       reordered: its rows and later variables in reverse order); then
+       held step by step by the LP certificate (ops/band_cert.hold: every
        step's slack at the LP minimum, the first move where du is well
-       posed) at the reference's tuned point and on two seeded lanes;
+       posed) at the reference's tuned point and on two seeded lanes, and
+       on each bucket's tightest lane relative to correct runs of the
+       plain solve chain on the same QPs, step by step
+       (ops/band_cert.hold_relative);
     2c the per-step engines' kernels in float64 and float32: the lane-major
        factor/solve at n = 7, 17, 46 (B = 1024 and 37) and the
        single-solve PDIP and ADMM kernels on one real Shell3x3 step's QPs
        (caps (32,4), (127,15), B=1024), held at QP_LIMITS, fixed from what
-       two correct runs differ by;
+       two correct runs differ by; the warp-per-lane admm_fused also bit
+       for bit against the one-thread design it replaced (B = 1024, 37);
     2d the NMPC slice's kernels in float64 and float32: spd_solve at n = 5,
        17, 31; nmpc_rollout (Y and its Jacobian J, the plant step, the held
        playback) on 256 seeded Van de Vusse states at caps (31,15) and
@@ -41,7 +48,8 @@ Phases, each printing one line (with its wall time):
     float64 plain version on the CPU;
  3b. the band main path: a seeded Shell7x5 hybrid tune in float64 on the
     card (the full case: nit 200, nbp/nbc 7/4), launch counts, its last
-    band batch against the plain version, a validity check of the result
+    band batch against the plain version at 2b's live gate, a validity
+    check of the result
     and of ``shell7x5.final_simulation`` on the card;
  3c. the per-step engines' path: a seeded Shell3x3 hybrid tune in float32
     on the card (the full width, nbp/nbc 7/4, at nit 250 of the case's 500:
@@ -100,9 +108,10 @@ F32_PDIP_U_CAP = 0.1
 LOOP_GATE = 1e-2         # tuned closed loop y: float32 card vs float64 CPU
 # Band rows: float64 only (band cases refuse float32).  du is ill-posed on
 # degenerate band steps, so two correct float64 runs of the same loop
-# differ there; the limits (tools/band_spread.BAND_LIMITS) are fixed just
-# above what two correct runs differ by, per lane statistic and lane
-# quantile, as tools/band_spread.py measured it.
+# differ there, by an amount that depends on the trajectory; the limits
+# (tools/band_spread.band_gate) are twice what two correct runs differ by
+# along the kernel's own U, per lane statistic and lane quantile, measured
+# in the same run.
 U_BOUND = 0.5            # Shell7x5 |u| limit (raw units)
 # Single QP solves (phase 2c) on identical inputs, the kernel against its
 # plain version on the card: per-lane max |dz| and max |dlam| /
@@ -444,15 +453,11 @@ def follow_plain(name, args, kwargs, out_k):
     the same inputs,
     stepping the plant and model on the kernel's U (see ops/kernels.py):
     each step's QP is then solved from the state the kernel solved it in.
-    Returns the per-lane (dY, dU) against the kernel's output; for the band
-    kernel, tools/band_spread.band_lane_errors."""
+    Returns the per-lane (dY, dU) against the kernel's output."""
     from mpc_tuning_tpu_torch.ops import kernels as K
-    from mpc_tuning_tpu_torch.tools.band_spread import band_lane_errors
 
     out_p = getattr(K, PLAIN[name])(*args, **kwargs, u_follow=out_k[1])
     torch.cuda.synchronize()
-    if name == "closed_sim_band":
-        return band_lane_errors(out_k, out_p)
     return lane_errors(out_k, out_p)
 
 
@@ -537,19 +542,29 @@ def phase_kernels(problem):
 
 
 def phase_band_kernels(band_problem):
-    """2b. The band kernel vs its plain version, step by step, at float64;
-    returns the max |dY|, |dU| over the rows.  Every row prints before
-    the limits are applied."""
+    """2b. The band kernel vs its plain version, step by step, at float64,
+    held at the live witness's limits (tools/band_spread.band_gate); then
+    by the LP certificate at the tuned point and seeded lanes, and on each
+    bucket's tightest lane relative to the plain chain.  Returns the max
+    |dY|, |dU| over the rows.  Every row prints before the limits are
+    applied."""
     from mpc_tuning_tpu_torch.ops import kernels as K
-    from mpc_tuning_tpu_torch.tools.band_spread import (BAND_CAPS, band_gate,
-                                                        band_inputs)
+    from mpc_tuning_tpu_torch.ops.band_cert import REL_REPLICAS
+    from mpc_tuning_tpu_torch.tools.band_spread import (ADJUDICATED_LANES,
+                                                        BAND_CAPS,
+                                                        band_candidates,
+                                                        band_gate,
+                                                        band_inputs,
+                                                        band_lane_errors,
+                                                        band_witness,
+                                                        tightest_lane)
 
     t0 = time.perf_counter()
     B, nit = 256, 200
     err64 = 0.0
-    rows, bad = [], []
+    rows, bad, tight = [], [], []
     for caps in BAND_CAPS:
-        (t, lc, Hp, r_l, dims), _, _ = band_inputs(
+        (t, lc, Hp, r_l, dims), N, Nu = band_inputs(
             band_problem, caps, B, nit, torch.float64, caps[0])
         args = (t, lc, Hp, r_l, nit, 20, 12)
         kwargs = dict(dims=dims)
@@ -557,42 +572,89 @@ def phase_band_kernels(band_problem):
         torch.cuda.synchronize()
         if not all(torch.isfinite(x).all() for x in out_k):
             fail(f"closed_sim_band {caps}: non-finite output")
-        errs = follow_plain("closed_sim_band", args, kwargs, out_k)
-        ok, txt = band_gate(errs, caps)
-        rows.append(f"band{caps}: {txt}")
+        out_p = K.closed_sim_band_plain(*args, **kwargs, u_follow=out_k[1])
+        errs = band_lane_errors(out_k, out_p)
+        witness = band_witness(args, kwargs, out_k[1], out_p)
+        ok, txt, over = band_gate(errs, witness, caps)
+        b = tightest_lane(errs, witness)
+        rows.append(f"band{caps}: {txt}; tightest lane {b} (N {N[b]}, Nu "
+                    f"{Nu[b]}): kernel u {float(errs['u'][b]):.3e}, witness "
+                    f"{float(witness['u'][b]):.3e}")
+        lam = band_candidates(caps, B, caps[0])[2]
+        U, E = out_k[1].cpu().numpy(), out_k[2].cpu().numpy()
+        # the tightest lane, and the lanes over the live limits (if any) for
+        # the certificate to decide
+        for lane in [b] + [x for x in over or [] if x != b]:
+            tight.append((caps, lane, N, Nu, lam, U[:, :, lane], E[:, lane],
+                          "over the limits" if lane in (over or [])
+                          else "tightest"))
         err64 = max(err64, float(errs["y"].max()), float(errs["u"].max()))
-        if not ok:
+        if over is None:
             bad.append(rows[-1])
     print(f"[2b band kernel] Shell7x5 f64 B={B} nit={nit}, the plain version "
           f"following the kernel's U; per-lane statistics, lane quantiles "
-          f"p50/p90/p99/max (limits: tools/band_spread.BAND_LIMITS) | "
+          f"p50/p90/p99/max: the kernel, the live limit (twice the witness "
+          f"measured along the kernel's U, plus the floor) and the frozen "
+          f"tools/band_spread.BAND_LIMITS (printed, not applied); lanes over "
+          f"the live limits (at most {ADJUDICATED_LANES}, Y held) go to the "
+          f"certificate relative to the plain chain | "
           + " | ".join(rows)
           + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
     if bad:
-        fail("band rows above their limits: " + " | ".join(bad))
-    held = band_cert_hold(K.closed_sim_band, band_problem)
+        fail("band rows above their limits, past what the certificate "
+             "may decide: " + " | ".join(bad))
+    held = band_cert_hold(K.closed_sim_band, band_problem, tight)
     txt = " | ".join(f"{name}: steps {h['steps']} well posed "
                      f"{h['well_posed']} slack > 0 {h['eps_pos']} "
                      f"uncertified {h['uncertified']} slack {h['deps_rel']:.3e}"
                      f" du {h['du_well_posed']:.3e}"
                      for name, h in held["lanes"].items())
+    rel = " | ".join(f"{name}: {relative_text(h)}"
+                     for name, h in held["relative"].items())
     print(f"[2b band certificate] the kernel's run, B=1 at the tuned point "
           f"and {CERT_LANES[1] - 1} seeded lanes at {CERT_LANES[0]}, nit 200, "
           f"each step's QP harvested along its U and certified on the host "
-          f"(gates: {held['gates']}) | {txt} | wall_s={held['wall_s']:.1f}",
-          flush=True)
+          f"(gates: {held['gates']}) | {txt} | relative to the plain chain "
+          f"on the same QPs, each bucket's tightest lane and lanes over the "
+          f"live limits (per step, slack at most max({held['eps_rel']:g}, "
+          f"twice the largest of the plain chains' on that step), first move "
+          f"at most max({held['du_rel']:g}, the same); the chains as "
+          f"harvested and reordered, and {REL_REPLICAS} rounded where those "
+          f"two do not clear the run) | {rel} | "
+          f"wall_s={held['wall_s']:.1f}", flush=True)
     bad = [k for k, h in held["lanes"].items() if not h["ok"]]
+    bad += [k for k, h in held["relative"].items() if not h["ok"]]
     if bad:
-        fail(f"band kernel off its certificate on {bad}: {txt}")
+        fail(f"band kernel off its certificate on {bad}: {txt} | {rel}")
     return err64
 
 
-def band_cert_hold(kernel, band_problem):
+def relative_text(h):
+    """One line of ops/band_cert.hold_relative's verdict ``h``: the step
+    where the run is nearest each limit, its error and the limit there."""
+    return (f"kernel slack {h['run']['deps_rel']:.3e} du "
+            f"{h['run']['du_well_posed']:.3e} (uncertified "
+            f"{h['run']['uncertified']}); plain chains slack "
+            f"{h['plain']['deps_rel_frozen']:.3e} / "
+            f"{h['reordered']['deps_rel_frozen']:.3e} du "
+            f"{h['plain']['du_well_posed']:.3e} / "
+            f"{h['reordered']['du_well_posed']:.3e} (as harvested / "
+            f"reordered); {h['chains']} chains; nearest its limit: slack "
+            f"step {h['eps_step']} {h['eps_run']:.3e} (limit "
+            f"{h['eps_limit']:.3e}), du step {h['du_step']} "
+            f"{h['du_run']:.3e} (limit {h['du_limit']:.3e}): "
+            f"{'passes' if h['ok'] else 'FAILS'}")
+
+
+def band_cert_hold(kernel, band_problem, tight=()):
     """The band kernel ``kernel`` (closed_sim_band's arguments; (Y, U, E))
     held step by step by the LP certificate (ops/band_cert.hold): at the
     reference's tuned point (its own conditioning frame, B = 1, nit 200)
-    and on CERT_LANES' seeded lanes of ``band_problem``.  Returns
-    {"lanes": {name: hold's dict}, "gates": text, "wall_s": s}."""
+    and on CERT_LANES' seeded lanes of ``band_problem``; and each of
+    ``tight``'s lanes ((caps, lane, N, Nu, lam, U, E, why) of a phase 2b
+    bucket) relative to the plain chain (ops/band_cert.hold_relative).
+    Returns {"lanes": {name: hold's dict}, "relative": {name:
+    hold_relative's dict}, "gates": text, "eps_rel", "du_rel", "wall_s"}."""
     import os
 
     from mpc_tuning_tpu_torch.cases import shell7x5
@@ -611,7 +673,7 @@ def band_cert_hold(kernel, band_problem):
     runs = (("tuned", tuned, [ref.N], [int(ref.Nu.max())], ref.lam[None],
              None, [0]),
             ("seeded", band_problem, N, Nu, lam, caps, range(1, B)))
-    lanes = {}
+    lanes, relative = {}, {}
     with bc.certify_pool(workers) as pool:
         for name, problem, N, Nu, lam, caps, take in runs:
             r_b = np.broadcast_to(problem.r[:nit], (len(N), nit, 7))
@@ -624,9 +686,16 @@ def band_cert_hold(kernel, band_problem):
                 lanes[f"{name} lane {b} (N {N[b]}, Nu {Nu[b]})"] = bc.hold(
                     problem, N[b], Nu[b], np.zeros(7), lam[b], U[:, :, b],
                     E[:, b], caps=(int(N[b]), int(Nu[b])), pool=pool)
+        for caps, b, N, Nu, lam, U, E, why in tight:
+            relative[f"{caps} lane {b} (N {N[b]}, Nu {Nu[b]}; {why})"] = \
+                bc.hold_relative(band_problem, N[b], Nu[b], np.zeros(7),
+                                 lam[b], U, E, caps=(int(N[b]), int(Nu[b])),
+                                 pool=pool, device="cuda")
     gates = (f"slack {bc.HOLD_EPS_REL:g} relative on every step, first move "
              f"{bc.HOLD_DU:g} where du_sens < {bc.DU_SENS_BAR:g}")
-    return dict(lanes=lanes, gates=gates, wall_s=time.perf_counter() - t0)
+    return dict(lanes=lanes, relative=relative, gates=gates,
+                eps_rel=bc.HOLD_EPS_REL, du_rel=bc.HOLD_DU,
+                wall_s=time.perf_counter() - t0)
 
 
 STEP_TAKE = 85  # the Shell3x3 step whose QPs phase 2c solves (after the
@@ -767,10 +836,25 @@ def phase_step_kernels(s3_problem):
                                for q, l in zip(lane_quantiles(errs[k]),
                                                lim[k]))):
                     bad.append(rows[-1])
+            # the warp-per-lane admm_fused against the one-thread design it
+            # replaced, bit for bit, at B and at a ragged 37
+            for Bs in (B, 37):
+                args = step_qp_args(s3_problem, caps, Bs, dtype, "admm_fused",
+                                    caps[0])[0]
+                out_k = K.admm_fused(*args)
+                out_o = K.admm_fused_one_thread(*args)
+                torch.cuda.synchronize()
+                differ = sum(int((a != b).sum()) for a, b in zip(out_k, out_o))
+                rows.append(f"admm_fused{caps} B={Bs}:{tag} vs the one-thread "
+                            f"design: {differ} of "
+                            f"{sum(a.numel() for a in out_k)} elements differ")
+                if differ:
+                    bad.append(rows[-1])
     print(f"[2c step kernels] B={B}; Shell3x3 QPs of step {STEP_TAKE}; "
           f"gates: lanes f64 {F64_SPD_GATE:g}, f32 {F32_SPD_GATE:g} "
           f"relative; QPs: f64 first move du {F64_SIM_GATE:g} on every "
-          f"lane, z and lam at QP_LIMITS (lane quantiles p50/p90/p99/max) | "
+          f"lane, z and lam at QP_LIMITS (lane quantiles p50/p90/p99/max); "
+          f"admm_fused bit for bit against its one-thread design | "
           + " | ".join(rows)
           + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
     if bad:
@@ -884,18 +968,34 @@ def phase_band_main_path():
     the launch counts."""
     from mpc_tuning_tpu_torch.cases import shell7x5
     from mpc_tuning_tpu_torch.ops import kernels as K
-    from mpc_tuning_tpu_torch.tools.band_spread import band_gate
+    from mpc_tuning_tpu_torch.sim import mpc_loop
+    from mpc_tuning_tpu_torch.tools.band_spread import (band_gate,
+                                                        band_lane_errors,
+                                                        band_witness)
     from mpc_tuning_tpu_torch.tuning.api import mpc_tuning
 
     case = shell7x5.make_case()
     last = {}
     undo = keep_last_launches(last)
+    # the candidates of the last band batch, for the certificate
+    batch = mpc_loop.MPCLoop.closed_batch
+
+    def closed_batch(self, r_b, v, N_b, Nu_b, delta_b, lam_b, *a, **kw):
+        last["candidates"] = (np.asarray(N_b), np.asarray(Nu_b),
+                              np.asarray(delta_b), np.asarray(lam_b))
+        return batch(self, r_b, v, N_b, Nu_b, delta_b, lam_b, *a, **kw)
+
+    mpc_loop.MPCLoop.closed_batch = closed_batch
     K.reset_launches()
     t0 = time.perf_counter()
-    res = mpc_tuning(case, dtype=torch.float64, device="cuda", qp_iters=60,
-                     gam_popsize=8, gam_generations=3, max_alternations=1,
-                     seed=0, checkpoint_dir=None, verbose=False)
-    torch.cuda.synchronize()
+    try:
+        res = mpc_tuning(case, dtype=torch.float64, device="cuda",
+                         qp_iters=60, gam_popsize=8, gam_generations=3,
+                         max_alternations=1, seed=0, checkpoint_dir=None,
+                         verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        mpc_loop.MPCLoop.closed_batch = batch
     wall = time.perf_counter() - t0
     launches = K.launch_counts()
     undo()
@@ -909,14 +1009,35 @@ def phase_band_main_path():
         fail(f"invalid band tuning result N={res.N} Nu={Nu} "
              f"delta={res.delta} lam={lam}")
 
+    # the tune's last band batch, held at the live witness along its U
     args, kwargs, out_k = last["closed_sim_band"]
     dims = kwargs["dims"]
     caps = (args[0]["SxF"].shape[0] // dims["ny"], dims["m_max"])
-    ok, held = band_gate(follow_plain("closed_sim_band", args, kwargs, out_k),
-                         caps)
-    held = f"B={out_k[0].shape[2]} caps={caps}: {held}"
-    if not ok:
+    t1 = time.perf_counter()
+    out_p = K.closed_sim_band_plain(*args, **kwargs, u_follow=out_k[1])
+    ok, held, over = band_gate(band_lane_errors(out_k, out_p),
+                               band_witness(args, kwargs, out_k[1], out_p),
+                               caps)
+    held = (f"B={out_k[0].shape[2]} caps={caps}: {held} (plain runs "
+            f"{time.perf_counter() - t1:.1f} s)")
+    if over is None:
         fail(f"band main path's last batch {held}: above its gate")
+    if over:  # the lanes over the live limits, decided by the certificate
+        import os
+
+        from mpc_tuning_tpu_torch.ops import band_cert as bc
+
+        N_b, Nu_b, d_b, l_b = last["candidates"]
+        U, E = out_k[1].cpu().numpy(), out_k[2].cpu().numpy()
+        with bc.certify_pool(min(8, os.cpu_count() or 1)) as pool:
+            rel = {b: bc.hold_relative(
+                res.problem, N_b[b], Nu_b[b], d_b[b], l_b[b], U[:, :, b],
+                E[:, b], caps=(int(N_b[b]), int(Nu_b[b])), pool=pool,
+                device="cuda") for b in over}
+        held += " | certificate relative to the plain chain: " + "; ".join(
+            f"lane {b}: {relative_text(h)}" for b, h in rel.items())
+        if not all(h["ok"] for h in rel.values()):
+            fail(f"band main path's last batch {held}: off its certificate")
 
     t1 = time.perf_counter()
     y, u = shell7x5.final_simulation(case, res)
@@ -1175,12 +1296,64 @@ def phase_throughput(problem, band_problem):
         rows.append(dict(row, caps=caps))
     rec["closed_sim_band"] = dict(rows[0], shapes=rows)
     txt.append("closed_sim_band f64 nit=200 lp/s2=20/12: " + "; ".join(
-        f"B={r['B']} caps={r['caps']}: kernel {r['ms']:.3f} ms (device {fmt_ms(r['device_ms'])}), bound "
+        f"B={r['B']} caps={r['caps']}: kernel {r['ms']:.3f} ms (device "
+        f"{fmt_ms(r['device_ms'])}), bound "
         f"{r['bound_ms']:.5f} ({r['bound_by']})"
         + (f", plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
         for r in rows))
     print("[4 throughput] " + " | ".join(txt)
           + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
+    return rec
+
+
+# Phase 4's shapes of admm_fused beyond the record's (WB B=8192 (64,8)):
+# the Shell3x3 tune's VNS batches at its widest bucket, f32, 40 iterations,
+# one step's QPs (STEP_TAKE): one candidate's three selector lanes and a
+# neighbourhood of 19 candidates
+ADMM_FUSED_SHAPES = (((127, 15), 3), ((127, 15), 57))
+
+
+def admm_fused_record(rec, args, txt):
+    """admm_fused's phase-4 record ``rec`` (its ms, plain ms and bound on
+    ``args``, the record's shape) with the device ms and the one-thread
+    design's ms there, and the same at ADMM_FUSED_SHAPES on Shell3x3
+    (under 'shapes'); appends the text to ``txt``."""
+    from mpc_tuning_tpu_torch.cases import shell3x3
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.tuning.api import build_problem
+
+    def times(a):
+        new = lambda: K.admm_fused(*a)
+        old = lambda: K.admm_fused_one_thread(*a)
+        return dict(ms=timed(new, 20)[0], device_ms=device_ms(new),
+                    old_ms=timed(old, 20)[0], old_device_ms=device_ms(old))
+
+    rec = dict(rec, **times(args))
+    rows = [dict(case="woodberry", caps=(64, 8), B=args[1].shape[1],
+                 **{k: rec[k] for k in ("ms", "device_ms", "old_ms",
+                                        "old_device_ms", "bound_ms",
+                                        "bound_by")})]
+    s3, _ = build_problem(shell3x3.make_case(), device="cuda")
+    for caps, B in ADMM_FUSED_SHAPES:
+        a, N, Nu, t, dims = step_qp_args(s3, caps, B, torch.float32,
+                                         "admm_fused", caps[0])
+        G = a[7]
+        read = [x for x in a if isinstance(x, torch.Tensor)] + [a[6]]
+        read += [G[k] for k in ("g_ptr", "g_col", "g_val", "gt_ptr", "gt_row",
+                                "gt_val")]
+        b, by = bound_ms(nbytes(read, a[6]),
+                         sim_flops("closed_sim_admm", t, dims, 1, 40, N, Nu,
+                                   loop=False), torch.float32)
+        rows.append(dict(case="shell3x3", caps=caps, B=B, bound_ms=b,
+                         bound_by=by, **times(a)))
+    rec["shapes"] = rows
+    txt.append("admm_fused f32 40 it., one step's QPs, warp per lane vs the "
+               "one-thread design: " + "; ".join(
+                   f"{r['case']} B={r['B']} caps={r['caps']}: kernel "
+                   f"{r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), "
+                   f"one-thread {r['old_ms']:.4f} ms (device "
+                   f"{fmt_ms(r['old_device_ms'])}), bound "
+                   f"{r['bound_ms']:.5f} ({r['bound_by']})" for r in rows))
     return rec
 
 
@@ -1233,6 +1406,8 @@ def phase_step_throughput(problem):
                                    iters, N, Nu, loop=False), f32)
         rec[name] = dict(ms=ms, plain_ms=pm, bound_ms=b, bound_by=by,
                          library_ms=None)
+        if name == "admm_fused":
+            rec[name] = admm_fused_record(rec[name], args, txt)
         # one whole evaluation (nit 400) through the per-step engine and
         # through the whole-sim kernel of the same algorithm
         inp, _, _ = sim_inputs(problem, caps, B, 400, f32, engine, seed,

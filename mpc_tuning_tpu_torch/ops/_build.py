@@ -18,7 +18,7 @@ import pathlib
 import shutil
 import subprocess
 
-__all__ = ["library", "build_seconds"]
+__all__ = ["library", "reference_library", "build_seconds"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "_build"
@@ -26,11 +26,12 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC")
 
 _lib = None
+_ref = None
 build_seconds = None  # wall seconds of the last build in this process
 
 
-def _sources():
-    return sorted(list(_CSRC.glob("*.cu")) + list(_CSRC.glob("*.cuh")))
+def _sources(d=_CSRC):
+    return sorted(list(d.glob("*.cu")) + list(d.glob("*.cuh")))
 
 
 def _nvcc() -> str:
@@ -109,27 +110,53 @@ def _compile(srcs, so):
     shutil.rmtree(tmp, ignore_errors=True)
 
 
-def library():
-    """The loaded kernel library, built first if needed."""
-    global _lib, build_seconds
-    if _lib is not None:
-        return _lib
+def _built(name, srcs, hashed):
+    """The shared library ``name`` of the .cu files in ``srcs``, keyed on a
+    hash of ``hashed`` (the sources and the headers they include) and the
+    flags; built first if needed.  Returns (path, seconds of the build or
+    None)."""
     import time
 
-    srcs = _sources()
     h = hashlib.sha256()
-    for p in srcs:
+    for p in hashed:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(_NVCC_FLAGS).encode())
-    so = _BUILD / f"libmpc_kernels_{h.hexdigest()[:16]}.so"
-    if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        _compile([p for p in srcs if p.suffix == ".cu"], so)
-        build_seconds = time.perf_counter() - t0
-    _lib = _bind(ctypes.CDLL(str(so)))
+    so = _BUILD / f"lib{name}_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so, None
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _compile([p for p in srcs if p.suffix == ".cu"], so)
+    return so, time.perf_counter() - t0
+
+
+def library():
+    """The loaded kernel library, built first if needed."""
+    global _lib, build_seconds
+    if _lib is None:
+        srcs = _sources()
+        so, secs = _built("mpc_kernels", srcs, srcs)
+        build_seconds = secs if secs is not None else build_seconds
+        _lib = _bind(ctypes.CDLL(str(so)))
     return _lib
+
+
+def reference_library():
+    """The library of ``csrc/reference/`` (earlier designs of a kernel,
+    kept as the bit-for-bit reference of its replacement; no path of the
+    port calls them), built first if needed."""
+    global _ref
+    if _ref is None:
+        srcs = _sources(_CSRC / "reference")
+        so, _ = _built("mpc_reference", srcs, srcs + _sources())
+        _ref = ctypes.CDLL(str(so))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        _ref.mpc_admm_fused_one_thread.argtypes = [
+            i, ctypes.POINTER(vp), ctypes.POINTER(i),
+            ctypes.POINTER(ctypes.c_double), vp]
+        _ref.mpc_admm_fused_one_thread.restype = i
+    return _ref
 
 
 def check(code: int, what: str):

@@ -1,6 +1,7 @@
-// Per-lane QP device code shared by the whole-sim kernels (closed_sim.cu)
-// and the single-solve kernels (qp_fused.cu): one thread solves one
-// candidate lane's masked MPC QP
+// Per-lane QP device code of the single-solve PDIP kernel (qp_fused.cu
+// pdip_fused) and of the one-thread ADMM reference
+// (reference/admm_fused_one_thread.cu): one thread solves one candidate
+// lane's masked MPC QP
 //
 //     min 1/2 z'Hz + f'z   s.t.  G z <= h,   G = diag(rmask) G0 diag(cmask)
 //

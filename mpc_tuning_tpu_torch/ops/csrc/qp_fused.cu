@@ -4,21 +4,35 @@
 // mpc_tuning_tpu/ops/pallas_kernels.py.  One launch solves one closed-loop
 // step's QP for every candidate lane: all `iters` warm-started masked
 // Mehrotra iterations (pdip_fused) or all `iters` warm equilibrated ADMM
-// iterations (admm_fused), with the per-lane device code of lane_qp.cuh
-// that the whole-sim kernels (closed_sim.cu) run at every step.
+// iterations (admm_fused).
 //
-// What bounds them on an H100: one thread per lane runs a serial chain of
-// small dependent loops (iters x a few thousand multiply-adds), so time is
-// set by instruction latency and by how many lanes are in flight, not by
-// the bytes moved (each input read once, each output written once) or by
-// FLOP/s.  The design keeps the lane's vectors and its normal matrix in a
-// lane-major scratch buffer (row * B + lane: a warp's loads are one
-// coalesced line) and reads G0 through its CSR, as closed_sim.cu does; the
-// TPU kernels' (8, 128) tile padding is dropped, and the solves substitute
-// with the factor in place of the TPU kernel's explicit L^{-1} (the two
-// differ only in rounding).
+// What bounds them on an H100: each lane is a serial chain of small
+// dependent loops (iters x a few thousand multiply-adds), so time is set
+// by instruction latency and by how many lanes are in flight, not by the
+// bytes moved (each input read once, each output written once) or by
+// FLOP/s.
+//
+// pdip_fused runs one thread per lane with the per-lane device code of
+// lane_qp.cuh, its vectors and normal matrix in a lane-major scratch
+// buffer (row * B + lane: a warp's loads are one coalesced line), G0 read
+// through its CSR; the solves substitute with the factor in place of the
+// TPU kernel's explicit L^{-1} (the two differ only in rounding).
+//
+// admm_fused runs one warp per lane, the design of the whole-sim ADMM
+// kernel (closed_sim.cu): W = QpShape<T>::kW lanes a block (4 at float, 2
+// at double), each lane's Minv tile (row stride factor_ld(n)), its
+// vectors and its staged constants in its warp's share of shared memory
+// (AdmmLayout), copied there once per launch with cp.async, and the
+// iterations of warp_qp.cuh's warp_admm, which spreads each one over rows
+// and columns (one dot deep) and forms every dot in the one-thread order:
+// the result is the one-thread kernel's (ops/csrc/reference/
+// admm_fused_one_thread.cu), bit for bit.  The TPU kernels' (8, 128) tile
+// padding is dropped.  Envelope (ops/kernels.admm_fused_envelope holds the
+// same arithmetic): W AdmmLayout::total elements of shared memory a block,
+// at most kFactorSmemMax; the launcher refuses outside it.
 
 #include "lane_qp.cuh"
+#include "warp_qp.cuh"
 
 namespace mpc {
 
@@ -104,8 +118,13 @@ pdip_fused_kernel(const PdipFusedArgs<T> a) {
 }
 
 template <typename T>
+struct QpShape {
+  static constexpr int kW = sizeof(T) == 8 ? 2 : 4;
+};
+
+template <typename T>
 struct AdmmFusedArgs {
-  Csr<T> g;
+  GSparse<T> g;   // G0's CSR by rows and columns (no entry terms)
   const T* Minv;  // (n, n, B)
   const T* fs;    // (n, B)
   const T* hs;    // (mc, B)
@@ -118,38 +137,83 @@ struct AdmmFusedArgs {
   T* x;           // (n, B)
   T* zc;          // (mc, B)
   T* y;           // (mc, B)
-  T* work;        // (n, B): the rhs
   int B, n, mc, iters;
   T sigma, alpha;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kQpThreads)
-admm_fused_kernel(const AdmmFusedArgs<T> a) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.B) return;
-  const int B = a.B;
-  AdmmLane<T> v;
-  v.fs = Lane<T>{const_cast<T*>(a.fs) + lane, B};  // inputs, only read
-  v.hs = Lane<T>{const_cast<T*>(a.hs) + lane, B};
-  v.arow = clane_at(a.arow, B, lane);
-  v.acol = clane_at(a.acol, B, lane);
-  v.Minv = clane_at(a.Minv, B, lane);
-  v.x = lane_at(a.x, 0, B, lane);
-  v.zc = lane_at(a.zc, 0, B, lane);
-  v.y = lane_at(a.y, 0, B, lane);
-  v.rhs = lane_at(a.work, 0, B, lane);
-  v.rho = a.par[lane];
-  v.rho_inv = a.par[(size_t)B + lane];
-  const CLane<T> x0 = clane_at(a.x0, B, lane);
-  const CLane<T> zc0 = clane_at(a.zc0, B, lane);
-  const CLane<T> y0 = clane_at(a.y0, B, lane);
-  for (int i = 0; i < a.n; ++i) v.x[i] = x0[i];
-  for (int r = 0; r < a.mc; ++r) {
-    v.zc[r] = zc0[r];
-    v.y[r] = y0[r];
+// Offsets (in elements of T) of one lane's data in its warp's share of
+// shared memory: the Minv tile, the n-vectors, then the mc-vectors.
+struct AdmmLayout {
+  size_t Minv, fs, acol, x, rhs, hs, arow, zc, y, total;
+  __host__ __device__ AdmmLayout(int n, int mc) {
+    size_t o = 0;
+    Minv = o; o += (size_t)n * factor_ld(n);
+    fs = o; o += n;
+    acol = o; o += n;
+    x = o; o += n;
+    rhs = o; o += n;
+    hs = o; o += mc;
+    arow = o; o += mc;
+    zc = o; o += mc;
+    y = o; o += mc;
+    total = o;
   }
-  admm_iterations(a.g, v, a.n, a.mc, a.iters, a.sigma, a.alpha);
+};
+
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, int rows, int B,
+                                      int b, int ln) {
+  for (int i = ln; i < rows; i += 32)
+    cp_async(dst + i, src + (size_t)i * B + b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * QpShape<T>::kW)
+    admm_fused_kernel(const __grid_constant__ AdmmFusedArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wi = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const int b = blockIdx.x * QpShape<T>::kW + wi;
+  if (b >= a.B) return;
+  const int B = a.B, n = a.n, mc = a.mc, ld = factor_ld(n);
+  const AdmmLayout lay(n, mc);
+  T* sm = reinterpret_cast<T*>(smem_raw) + (size_t)wi * lay.total;
+  WarpAdmm<T> v;
+  T* Minv = sm + lay.Minv;
+  T* fs = sm + lay.fs;
+  T* acol = sm + lay.acol;
+  T* hs = sm + lay.hs;
+  T* arow = sm + lay.arow;
+  v.fs = fs;
+  v.hs = hs;
+  v.arow = arow;
+  v.acol = acol;
+  v.Minv = Minv;
+  v.x = sm + lay.x;
+  v.zc = sm + lay.zc;
+  v.y = sm + lay.y;
+  v.rhs = sm + lay.rhs;
+  v.rho = a.par[b];
+  v.rho_inv = a.par[(size_t)B + b];
+  v.ld = ld;
+  for (int el = ln; el < n * n; el += 32) {
+    const int i = el / n;
+    cp_async(Minv + i * ld + (el - i * n), a.Minv + (size_t)el * B + b);
+  }
+  stage(fs, a.fs, n, B, b, ln);
+  stage(acol, a.acol, n, B, b, ln);
+  stage(hs, a.hs, mc, B, b, ln);
+  stage(arow, a.arow, mc, B, b, ln);
+  stage(v.x, a.x0, n, B, b, ln);
+  stage(v.zc, a.zc0, mc, B, b, ln);
+  stage(v.y, a.y0, mc, B, b, ln);
+  cp_async_wait();
+  __syncwarp();
+  warp_admm(a.g, v, n, mc, a.iters, a.sigma, a.alpha, ln);
+  for (int i = ln; i < n; i += 32) a.x[(size_t)i * B + b] = v.x[i];
+  for (int r = ln; r < mc; r += 32) {
+    a.zc[(size_t)r * B + b] = v.zc[r];
+    a.y[(size_t)r * B + b] = v.y[r];
+  }
 }
 
 // ----------------------------------------------------------------- launch
@@ -160,7 +224,7 @@ enum { C_GPTR, C_GCOL, C_GVAL, C_GTPTR, C_GTROW, C_GTVAL, C_COUNT };
 enum { PF_HP = C_COUNT, PF_F, PF_H, PF_RMASK, PF_CMASK, PF_Z0, PF_LAM0, PF_Z,
        PF_LAM, PF_S, PF_WORK, PF_COUNT };
 enum { AF_MINV = C_COUNT, AF_FS, AF_HS, AF_AROW, AF_ACOL, AF_PAR, AF_X0,
-       AF_ZC0, AF_Y0, AF_X, AF_ZC, AF_Y, AF_WORK, AF_COUNT };
+       AF_ZC0, AF_Y0, AF_X, AF_ZC, AF_Y, AF_COUNT };
 // dims: B, n, mc, iters
 enum { QD_B, QD_N, QD_MC, QD_ITERS, QD_COUNT };
 
@@ -202,11 +266,27 @@ int launch_pdip_fused(void* const* p, const int* d, const double* c,
   return (int)cudaGetLastError();
 }
 
+namespace {
+// The dynamic shared memory admm_fused (by dtype) is allowed on each device
+// so far: above 48 KB a launch's has to be allowed, once a kernel and
+// device, for the most any launch has needed.  Internal linkage, so two
+// libraries loaded in one process keep their own.
+constexpr int kMaxDevices = 64;
+int g_admm_smem[2][kMaxDevices];
+}  // namespace
+
 template <typename T>
 int launch_admm_fused(void* const* p, const int* d, const double* c,
                       cudaStream_t st) {
+  constexpr int W = QpShape<T>::kW;
   AdmmFusedArgs<T> a;
-  a.g = csr_of<T>(p);
+  a.g = GSparse<T>{static_cast<const int*>(p[C_GPTR]),
+                   static_cast<const int*>(p[C_GCOL]),
+                   static_cast<const T*>(p[C_GVAL]),
+                   static_cast<const int*>(p[C_GTPTR]),
+                   static_cast<const int*>(p[C_GTROW]),
+                   static_cast<const T*>(p[C_GTVAL]),
+                   nullptr, nullptr, nullptr};
   a.Minv = static_cast<const T*>(p[AF_MINV]);
   a.fs = static_cast<const T*>(p[AF_FS]);
   a.hs = static_cast<const T*>(p[AF_HS]);
@@ -219,15 +299,32 @@ int launch_admm_fused(void* const* p, const int* d, const double* c,
   a.x = static_cast<T*>(p[AF_X]);
   a.zc = static_cast<T*>(p[AF_ZC]);
   a.y = static_cast<T*>(p[AF_Y]);
-  a.work = static_cast<T*>(p[AF_WORK]);
   a.B = d[QD_B];
   a.n = d[QD_N];
   a.mc = d[QD_MC];
   a.iters = d[QD_ITERS];
   a.sigma = static_cast<T>(c[0]);
   a.alpha = static_cast<T>(c[1]);
-  const int blocks = (a.B + kQpThreads - 1) / kQpThreads;
-  admm_fused_kernel<T><<<blocks, kQpThreads, 0, st>>>(a);
+  const long long smem =
+      (long long)W * AdmmLayout(a.n, a.mc).total * sizeof(T);
+  if (a.n < 1 || a.mc < 1 || smem > kFactorSmemMax)
+    return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess && dev >= kMaxDevices) e = cudaErrorInvalidDevice;
+    if (e != cudaSuccess) return (int)e;
+    int& allowed = g_admm_smem[sizeof(T) == 8][dev];
+    if (smem > allowed) {
+      e = cudaFuncSetAttribute(admm_fused_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return (int)e;
+      allowed = (int)smem;
+    }
+  }
+  const int blocks = (a.B + W - 1) / W;
+  admm_fused_kernel<T><<<blocks, 32 * W, (int)smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -253,6 +350,7 @@ int mpc_pdip_fused(int is_f64, void* const* ptrs, const int* dims,
                 : mpc::launch_pdip_fused<float>(ptrs, dims, scal, st);
 }
 
+// Refuses (cudaErrorInvalidValue, nothing launched) outside the envelope.
 int mpc_admm_fused(int is_f64, void* const* ptrs, const int* dims,
                    const double* scal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,5 +1,6 @@
-// Per-lane QP device code of the whole-sim kernels (closed_sim.cu), one
-// warp per candidate lane: the lane's masked MPC QP
+// Per-lane QP device code of the whole-sim kernels (closed_sim.cu) and of
+// the single-solve ADMM kernel (qp_fused.cu admm_fused), one warp per
+// candidate lane: the lane's masked MPC QP
 //
 //     min 1/2 z'Hz + f'z   s.t.  G z <= h,   G = diag(rmask) G0 diag(cmask)
 //

@@ -300,18 +300,21 @@ solve_lanes.launches = 0
 #                'pdip_ws_fused');
 #   admm_fused — replaces admm_fused_lanes / _admm_fused_kernel: `iters`
 #                warm equilibrated ADMM iterations (engine 'admm_fused').
-# Both run one thread per lane (ops/csrc/lane_qp.cuh; see
-# ops/csrc/qp_fused.cu for what bounds them), the algorithms that the
-# whole-sim kernels run one warp per lane at every step.  The shared
-# constraint matrix comes as ``g_shared(G0, T2T)``, built once per
-# evaluation.
+# pdip_fused runs one thread per lane (ops/csrc/lane_qp.cuh); admm_fused
+# one warp per lane, the design of the whole-sim ADMM kernel
+# (ops/csrc/warp_qp.cuh), within ``admm_fused_envelope`` (see
+# ops/csrc/qp_fused.cu for what bounds them).  The shared constraint matrix
+# comes as ``g_shared(G0, T2T)``, built once per evaluation.
 
 _QP_CSR = ("g_ptr", "g_col", "g_val", "gt_ptr", "gt_row", "gt_val")
 # argument order of the C launchers (ops/csrc/qp_fused.cu, enums PF_* / AF_*)
 _PDIP_PTRS = _QP_CSR + ("Hp", "f", "h", "rmask", "cmask", "z0", "lam0", "z",
                         "lam", "s", "work")
 _ADMM_PTRS = _QP_CSR + ("Minv", "fs", "hs", "arow", "acol", "par", "x0",
-                        "zc0", "y0", "x", "zc", "y", "work")
+                        "zc0", "y0", "x", "zc", "y")
+# ... and of the one-thread ADMM reference (ops/csrc/reference/
+# admm_fused_one_thread.cu), with its lane-major rhs scratch
+_ADMM_ONE_THREAD_PTRS = _ADMM_PTRS + ("work",)
 
 
 def g_shared(G0, T2T=None):
@@ -325,15 +328,16 @@ def g_shared(G0, T2T=None):
 
 
 def _launch_qp(fn, ptr_count, names, bufs, dims, scal, dtype, what):
-    if ptr_count() != len(names) or \
-            _build.library().mpc_qp_fused_dim_count() != len(dims):
+    if ptr_count is not None and (
+            ptr_count() != len(names)
+            or _build.library().mpc_qp_fused_dim_count() != len(dims)):
         raise RuntimeError(f"{what} argument layout mismatch")
     ptrs = (ctypes.c_void_p * len(names))(
         *[bufs[k].data_ptr() if bufs[k].numel() else None for k in names])
     _build.check(fn(int(dtype == torch.float64), ptrs,
                     (ctypes.c_int * len(dims))(*dims),
                     (ctypes.c_double * len(scal))(*scal),
-                    _stream(bufs["work"])), what)
+                    _stream(bufs[names[len(_QP_CSR)]])), what)
 
 
 def _require_g(G, dtype, mc, n, device):
@@ -405,16 +409,28 @@ def admm_fused_plain(Minv_t, fs, hs, arow, acol, par, state, G, iters,
     return x, zc, yd
 
 
-def admm_fused(Minv_t, fs, hs, arow, acol, par, state, G, iters, sigma,
-               over_relax):
-    """`iters` warm equilibrated ADMM iterations per lane in one launch,
-    in scaled coordinates: Minv_t (n, n, B) = (Hs + sigma I + rho Gs'Gs)^-1
-    with Gs = diag(arow) G0 diag(acol), fs (n, B), hs (mc, B), arow
-    (mc, B), acol (n, B), par (2, B) = (rho, 1 / rho), state = (x (n, B),
-    zc (mc, B), y (mc, B)), G = ``g_shared(G0)``.  Returns the new state."""
-    if _on_cpu(Minv_t, fs):
-        return admm_fused_plain(Minv_t, fs, hs, arow, acol, par, state, G,
-                                iters, sigma, over_relax)
+def admm_fused_envelope(dtype, n, mc):
+    """(lanes per block, shared-memory bytes per block) of the
+    single-solve ADMM kernel (ops/csrc/qp_fused.cu, QpShape / AdmmLayout):
+    one warp per lane, 4 lanes a block at float32 and 2 at float64; each
+    lane's Minv tile (row stride n | 1), four n-vectors and four
+    mc-vectors in shared memory, at most FACTOR_SMEM_MAX bytes a block.
+    Raises ValueError outside the envelope."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"kernels take float32 or float64, got {dtype}")
+    f64 = dtype == torch.float64
+    per_block = 2 if f64 else 4
+    smem = per_block * (n * (n | 1) + 4 * n + 4 * mc) * (8 if f64 else 4)
+    if not (n >= 1 and mc >= 1 and smem <= FACTOR_SMEM_MAX):
+        raise ValueError(
+            f"admm_fused kernel: n = {n}, mc = {mc} at {dtype} needs {smem} "
+            f"bytes of shared memory a block, at most {FACTOR_SMEM_MAX}")
+    return per_block, smem
+
+
+def _admm_bufs(Minv_t, fs, hs, arow, acol, par, state, G):
+    """Checked launch buffers of an ADMM single solve: inputs and the new
+    state (x, zc, y)."""
     dtype = _float_dtype(fs)
     n, B = fs.shape
     mc = hs.shape[0]
@@ -424,20 +440,52 @@ def admm_fused(Minv_t, fs, hs, arow, acol, par, state, G, iters, sigma,
                        ("zc0", state[1], mc), ("y0", state[2], mc)):
         _require(x, (rows, B), dtype, k)
     _require_g(G, dtype, mc, n, fs.device)
-    lib = _build.library()
     kw = dict(dtype=dtype, device=fs.device)
     x, zc, y = (torch.empty((rows, B), **kw) for rows in (n, mc, mc))
-    bufs = dict(G, Minv=Minv_t, fs=fs, hs=hs, arow=arow, acol=acol, par=par,
-                x0=state[0], zc0=state[1], y0=state[2], x=x, zc=zc, y=y,
-                work=torch.empty((n * B,), **kw))
+    return dict(G, Minv=Minv_t, fs=fs, hs=hs, arow=arow, acol=acol, par=par,
+                x0=state[0], zc0=state[1], y0=state[2], x=x, zc=zc, y=y)
+
+
+def admm_fused(Minv_t, fs, hs, arow, acol, par, state, G, iters, sigma,
+               over_relax):
+    """`iters` warm equilibrated ADMM iterations per lane in one launch,
+    in scaled coordinates: Minv_t (n, n, B) = (Hs + sigma I + rho Gs'Gs)^-1
+    with Gs = diag(arow) G0 diag(acol), fs (n, B), hs (mc, B), arow
+    (mc, B), acol (n, B), par (2, B) = (rho, 1 / rho), state = (x (n, B),
+    zc (mc, B), y (mc, B)), G = ``g_shared(G0)``.  Returns the new state.
+    Raises outside ``admm_fused_envelope``."""
+    if _on_cpu(Minv_t, fs):
+        return admm_fused_plain(Minv_t, fs, hs, arow, acol, par, state, G,
+                                iters, sigma, over_relax)
+    bufs = _admm_bufs(Minv_t, fs, hs, arow, acol, par, state, G)
+    n, B = fs.shape
+    mc = hs.shape[0]
+    admm_fused_envelope(fs.dtype, n, mc)
+    lib = _build.library()
     _launch_qp(lib.mpc_admm_fused, lib.mpc_admm_fused_ptr_count, _ADMM_PTRS,
-               bufs, (B, n, mc, iters), (sigma, over_relax), dtype,
+               bufs, (B, n, mc, iters), (sigma, over_relax), fs.dtype,
                "admm_fused")
     admm_fused.launches += 1
-    return x, zc, y
+    return bufs["x"], bufs["zc"], bufs["y"]
 
 
 admm_fused.launches = 0
+
+
+def admm_fused_one_thread(Minv_t, fs, hs, arow, acol, par, state, G, iters,
+                          sigma, over_relax):
+    """``admm_fused`` by the one-thread-per-lane design it replaced
+    (ops/csrc/reference/admm_fused_one_thread.cu, built on demand into its
+    own library), the bit-for-bit reference of the warp kernel: CUDA
+    tensors only, not counted, on no path of the port."""
+    bufs = _admm_bufs(Minv_t, fs, hs, arow, acol, par, state, G)
+    n, B = fs.shape
+    bufs["work"] = torch.empty((n * B,), dtype=fs.dtype, device=fs.device)
+    lib = _build.reference_library()
+    _launch_qp(lib.mpc_admm_fused_one_thread, None, _ADMM_ONE_THREAD_PTRS,
+               bufs, (B, n, hs.shape[0], iters), (sigma, over_relax),
+               fs.dtype, "admm_fused_one_thread")
+    return bufs["x"], bufs["zc"], bufs["y"]
 
 
 # ------------------------------------------------------------ closed loops

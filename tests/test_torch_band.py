@@ -340,9 +340,12 @@ def test_band_kernel_envelope(band):
 
 
 def test_band_gate_limits():
-    """tools/band_spread.band_gate: the smallest measured bucket covering
-    the batch sets the limits; a batch of 64 lanes or more is held at every
-    lane quantile, a smaller one on its worst lane; Y on every lane."""
+    """tools/band_spread.band_gate: the live limits are twice the witness's
+    lane quantiles plus the statistic's floor; a batch of 64 lanes or more
+    is held at every lane quantile, a smaller one on its worst lane; Y on
+    every lane; the frozen BAND_LIMITS are printed beside, not applied;
+    a batch over its limits on a few lanes names them for the
+    certificate."""
     from mpc_tuning_tpu_torch.tools import band_spread as bs
 
     def errs(B, **vals):
@@ -351,15 +354,29 @@ def test_band_gate_limits():
             out[k][:] = v
         return out
 
-    lim = bs.BAND_LIMITS
-    # every lane at twice the (32, 4) p50 limit: the median lane fails a
-    # 256-lane batch; a 1-lane batch is held on its worst lane alone
-    x = 2 * lim[(32, 4)]["u"][0]
-    assert not bs.band_gate(errs(256, u=x), (32, 4))[0]
-    assert bs.band_gate(errs(1, u=x), (32, 4))[0]
-    # (48, 4) is covered by (127, 15) only, whose worst-lane limit is looser
-    assert bs.band_gate(errs(1, u=lim[(127, 15)]["u"][3]), (48, 4))[0]
-    assert not bs.band_gate(errs(1, u=2 * lim[(127, 15)]["u"][3]), (48, 4))[0]
-    assert not bs.band_gate(errs(256, y=2 * bs.BAND_Y_LIMIT), (32, 4))[0]
-    with pytest.raises(ValueError, match="cover"):
-        bs.band_gate(errs(1), (200, 2))
+    floor = bs.BAND_FLOORS["u"]
+    wit = errs(256, u=1e-4)
+    at = 2 * 1e-4 + floor
+    assert bs.band_gate(errs(256, u=at), wit, (32, 4))[0]
+    assert not bs.band_gate(errs(256, u=1.01 * at), wit, (32, 4))[0]
+    # every lane at 1e-5 beside a witness of 0 but on one lane: the median
+    # lane fails a 256-lane batch; an 8-lane batch is held on its worst lane
+    wit = errs(256)
+    wit["u"][0] = 1.0
+    assert not bs.band_gate(errs(256, u=1e-5), wit, (32, 4))[0]
+    assert bs.band_gate(errs(8, u=1e-5), {k: v[:8] for k, v in wit.items()},
+                        (32, 4))[0]
+    assert not bs.band_gate(errs(256, y=2 * bs.BAND_Y_LIMIT), errs(256),
+                            (32, 4))[0]
+    ok, txt, over = bs.band_gate(errs(1), errs(1), (200, 2))
+    assert ok and over == [] and "frozen none" in txt
+    # limits missed on a few lanes: those lanes go to the certificate; on
+    # more lanes, or on Y, the batch fails outright (over is None)
+    few = errs(256, u=1e-5)
+    few["u"][[3, 7]] = 1.0
+    assert bs.band_gate(few, errs(256, u=1e-4), (32, 4))[2] == [3, 7]
+    many = errs(256, u=1.0)
+    assert bs.band_gate(many, errs(256, u=1e-4), (32, 4))[2] is None
+    few["y"][3] = 2 * bs.BAND_Y_LIMIT
+    assert bs.band_gate(few, errs(256, u=1e-4), (32, 4))[2] is None
+    assert "frozen 0.0071" in bs.band_gate(errs(1), errs(1), (32, 4))[1]

@@ -15,7 +15,8 @@ from mpc_tuning_tpu_torch.models.ode import nmpc_rollout_plain
 from mpc_tuning_tpu_torch.ops import kernels as K
 from mpc_tuning_tpu_torch.sim import mpc_loop
 from mpc_tuning_tpu_torch.tools.band_spread import (band_gate, band_inputs,
-                                                    band_lane_errors)
+                                                    band_lane_errors,
+                                                    band_witness)
 from mpc_tuning_tpu_torch.tuning.api import build_problem
 
 pytestmark = pytest.mark.gpu
@@ -198,17 +199,36 @@ def _band_inputs(cuda, caps, B=4, nit=30):
 @pytest.mark.parametrize("caps", [(32, 4), (127, 15)])
 def test_closed_sim_band_matches_plain(cuda, caps):
     """Step by step (the plain version follows the kernel's U), at the
-    limits of chip_smoke.py's band rows (tools/band_spread.BAND_LIMITS).
+    gate of chip_smoke.py's band rows: twice the witness measured along
+    the kernel's U (tools/band_spread.band_witness), the lanes over it (if
+    any) decided step by step by the certificate relative to correct runs
+    of the plain solve chain (ops/band_cert.hold_relative).
     (127, 15) keeps the per-lane vectors in global scratch, (32, 4) in
     shared memory."""
+    from mpc_tuning_tpu_torch.ops.band_cert import hold_relative
+    from mpc_tuning_tpu_torch.tools.band_spread import band_candidates
+
     args = _band_inputs(cuda, caps)
     before = K.closed_sim_band.launches
     out_k = K.closed_sim_band(*args)
     assert K.closed_sim_band.launches == before + 1
     assert all(torch.isfinite(x).all() for x in out_k)
     out_p = K.closed_sim_band_plain(*args, u_follow=out_k[1])
-    ok, txt = band_gate(band_lane_errors(out_k, out_p), caps)
-    assert ok, txt
+    witness = band_witness(args[:-1], dict(dims=args[-1]), out_k[1], out_p)
+    ok, txt, over = band_gate(band_lane_errors(out_k, out_p), witness, caps)
+    assert over is not None, txt
+    problem, _ = build_problem(shell7x5.make_case(nit=args[4]), device=cuda)
+    N, Nu, lam = band_candidates(caps, out_k[0].shape[2], caps[0])
+    U, E = out_k[1].cpu().numpy(), out_k[2].cpu().numpy()
+    for b in over:
+        out = hold_relative(problem, N[b], Nu[b], np.zeros(7), lam[b],
+                            U[:, :, b], E[:, b], caps=(int(N[b]), int(Nu[b])),
+                            device=cuda)
+        print(f"{caps} lane {b}: {out['chains']} chains; slack step "
+              f"{out['eps_step']} {out['eps_run']:.3e} (limit "
+              f"{out['eps_limit']:.3e}); du step {out['du_step']} "
+              f"{out['du_run']:.3e} (limit {out['du_limit']:.3e})")
+        assert out["ok"], (txt, b, out)
 
 
 def _lanes(x, b):
@@ -387,10 +407,10 @@ def test_factor_envelope_matches_the_launcher(cuda):
         assert K.launch_counts() == before
 
 
-def _step_qp(engine, dtype, take=25):
+def _step_qp(engine, dtype, take=25, caps=(32, 4), B=64):
     """The single-solve kernel's arguments at step `take` of a Shell3x3
     loop through ``engine`` (a real step's QPs and warm start)."""
-    t, lc, Hm, r_l, dims = _inputs(engine, B=64, nit=take + 1, caps=(32, 4),
+    t, lc, Hm, r_l, dims = _inputs(engine, B=B, nit=take + 1, caps=caps,
                                    case=shell3x3, dtype=dtype)
     G = K.g_shared(t["G0"], t.get("T2T"))
     kernel = K.admm_fused if engine == "admm_fused" else K.pdip_fused
@@ -427,6 +447,57 @@ def test_single_solve_kernels_match_plain(cuda, engine, name, dual, dtype):
     lim = QP_MAX[(name, dtype)]
     assert dz <= lim[0] and dl <= lim[1], (dz, dl)
     assert dtype != F64 or du <= 1e-9, du
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("caps,B", [((32, 4), 37), ((127, 15), 64)])
+def test_admm_fused_bits_equal_the_one_thread_design(cuda, caps, B, dtype):
+    """The warp-per-lane admm_fused and the one-thread design it replaced
+    (ops/csrc/reference/admm_fused_one_thread.cu) give the same bits in
+    every element of the new state, on a real Shell3x3 step's QPs."""
+    args = _step_qp("admm_fused", dtype, caps=caps, B=B)
+    out = K.admm_fused(*args)
+    ref = K.admm_fused_one_thread(*args)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+def test_admm_fused_envelope_matches_the_launcher(cuda):
+    """At Shell3x3's n = 46 the largest admitted mc (3045: the step's 181
+    rows and 2864 zero rows more) runs, and gives the unpadded solve's bits
+    on the first 181 rows; one row more, the wrapper raises without
+    launching and the C launcher refuses."""
+    from mpc_tuning_tpu_torch.ops import _build
+
+    Minv, fs, hs, arow, acol, par, state, G, *rest = _step_qp(
+        "admm_fused", F64, caps=(127, 15), B=4)
+    mc, n = G["G0"].shape
+    ref = K.admm_fused(Minv, fs, hs, arow, acol, par, state, G, *rest)
+
+    def padded(extra):
+        B = fs.shape[1]
+        rows = lambda x, v: torch.cat([x, x.new_full((extra, B), v)])
+        G0 = torch.cat([G["G0"], G["G0"].new_zeros((extra, n))])
+        return (Minv, fs, rows(hs, 1.0), rows(arow, 1.0), acol, par,
+                (state[0], rows(state[1], 0.0), rows(state[2], 0.0)),
+                K.g_shared(G0), *rest)
+
+    edge = 3045
+    assert K.admm_fused_envelope(F64, n, edge)[1] <= K.FACTOR_SMEM_MAX
+    out = K.admm_fused(*padded(edge - mc))
+    assert torch.equal(out[0], ref[0])
+    for a, b in zip(out[1:], ref[1:]):
+        assert torch.equal(a[:mc], b)
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="admm_fused"):
+        K.admm_fused(*padded(edge + 1 - mc))
+    assert K.launch_counts() == before
+    lib = _build.library()
+    ptrs = (ctypes.c_void_p * len(K._ADMM_PTRS))()
+    dims = (ctypes.c_int * 4)(4, n, edge + 1, 40)
+    scal = (ctypes.c_double * 2)(1e-6, 1.6)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    assert lib.mpc_admm_fused(1, ptrs, dims, scal, stream) != 0
 
 
 def test_pdip_ws_fused_follows_pdip_sim(cuda):
