@@ -15,7 +15,8 @@ Phases, each printing one line (with its wall time):
        a ragged B = 37 (one warp a lane, 4 or 2 lanes a block);
        SPD factor/solve at n = 5, 17, 31 and 46
        (two rows a lane, over 48 KB of shared memory), each at B = 1024
-       and at a ragged B = 37);
+       and at a ragged B = 37, the solve also beside the one-thread design
+       it replaced (reported));
     2b the band kernel on Shell7x5 in float64, the only dtype band cases
        run at (caps (32,4), (127,2), (127,15), B=256, nit=200, the seeded
        candidates of tools/band_spread.band_inputs), held at twice what
@@ -76,11 +77,12 @@ Phases, each printing one line (with its wall time):
     launches and device time.  The whole-sim kernels are timed at the
     bench shapes and at the batch sizes the tunes launch (ADMM_SHAPES,
     PDIP_SHAPES, BAND_SHAPES), each with its device time and bound.  The
-    two SPD factor kernels are timed at
+    two SPD factor kernels and spd_factor_solve are timed at
     FACTOR_SHAPES: float32 B=1024 n=17 and the float64 batches the tunes
     launch, (B, n) = (8, 5), (36, 31), (141, 46), each beside
-    torch.linalg.cholesky_ex and the plain version, by CUDA events and by
-    device time (torch.profiler).
+    torch.linalg.cholesky_ex (the solve: torch.cholesky_solve, and the
+    one-thread design it replaced) and the plain version, by CUDA events
+    and by device time (torch.profiler).
 Then one JSON line with the per-kernel record, the card's line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero before that line.
@@ -90,6 +92,7 @@ from __future__ import annotations
 
 import itertools
 import json
+from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import time
@@ -280,35 +283,44 @@ ADMM_SHAPES = (((64, 8), 8192, 1, {}), ((64, 8), 2, 3, {}),
 PDIP_SHAPES = (((32, 4), 2048, 2, dict(N=20, Nu=4)),
                ((32, 4), 8, 2, dict(N=20, Nu=4)))
 # ... and of the band kernel (caps, B, seed), float64, nit 200: the bench
-# row (the record's) first, then B = 1 and 8 at the first GAM bucket and
-# B = 8 at the widest (the band tune's most frequent launch, B = 1 at
-# (48, 4), is timed by scripts/band_tune_profile_torch.py)
-BAND_SHAPES = (((48, 4), 256, 7), ((127, 2), 1, 7), ((127, 2), 8, 7),
-               ((127, 15), 8, 7))
+# row (the record's) first, then the band tune's batches: B = 1 at (48, 4)
+# (its joint polish, 164 of its ~207 launches), B = 1 and 8 at the first
+# GAM bucket and B = 8 at the widest
+BAND_SHAPES = (((48, 4), 256, 7), ((48, 4), 1, 7), ((127, 2), 1, 7),
+               ((127, 2), 8, 7), ((127, 15), 8, 7))
 # phase 2b's per-step certificate: seeded lanes beside the tuned point
 CERT_LANES = ((32, 4), 3, 11)  # caps, B (lane 0, the corner, is skipped), seed
 
 
-def factor_record(lanes: bool):
-    """The factor kernel (``lanes``: factor_lanes on (n, n, B), else
-    spd_factor on (B, n, n)), torch.linalg.cholesky_ex on the same input
-    and the plain version at each of FACTOR_SHAPES: CUDA-event ms per call
-    (20 calls) and device ms per call (``device_ms``), with the bound.
-    Returns the kernel's record (the table's keys at the first shape, f32
-    B=1024 n=17, and every shape under 'shapes') and its text, the
-    timings' own seconds last."""
+def spd_record(kernel: str):
+    """The SPD kernel ``kernel`` (spd_factor on (B, n, n), factor_lanes on
+    (n, n, B), or spd_factor_solve with the one-thread design it replaced,
+    'old'), its library call (torch.linalg.cholesky_ex, or
+    torch.cholesky_solve) and its plain version at each of FACTOR_SHAPES:
+    CUDA-event ms per call (20 calls) and device ms per call
+    (``device_ms``), with the bound.  Returns the kernel's record (the
+    table's keys at the first shape, f32 B=1024 n=17, and every shape
+    under 'shapes') and its text, the timings' own seconds last."""
     from mpc_tuning_tpu_torch.ops import kernels as K
 
     t0 = time.perf_counter()
+    solve = kernel == "spd_factor_solve"
     rows = []
     for dtype, B, n in FACTOR_SHAPES:
-        M = spd_batch(B, n, dtype)[0]
-        if lanes:
+        M, rhs = spd_batch(B, n, dtype)
+        if kernel == "factor_lanes":
             M = M.permute(1, 2, 0).contiguous()
             calls = dict(kernel=lambda: K.factor_lanes(M),
                          library=lambda: torch.linalg.cholesky_ex(
                              M.permute(2, 0, 1)),
                          plain=lambda: K.factor_lanes_plain(M))
+        elif solve:
+            L = K.spd_factor_plain(M)
+            calls = dict(kernel=lambda: K.spd_factor_solve(L, rhs),
+                         old=lambda: K.spd_factor_solve_one_thread(L, rhs),
+                         library=lambda: torch.cholesky_solve(
+                             rhs[:, :, None], L),
+                         plain=lambda: K.spd_factor_solve_plain(L, rhs))
         else:
             calls = dict(kernel=lambda: K.spd_factor(M),
                          library=lambda: torch.linalg.cholesky_ex(M),
@@ -318,21 +330,26 @@ def factor_record(lanes: bool):
             key = "" if name == "kernel" else name + "_"
             row[key + "ms"] = timed(fn, 20)[0]
             row[key + "device_ms"] = device_ms(fn)
-        # the factor reads M's lower triangle only and writes all of L
+        # both read the lower triangle only; the factor writes all of L
+        # (n^3 / 3 multiply-adds), the solve x (n^2 multiply-adds)
+        tri = n * (n + 1) // 2
         row["bound_ms"], row["bound_by"] = bound_ms(
-            B * (n * (n + 1) // 2 + n * n) * M.element_size(),
-            B * n ** 3 / 3, dtype)
+            B * (tri + 2 * n if solve else tri + n * n) * M.element_size(),
+            B * (2 * n * n if solve else n ** 3 / 3), dtype)
         rows.append(row)
     rec = {k: rows[0][k] for k in ("ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by")}
     rec["shapes"] = rows
+    lib = "cholesky_solve" if solve else "cholesky_ex"
     txt = "; ".join(
         f"{r['dtype']} B={r['B']} n={r['n']}: kernel {r['ms']:.5f} ms "
-        f"(device {fmt_ms(r['device_ms'])}), cholesky_ex "
-        f"{r['library_ms']:.5f} (device {fmt_ms(r['library_device_ms'])}), "
-        f"plain {r['plain_ms']:.5f} (device {fmt_ms(r['plain_device_ms'])}), "
-        f"bound {r['bound_ms']:.6f} "
-        f"({r['bound_by']})" for r in rows)
+        f"(device {fmt_ms(r['device_ms'])}), "
+        + (f"one-thread {r['old_ms']:.5f} (device "
+           f"{fmt_ms(r['old_device_ms'])}), " if solve else "")
+        + f"{lib} {r['library_ms']:.5f} (device "
+        f"{fmt_ms(r['library_device_ms'])}), plain {r['plain_ms']:.5f} "
+        f"(device {fmt_ms(r['plain_device_ms'])}), bound "
+        f"{r['bound_ms']:.3g} ({r['bound_by']})" for r in rows)
     return rec, txt + f" ({time.perf_counter() - t0:.1f} s)"
 
 
@@ -434,7 +451,12 @@ def phase_env():
     from mpc_tuning_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.library()
+    # the reference designs (ops/csrc/reference, phases 2a, 2c, 4) build
+    # beside the port's kernels, every nvcc started together
+    with ThreadPoolExecutor(1) as pool:
+        ref = pool.submit(_build.reference_library)
+        _build.library()
+        ref.result()
     print(f"[1 env] card={card!r} torch={torch.__version__} "
           f"cuda={torch.version.cuda} build_s={_build.build_seconds} "
           f"load_s={time.perf_counter() - t0:.3f}", flush=True)
@@ -481,6 +503,7 @@ def phase_kernels(problem):
     B, nit = 1024, 60
     err64 = {}
     rows = []
+    one_thread = {}  # spd_factor_solve vs the design it replaced, reported
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
         tag = "f64" if f64 else "f32"
@@ -518,8 +541,9 @@ def phase_kernels(problem):
             Lk, Lp = K.spd_factor(M), K.spd_factor_plain(M)
             xk = K.spd_factor_solve(Lk, rhs)
             xp = K.spd_factor_solve_plain(Lp, rhs)
+            xo = K.spd_factor_solve_one_thread(Lk, rhs)
             torch.cuda.synchronize()
-            eL, ex = maxabs(Lk, Lp), maxabs(xk, xp)
+            eL, ex, eo = maxabs(Lk, Lp), maxabs(xk, xp), maxabs(xk, xo)
             if f64:
                 err64["spd_factor"] = max(err64.get("spd_factor", 0.0), eL)
                 err64["spd_factor_solve"] = max(
@@ -527,6 +551,8 @@ def phase_kernels(problem):
             else:
                 eL /= float(Lp.abs().max())
                 ex /= float(xp.abs().max())
+                eo /= float(xo.abs().max())
+            one_thread[tag] = max(one_thread.get(tag, 0.0), eo)
             rows.append(f"spd(n={n},B={Bs}):{tag}=L {eL:.3e} x {ex:.3e}")
             if max(eL, ex) > (F64_SPD_GATE if f64 else F32_SPD_GATE):
                 fail(f"spd n={n} B={Bs} {dtype}: dL {eL:.3e} dx {ex:.3e}")
@@ -536,8 +562,10 @@ def phase_kernels(problem):
           f"gates: f64 {F64_SIM_GATE:g}, f32 {F32_SIM_GATE:g} (f32 PDIP U: "
           f"median lane {F32_SIM_GATE:g}, every lane {F32_PDIP_U_CAP:g}); "
           f"spd f64 {F64_SPD_GATE:g}, f32 {F32_SPD_GATE:g} relative | "
-          + " | ".join(rows) + f" | wall_s={time.perf_counter() - t0:.1f}",
-          flush=True)
+          + " | ".join(rows) + " | spd_factor_solve vs the one-thread design "
+          f"(reported, not gated): f64 max |dx| {one_thread['f64']:.3e}, "
+          f"f32 {one_thread['f32']:.3e} relative | "
+          f"wall_s={time.perf_counter() - t0:.1f}", flush=True)
     return err64
 
 
@@ -1266,19 +1294,11 @@ def phase_throughput(problem, band_problem):
             + (f", plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
             for r in rows))
 
-    M, rhs = spd_batch(1024, 17, f32, seed=0)
-    L = K.spd_factor_plain(M)
-    fac, fac_txt = factor_record(lanes=False)
-    sol = dict(ms=timed(lambda: K.spd_factor_solve(L, rhs), 20)[0],
-               plain_ms=timed(lambda: K.spd_factor_solve_plain(L, rhs), 20)[0],
-               library_ms=timed(lambda: torch.cholesky_solve(rhs[:, :, None],
-                                                             L), 20)[0])
-    sol["bound_ms"], sol["bound_by"] = bound_ms(
-        nbytes(L) + 2 * nbytes(rhs), 1024 * 2 * 2 * 17 ** 2, f32)
+    fac, fac_txt = spd_record("spd_factor")
+    sol, sol_txt = spd_record("spd_factor_solve")
     rec["spd_factor"], rec["spd_factor_solve"] = fac, sol
-    txt.append(f"spd_factor {fac_txt} | spd_factor_solve B=1024 n=17 f32: "
-               f"{sol['ms']:.4f} ms (plain {sol['plain_ms']:.4f}, "
-               f"cholesky_solve {sol['library_ms']:.4f})")
+    txt.append(f"spd_factor {fac_txt} | spd_factor_solve, warp per system "
+               f"vs the one-thread design: {sol_txt}")
 
     # the band kernel at BAND_SHAPES: the record's row, then the tune's
     rows = []
@@ -1293,11 +1313,15 @@ def phase_throughput(problem, band_problem):
         else:
             row = sim_row("closed_sim_band", f64, inp, N, Nu, call, 0, lp=20,
                           s2=12)
-        rows.append(dict(row, caps=caps))
+        t, dims = inp[0], inp[4]
+        clusters = K.band_plan(dims["n"], dims["mc"], t["SxF"].shape[0],
+                               dims["ny"], dims["nu"], t["A"].shape[0],
+                               t["Apl"].shape[0])[0]
+        rows.append(dict(row, caps=caps, clusters=clusters))
     rec["closed_sim_band"] = dict(rows[0], shapes=rows)
     txt.append("closed_sim_band f64 nit=200 lp/s2=20/12: " + "; ".join(
-        f"B={r['B']} caps={r['caps']}: kernel {r['ms']:.3f} ms (device "
-        f"{fmt_ms(r['device_ms'])}), bound "
+        f"B={r['B']} caps={r['caps']} ({r['clusters']} blocks a cluster): "
+        f"kernel {r['ms']:.3f} ms (device {fmt_ms(r['device_ms'])}), bound "
         f"{r['bound_ms']:.5f} ({r['bound_by']})"
         + (f", plain {r['plain_ms']:.1f} ms" if "plain_ms" in r else "")
         for r in rows))
@@ -1371,7 +1395,7 @@ def phase_step_throughput(problem):
     M, rhs = spd_batch(1024, 17, f32, seed=0)
     Mt, rt = M.permute(1, 2, 0).contiguous(), rhs.T.contiguous()
     Lt = K.factor_lanes_plain(Mt).contiguous()
-    fac, fac_txt = factor_record(lanes=True)
+    fac, fac_txt = spd_record("factor_lanes")
     sol = dict(ms=timed(lambda: K.solve_lanes(Lt, rt), 20)[0],
                plain_ms=timed(lambda: K.solve_lanes_plain(Lt, rt), 20)[0],
                library_ms=timed(lambda: torch.cholesky_solve(

@@ -18,7 +18,7 @@ import pathlib
 import shutil
 import subprocess
 
-__all__ = ["library", "reference_library", "build_seconds"]
+__all__ = ["library", "reference_library", "build_seconds", "bind_band"]
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD = pathlib.Path(__file__).resolve().parent.parent / "_build"
@@ -60,14 +60,7 @@ def _bind(lib):
     lib.mpc_closed_sim.argtypes = [i, i, ctypes.POINTER(vp), d,
                                    ctypes.POINTER(ctypes.c_double), vp]
     lib.mpc_closed_sim.restype = i
-    lib.mpc_closed_sim_band_ptr_count.restype = i
-    lib.mpc_closed_sim_band_dim_count.restype = i
-    lib.mpc_closed_sim_band_max_n.restype = i
-    lib.mpc_closed_sim_band_work_per_lane.argtypes = [d]
-    lib.mpc_closed_sim_band_work_per_lane.restype = ctypes.c_longlong
-    lib.mpc_closed_sim_band.argtypes = [ctypes.POINTER(vp), d,
-                                        ctypes.POINTER(ctypes.c_double), vp]
-    lib.mpc_closed_sim_band.restype = i
+    bind_band(lib)
     lib.mpc_pdip_fused_ptr_count.restype = i
     lib.mpc_admm_fused_ptr_count.restype = i
     lib.mpc_qp_fused_dim_count.restype = i
@@ -77,6 +70,22 @@ def _bind(lib):
         fn.argtypes = [i, ctypes.POINTER(vp), d,
                        ctypes.POINTER(ctypes.c_double), vp]
         fn.restype = i
+    return lib
+
+
+def bind_band(lib):
+    """Declare the band kernel's C functions on ``lib`` (the port's library
+    or another build of ops/csrc/closed_sim_band.cu); returns lib."""
+    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.mpc_closed_sim_band_ptr_count.restype = i
+    lib.mpc_closed_sim_band_dim_count.restype = i
+    lib.mpc_closed_sim_band_max_n.restype = i
+    lib.mpc_closed_sim_band_plan.argtypes = [d, ctypes.POINTER(
+        ctypes.c_longlong)]
+    lib.mpc_closed_sim_band_plan.restype = i
+    lib.mpc_closed_sim_band.argtypes = [ctypes.POINTER(vp), d,
+                                        ctypes.POINTER(ctypes.c_double), vp]
+    lib.mpc_closed_sim_band.restype = i
     return lib
 
 
@@ -144,8 +153,8 @@ def library():
 
 def reference_library():
     """The library of ``csrc/reference/`` (earlier designs of a kernel,
-    kept as the bit-for-bit reference of its replacement; no path of the
-    port calls them), built first if needed."""
+    kept as the reference of its replacement; no path of the port calls
+    them), built first if needed."""
     global _ref
     if _ref is None:
         srcs = _sources(_CSRC / "reference")
@@ -156,6 +165,9 @@ def reference_library():
             i, ctypes.POINTER(vp), ctypes.POINTER(i),
             ctypes.POINTER(ctypes.c_double), vp]
         _ref.mpc_admm_fused_one_thread.restype = i
+        _ref.mpc_spd_factor_solve_one_thread.argtypes = [i, vp, vp, vp, i, i,
+                                                         vp]
+        _ref.mpc_spd_factor_solve_one_thread.restype = i
     return _ref
 
 

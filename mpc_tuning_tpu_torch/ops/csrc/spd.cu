@@ -30,15 +30,34 @@
 // (ascending k, then the sqrt or the division), so the two agree to the
 // bit.  The block's loads go through cp.async, all in flight at once, and
 // its stores are coalesced (16 bytes a thread batch-major, 32-byte runs
-// lane-major).  The solves stay one thread per system.
+// lane-major).
+//
+// The batch-major solve (spd_factor_solve; the TPU's _solve_kernel,
+// pallas_kernels.py:182, launched by _solve_batched_impl at :242) is bound
+// the same way:
+// 2 n^2 multiply-adds a system, a few KB to ~1 MB moved, launched on the
+// tunes' small batches (B = 8 to ~1024).  It runs the factors' layout: one
+// warp per system, W a block, the factor's lower triangle staged into a
+// tile in shared memory by coalesced cp.async loads, the right-hand side
+// in registers (lane l holds rows l and l + 32), and the substitutions of
+// warp_factor.cuh (warp_chol_solve): one row a step, its value by shuffle
+// to every lane and all later (forward) or earlier (back) rows updated at
+// once, so ~2 n dependent steps in place of 2 n^2.  The forward pass keeps
+// the one-thread solve's order (ascending k, then the division); the back
+// pass subtracts in descending k, so it rounds differently from the
+// one-thread design (kept as reference/spd_factor_solve_one_thread.cu).
+// The lane-major solve (solve_lanes) and spd_solve stay one thread per
+// system.
 
 #include "warp_factor.cuh"
 
 namespace mpc {
 
-// ------------------------------------------------------------- factors
+// ------------------------------------------------ factors and the solve
 //
-// Envelope (ops/kernels.factor_envelope holds the same arithmetic): W =
+// Envelope of the two factors and of spd_factor_solve, which reads a
+// factor in the same tiles (ops/kernels.factor_envelope and
+// factor_solve_envelope hold the same arithmetic): W =
 // FactorShape<T>::kW matrices per block (8 at float, 4 at double, so that
 // the W values of one element in the lane-major layout fill a 32-byte
 // sector), each a tile of n rows at a row stride ld = n | 1 (odd, so the 32
@@ -133,26 +152,42 @@ __global__ void __launch_bounds__(32 * FactorShape<T>::kW)
   store_rows(tiles, L + off, nb * nn, n, ld);
 }
 
-template <typename T>
-__global__ void spd_factor_solve_kernel(const T* __restrict__ L,
-                                        const T* __restrict__ rhs,
-                                        T* __restrict__ x, int B, int n) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const T* Lb = L + (size_t)b * n * n;
-  const T* r = rhs + (size_t)b * n;
-  T* xb = x + (size_t)b * n;
-  // forward: L y = rhs (y kept in x)
-  for (int i = 0; i < n; ++i) {
-    T v = r[i];
-    for (int k = 0; k < i; ++k) v -= Lb[i * n + k] * xb[k];
-    xb[i] = v / Lb[i * n + i];
+// Batch-major solve, the factors' envelope (factor_fits): block x takes
+// systems x W ... x W + W - 1; their factors' lower triangles (the solve
+// reads no other part) go into the tiles as load_rows lays them out, the
+// right-hand sides into registers, one warp a system.
+template <typename T, int R>
+__global__ void __launch_bounds__(32 * FactorShape<T>::kW)
+    spd_factor_solve_kernel(const T* __restrict__ L,
+                            const T* __restrict__ rhs, T* __restrict__ x,
+                            int B, int n) {
+  constexpr int W = FactorShape<T>::kW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tiles = reinterpret_cast<T*>(smem);
+  const int ld = factor_ld(n), nn = n * n;
+  const int b0 = blockIdx.x * W;
+  const int nb = min(W, B - b0);
+  const T* g = L + (size_t)b0 * nn;
+  for (int e = threadIdx.x; e < nb * nn; e += blockDim.x) {
+    const int row = e / n;  // the block's row: system row / n, row % n
+    if (e - row * n <= row % n) cp_async(tiles + e + row * (ld - n), g + e);
   }
-  // back: L^T x = y, in place
-  for (int i = n - 1; i >= 0; --i) {
-    T v = xb[i];
-    for (int k = i + 1; k < n; ++k) v -= Lb[k * n + i] * xb[k];
-    xb[i] = v / Lb[i * n + i];
+  cp_async_wait();
+  __syncthreads();
+  const int w = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  if (w >= nb) return;
+  const size_t off = (size_t)(b0 + w) * n;
+  T v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = ln + 32 * r;
+    v[r] = i < n ? rhs[off + i] : T(0);
+  }
+  warp_chol_solve<T, R>(tiles + w * n * ld, ld, n, v, ln);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = ln + 32 * r;
+    if (i < n) x[off + i] = v[r];
   }
 }
 
@@ -257,14 +292,35 @@ __global__ void solve_lanes_kernel(const T* __restrict__ L,
 constexpr int kSpdThreads = 128;
 
 namespace {
-// The dynamic shared memory each factor kernel (layout, dtype, rows a lane)
-// is allowed on each device so far: above 48 KB a block's has to be
-// allowed, once a kernel and device, for the most any launch has needed.
-// Internal linkage, so two libraries loaded in one process keep their own
-// (a template's static would be one symbol in the whole process).
+// The dynamic shared memory each tile kernel (spd_factor, factor_lanes,
+// spd_factor_solve; dtype; rows a lane) is allowed on each device so far:
+// above 48 KB a block's has to be allowed, once a kernel and device, for
+// the most any launch has needed.  Internal linkage, so two libraries
+// loaded in one process keep their own (a template's static would be one
+// symbol in the whole process).
 constexpr int kMaxDevices = 64;
-int g_factor_smem[2][2][kFactorMaxRows][kMaxDevices];
+enum { kTileFactor, kTileFactorLanes, kTileSolve, kTileKernels };
+int g_tile_smem[kTileKernels][2][kFactorMaxRows][kMaxDevices];
 }  // namespace
+
+// Allow `kernel` (tile kernel `which`, dtype T, R rows a lane) `smem` bytes
+// of dynamic shared memory on the current device; a CUDA error code or 0.
+template <typename T, int R, typename Kernel>
+int allow_tile_smem(Kernel kernel, int which, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int& allowed = g_tile_smem[which][sizeof(T) == 8][R - 1][dev];
+  if (smem > allowed) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed = smem;
+  }
+  return 0;
+}
 
 template <typename T, int R>
 int launch_factor_rows(bool lanes, const T* M, T* L, int B, int n,
@@ -273,19 +329,9 @@ int launch_factor_rows(bool lanes, const T* M, T* L, int B, int n,
   void (*kernel)(const T*, T*, int, int) =
       lanes ? factor_lanes_kernel<T, R> : spd_factor_kernel<T, R>;
   const int smem = (int)factor_smem_bytes<T>(n);
-  if (smem > 48 * 1024) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-    int& allowed = g_factor_smem[lanes][sizeof(T) == 8][R - 1][dev];
-    if (smem > allowed) {
-      e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-      allowed = smem;
-    }
-  }
+  const int e = allow_tile_smem<T, R>(
+      kernel, lanes ? kTileFactorLanes : kTileFactor, smem);
+  if (e) return e;
   kernel<<<(B + W - 1) / W, 32 * W, smem, st>>>(M, L, B, n);
   return (int)cudaGetLastError();
 }
@@ -300,19 +346,35 @@ int launch_factor(bool lanes, const void* M, void* L, int B, int n,
                  : launch_factor_rows<T, 2>(lanes, m, l, B, n, st);
 }
 
+template <typename T, int R>
+int launch_solve_rows(const T* L, const T* rhs, T* x, int B, int n,
+                      cudaStream_t st) {
+  constexpr int W = FactorShape<T>::kW;
+  const int smem = (int)factor_smem_bytes<T>(n);
+  const int e = allow_tile_smem<T, R>(spd_factor_solve_kernel<T, R>,
+                                      kTileSolve, smem);
+  if (e) return e;
+  spd_factor_solve_kernel<T, R><<<(B + W - 1) / W, 32 * W, smem, st>>>(
+      L, rhs, x, B, n);
+  return (int)cudaGetLastError();
+}
+
+// lanes: the lane-major solve_lanes (one thread a system); else the
+// batch-major spd_factor_solve, inside the factors' envelope.
 template <typename T>
 int launch_solve(bool lanes, const void* L, const void* rhs, void* x, int B,
                  int n, cudaStream_t st) {
-  const int blocks = (B + kSpdThreads - 1) / kSpdThreads;
-  if (lanes)
-    solve_lanes_kernel<T><<<blocks, kSpdThreads, 0, st>>>(
-        static_cast<const T*>(L), static_cast<const T*>(rhs),
-        static_cast<T*>(x), B, n);
-  else
-    spd_factor_solve_kernel<T><<<blocks, kSpdThreads, 0, st>>>(
-        static_cast<const T*>(L), static_cast<const T*>(rhs),
-        static_cast<T*>(x), B, n);
-  return (int)cudaGetLastError();
+  const T* l = static_cast<const T*>(L);
+  const T* r = static_cast<const T*>(rhs);
+  T* xo = static_cast<T*>(x);
+  if (lanes) {
+    const int blocks = (B + kSpdThreads - 1) / kSpdThreads;
+    solve_lanes_kernel<T><<<blocks, kSpdThreads, 0, st>>>(l, r, xo, B, n);
+    return (int)cudaGetLastError();
+  }
+  if (!factor_fits<T>(n)) return (int)cudaErrorInvalidValue;
+  return n <= 32 ? launch_solve_rows<T, 1>(l, r, xo, B, n, st)
+                 : launch_solve_rows<T, 2>(l, r, xo, B, n, st);
 }
 
 template <typename T>

@@ -1,6 +1,7 @@
-// The warp-per-matrix Cholesky factor in shared memory and its helpers,
-// shared by the SPD factor kernels (spd.cu: spd_factor, factor_lanes) and
-// the whole-sim PDIP kernel (closed_sim.cu, through warp_qp.cuh).
+// The warp-per-matrix Cholesky factor in shared memory, its substitutions
+// and their helpers, shared by the SPD kernels (spd.cu: spd_factor,
+// factor_lanes, spd_factor_solve), the whole-sim PDIP kernel (closed_sim.cu,
+// through warp_qp.cuh) and the band kernel (closed_sim_band.cu).
 #pragma once
 
 #include "common.cuh"
@@ -50,11 +51,20 @@ __device__ __forceinline__ T from_row(const T (&a)[R], int j) {
 
 // Column j from its finished dots a[r] (rows lane + 32 r): the pivot d of
 // row j, ljj = sqrt(d) on every lane, q[r] = a[r] / ljj; returns ljj.
-template <typename T, int R>
+// Rsq: ri = rsqrt(d), ljj = d ri and q[r] = a[r] ri (one long-latency
+// operation on the column's chain in place of a sqrt and a division;
+// other rounding).
+template <typename T, int R, bool Rsq = false>
 __device__ __forceinline__ T finish_column(const T (&a)[R], T (&q)[R], int j,
                                            bool& ok) {
   const T d = from_row(a, j);
   ok = ok && d > T(0);
+  if (Rsq) {
+    const T ri = rsqrt(d);
+#pragma unroll
+    for (int r = 0; r < R; ++r) q[r] = a[r] * ri;
+    return d * ri;
+  }
   const T ljj = sqrt(d);
 #pragma unroll
   for (int r = 0; r < R; ++r) q[r] = a[r] / ljj;
@@ -70,8 +80,9 @@ __device__ __forceinline__ T finish_column(const T (&a)[R], T (&q)[R], int j,
 // entries entering the later columns' dots as their terms k = j, j + 1, ...
 // So every entry sees A[i][j] - sum_k L[i][k] L[j][k] in ascending k, then
 // the sqrt or the division.  Ends with the upper triangle zero, or, if a
-// pivot was not > 0, the whole tile NaN (as the plain version).
-template <typename T, int R>
+// pivot was not > 0, the whole tile NaN (as the plain version).  Rsq
+// (finish_column): the pivots through rsqrt.
+template <typename T, int R, bool Rsq = false>
 __device__ void warp_factor(T* t, int n, int ld, int lane) {
   constexpr int C = kFactorCols;
   int off[R];
@@ -100,7 +111,7 @@ __device__ void warp_factor(T* t, int n, int ld, int lane) {
     }
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      diag[c] = finish_column(a[c], q[c], j + c, ok);
+      diag[c] = finish_column<T, R, Rsq>(a[c], q[c], j + c, ok);
 #pragma unroll
       for (int c2 = c + 1; c2 < C; ++c2) {
         const T l = from_row(q[c], j + c2);
@@ -131,7 +142,7 @@ __device__ void warp_factor(T* t, int n, int ld, int lane) {
 #pragma unroll
       for (int r = 0; r < R; ++r) a[r] -= t[off[r] + k] * ljk;
     }
-    const T ljj = finish_column(a, q, j, ok);
+    const T ljj = finish_column<T, R, Rsq>(a, q, j, ok);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int i = lane + 32 * r;
@@ -149,6 +160,37 @@ __device__ void warp_factor(T* t, int n, int ld, int lane) {
         for (int c = 0; c < n; ++c) t[i * ld + c] = nan;
       else
         for (int c = i + 1; c < n; ++c) t[i * ld + c] = T(0);
+    }
+  }
+}
+
+// x = (L L')^-1 x for the factor in the tile L; x[r] holds row ln + 32 r on
+// its lane (zero past row n - 1).  Right-looking: the forward pass
+// subtracts row i's terms L[i][k] y_k in ascending k, as the one-thread
+// substitution does; the back pass in descending k.
+template <typename T, int R>
+__device__ void warp_chol_solve(const T* L, int ld, int n, T (&x)[R],
+                                int ln) {
+  for (int j = 0; j < n; ++j) {
+    const T xj = from_row(x, j) / L[j * ld + j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = ln + 32 * r;
+      if (i == j)
+        x[r] = xj;
+      else if (i > j && i < n)
+        x[r] -= L[i * ld + j] * xj;
+    }
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    const T xj = from_row(x, j) / L[j * ld + j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = ln + 32 * r;
+      if (i == j)
+        x[r] = xj;
+      else if (i < j)
+        x[r] -= L[j * ld + i] * xj;
     }
   }
 }

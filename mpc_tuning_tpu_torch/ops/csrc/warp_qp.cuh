@@ -218,37 +218,6 @@ __device__ void warp_normal(const GSparse<T>& g, const WarpPdip<T>& v, int n,
   }
 }
 
-// x = (L L')^-1 x for the factor in the tile L; x[r] holds row ln + 32 r on
-// its lane (zero past row n - 1).  Right-looking: the forward pass
-// subtracts row i's terms L[i][k] y_k in ascending k, as the one-thread
-// substitution does; the back pass in descending k.
-template <typename T, int R>
-__device__ void warp_chol_solve(const T* L, int ld, int n, T (&x)[R],
-                                int ln) {
-  for (int j = 0; j < n; ++j) {
-    const T xj = from_row(x, j) / L[j * ld + j];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = ln + 32 * r;
-      if (i == j)
-        x[r] = xj;
-      else if (i > j && i < n)
-        x[r] -= L[i * ld + j] * xj;
-    }
-  }
-  for (int j = n - 1; j >= 0; --j) {
-    const T xj = from_row(x, j) / L[j * ld + j];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = ln + 32 * r;
-      if (i == j)
-        x[r] = xj;
-      else if (i < j)
-        x[r] -= L[j * ld + i] * xj;
-    }
-  }
-}
-
 // dz = (L L')^-1 (-r_d + G' t), then ds = -(r_p + G dz).
 template <typename T, int R>
 __device__ void warp_newton(const GSparse<T>& g, const WarpPdip<T>& v, int n,

@@ -15,7 +15,7 @@ Layouts follow the JAX package: ``spd_factor`` / ``spd_factor_solve`` /
 ``solve_lanes``, the single-solve kernels ``pdip_fused`` / ``admm_fused``
 and the whole-sim kernels take lane-major inputs, the candidate batch B on
 the last axis (``sim/mpc_loop.py`` builds them; the band wrapper hands its
-block-per-lane kernel the per-lane inputs batch-major).  Unlike the TPU
+cluster-per-lane kernel the per-lane inputs batch-major).  Unlike the TPU
 kernels, nothing is padded to (8, 128) tiles.
 
 The closed loop of the per-step engines and of the whole-sim plain
@@ -33,7 +33,7 @@ from mpc_tuning_tpu_torch.models.ode import nmpc_envelope, nmpc_rollout_plain
 from mpc_tuning_tpu_torch.ops import _build
 
 __all__ = ["spd_factor", "spd_factor_solve", "spd_solve", "factor_lanes",
-           "factor_envelope",
+           "factor_envelope", "factor_solve_envelope",
            "solve_lanes", "pdip_fused", "admm_fused", "closed_sim_admm",
            "closed_sim_pdip", "closed_sim_band", "nmpc_rollout",
            "spd_factor_plain", "spd_factor_solve_plain", "spd_solve_plain",
@@ -41,7 +41,8 @@ __all__ = ["spd_factor", "spd_factor_solve", "spd_solve", "factor_lanes",
            "admm_fused_plain", "closed_sim_admm_plain",
            "closed_sim_pdip_plain", "closed_sim_band_plain",
            "g_shared", "step_loop",
-           "pdip_step", "admm_step", "band_envelope", "reset_launches",
+           "pdip_step", "admm_step", "band_envelope", "band_plan",
+           "reset_launches",
            "launch_counts", "require_device", "sim_envelope"]
 
 _SIM_TABLES = ("Cpl", "Apl", "Bplu", "C", "Mk", "A", "Bu", "SxF", "SstF",
@@ -114,10 +115,10 @@ FACTOR_SMEM_MAX = 232448
 FACTOR_MAX_ROWS = 2
 
 
-def factor_envelope(n, dtype):
+def factor_envelope(n, dtype, kernel="SPD factor kernels"):
     """(matrices per block, shared-memory bytes per block) of the factor
-    kernels at n and dtype; raises ValueError outside the envelope (both
-    dtypes take n <= 64)."""
+    kernels at n and dtype; raises ValueError, naming ``kernel``, outside
+    the envelope (both dtypes take n <= 64)."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"kernels take float32 or float64, got {dtype}")
     f64 = dtype == torch.float64
@@ -125,7 +126,7 @@ def factor_envelope(n, dtype):
     smem = per_block * n * (n | 1) * (8 if f64 else 4)
     if not (1 <= n <= 32 * FACTOR_MAX_ROWS and smem <= FACTOR_SMEM_MAX):
         raise ValueError(
-            f"SPD factor kernels: n = {n} at {dtype} needs {smem} bytes of "
+            f"{kernel}: n = {n} at {dtype} needs {smem} bytes of "
             f"shared memory a block, at most {FACTOR_SMEM_MAX}, and n <= 64")
     return per_block, smem
 
@@ -163,8 +164,18 @@ spd_factor.launches = 0
 # ------------------------------------------------------ spd_factor_solve
 #
 # Replaces _solve_batched_impl / _solve_kernel (spd_factor_solve): forward
-# then back substitution, 2 n^2 dependent multiply-adds per system; one
-# thread per system (ops/csrc/spd.cu).
+# then back substitution, 2 n^2 dependent multiply-adds per system.  Bound
+# by launch latency and each system's serial chain; one warp per system on
+# the factor's lower triangle in a shared-memory tile, the factors' layout
+# and envelope, ~2 n dependent steps (ops/csrc/spd.cu).
+
+
+def factor_solve_envelope(n, dtype):
+    """(systems per block, shared-memory bytes per block) of
+    ``spd_factor_solve``: its tiles are the factors' (``factor_envelope``),
+    and every solve follows a factor; raises ValueError outside (both
+    dtypes take n <= 64)."""
+    return factor_envelope(n, dtype, "spd_factor_solve")
 
 
 def spd_factor_solve_plain(L, rhs):
@@ -174,14 +185,22 @@ def spd_factor_solve_plain(L, rhs):
     return x[:, :, 0]
 
 
-def spd_factor_solve(L, rhs):
-    """(B, n, n) lower factor, (B, n) rhs -> x (B, n) with L L' x = rhs."""
-    if _on_cpu(L, rhs):
-        return spd_factor_solve_plain(L, rhs)
+def _solve_args(L, rhs):
     dtype = _float_dtype(L)
     B, n = L.shape[0], L.shape[-1]
     _require(L, (B, n, n), dtype, "L")
     _require(rhs, (B, n), dtype, "rhs")
+    return dtype, B, n
+
+
+def spd_factor_solve(L, rhs):
+    """(B, n, n) lower factor, (B, n) rhs -> x (B, n) with L L' x = rhs.
+    Reads L's lower triangle only.  Raises above
+    ``factor_solve_envelope``."""
+    if _on_cpu(L, rhs):
+        return spd_factor_solve_plain(L, rhs)
+    dtype, B, n = _solve_args(L, rhs)
+    factor_solve_envelope(n, dtype)
     x = torch.empty_like(rhs)
     _build.check(_build.library().mpc_spd_factor_solve(
         int(dtype == torch.float64), 0, L.data_ptr(), rhs.data_ptr(),
@@ -191,6 +210,19 @@ def spd_factor_solve(L, rhs):
 
 
 spd_factor_solve.launches = 0
+
+
+def spd_factor_solve_one_thread(L, rhs):
+    """``spd_factor_solve`` by the one-thread-per-system design it replaced
+    (ops/csrc/reference/spd_factor_solve_one_thread.cu, built on demand
+    into its own library), its reference: CUDA tensors only, not counted,
+    on no path of the port."""
+    dtype, B, n = _solve_args(L, rhs)
+    x = torch.empty_like(rhs)
+    _build.check(_build.reference_library().mpc_spd_factor_solve_one_thread(
+        int(dtype == torch.float64), L.data_ptr(), rhs.data_ptr(),
+        x.data_ptr(), B, n, _stream(L)), "spd_factor_solve_one_thread")
+    return x
 
 
 # ------------------------------------------------------------- spd_solve
@@ -854,29 +886,64 @@ def closed_sim_band_plain(tables, lane_consts, Hp_t, r_l, nit, lp_iters,
 
 
 _BAND_TABLES = ("Cpl", "Apl", "Bplu", "C", "Mk", "A", "Bu", "SxF", "SstF",
-                "ThT", "Vt")
+                "ThT", "Vt", "G0")
+# the tables the kernel reads transposed (a thread per row of the product)
+_BAND_TRANSPOSED = ("Cpl", "Apl", "C", "Mk", "A", "SxF")
 _BAND_LANES = ("q", "hbu", "su", "hbyh", "rmyh", "hbyl", "rmyl", "rmask",
                "cmask", "cmask2", "lpd", "sfy", "sfu")
 # argument order of the C launcher (ops/csrc/closed_sim_band.cu, enum BP_*)
-_BAND_PTRS = _BAND_TABLES + (
-    "s_ptr", "s_col", "s_val", "st_ptr", "st_row", "st_val", "e_ptr", "e_row",
-    "e_coef", "GbT", "scol") + _BAND_LANES + ("Hp", "r", "Y", "U", "E", "work")
+_BAND_PTRS = _BAND_TABLES + _BAND_LANES + ("Hp", "r", "Y", "U", "E")
 _BAND_DIMS = ("B", "nit", "lp_iters", "s2_iters", "ny", "nu", "nxa", "nxp",
               "pny", "n", "mc", "nmv")
 BAND_MAX_N = 64  # = kBandMaxN of ops/csrc/closed_sim_band.cu
+BAND_MAX_CLUSTER = 4  # = kBandMaxCluster
+BAND_THREADS = 256  # = kBandThreads
 
 
-def band_envelope(G0, dims, pny):
+def _band_bytes(C, n, mc, pny, ny, nu, nxa, nxp):
+    """Shared memory of one block of a C-block cluster (band_plan_for):
+    the factor tile, packed Hessian, 13 n-vectors, the estimator's
+    vectors, reduction scratch, then per K-row (mc - pny of them, split
+    over C) a tile row of n - 1 | 1 coefficients, 23 state values and an
+    int, and the reduction buffer (also the step's free response and the
+    K-row list)."""
+    kcap = mc - pny
+    kb = -(-kcap // C)
+    nt = (n + 2) // 4
+    tiles = nt * (nt + 1) // 2 + nt
+    part = max(16 * max(tiles, BAND_THREADS), 2 * pny, kcap)
+    el = (n * (n | 1) + n * (n + 1) // 2 + 13 * n
+          + 2 * nxp + 2 * nxa + ny
+          + 2 * nu + 8 * (BAND_THREADS // 32) + 8 + 8 + 4
+          + kb * ((n - 1) | 1) + 4 + 23 * kb + (kb + 1) // 2 + part)
+    return 8 * el
+
+
+def band_plan(n, mc, pny, ny, nu, nxa, nxp):
+    """(blocks a cluster, shared-memory bytes a block) of the band kernel
+    (ops/csrc/closed_sim_band.cu, band_plan): the smallest cluster of 1, 2
+    or 4 blocks per candidate whose block holds its slice of the K-rows in
+    FACTOR_SMEM_MAX bytes; (0, the 4-block bytes) when none does."""
+    for C in (1, 2, BAND_MAX_CLUSTER):
+        b = _band_bytes(C, n, mc, pny, ny, nu, nxa, nxp)
+        if b <= FACTOR_SMEM_MAX:
+            return C, b
+    return 0, _band_bytes(BAND_MAX_CLUSTER, n, mc, pny, ny, nu, nxa, nxp)
+
+
+def band_envelope(G0, dims, pny, nxa=None, nxp=None):
     """The band kernel's envelope, checked before a launch: G0 laid out as
     [4 m nu move/input rows | p ny y_hi | p ny y_lo | slack], the y_lo rows
     the negated y_hi rows outside the slack column (true when every output
-    has both bands or neither), and n <= BAND_MAX_N variables.  Raises
-    ValueError outside it; returns the first band row."""
+    has both bands or neither), n <= BAND_MAX_N variables and, given the
+    estimator's sizes nxa and nxp, a cluster whose blocks fit
+    (``band_plan``).  Raises ValueError outside it; returns the first band
+    row."""
     n, mc, nu, m_max = dims["n"], dims["mc"], dims["nu"], dims["m_max"]
     nmv = 4 * m_max * nu
     if n > BAND_MAX_N:
         raise ValueError(f"band kernel: n = {n} variables, at most "
-                         f"{BAND_MAX_N} (the kernel's register tiling)")
+                         f"{BAND_MAX_N} (the factor's two rows a lane)")
     if mc != nmv + 2 * pny + 1 or tuple(G0.shape) != (mc, n):
         raise ValueError(f"band kernel: G0 {tuple(G0.shape)} is not laid out "
                          f"as {nmv} move/input rows, 2 x {pny} band rows and "
@@ -885,32 +952,20 @@ def band_envelope(G0, dims, pny):
     if not torch.equal(lo, -hi):
         raise ValueError("band kernel: the y_lo rows of G0 are not the "
                          "negated y_hi rows (one-sided output bands)")
+    if nxa is not None:
+        C, b = band_plan(n, mc, pny, dims["ny"], nu, nxa, nxp)
+        if not C:
+            raise ValueError(
+                f"band kernel: n = {n}, {mc - pny} K-rows need {b} bytes of "
+                f"shared memory a block in a cluster of {BAND_MAX_CLUSTER}, "
+                f"at most {FACTOR_SMEM_MAX}")
     return nmv
 
 
-def _band_sparse(G0, nmv, pny):
-    """G0 without its band rows as CSR and CSC, and per lower-triangle
-    entry of the normal matrix the list of those rows' terms
-    (``_entry_terms``)."""
-    Gs = G0.clone()
-    Gs[nmv:nmv + 2 * pny] = 0.0
-    return _csr(Gs) + _csr(Gs.T.contiguous()) + _entry_terms(Gs)
-
-
-def closed_sim_band(tables, lane_consts, Hp_t, r_l, nit, lp_iters, s2_iters,
-                    dims):
-    """Whole band closed loop: per step the slack seeding, an `lp_iters`
-    stage-0 slack LP and an `s2_iters` slack-frozen stage-2 PDIP against
-    the per-lane Hessians Hp_t (n, n, B).  Returns (Y, U, E), E (nit, B)
-    each step's frozen ECR slack ehat.  Float64 only: float32 band loops
-    leave the hard input bounds (PERF.md), so float32 inputs raise."""
-    if r_l.dtype != torch.float64:
-        raise ValueError(f"closed_sim_band runs at float64 only, got "
-                         f"{r_l.dtype}: float32 band loops leave the hard "
-                         "input bounds")
-    if _on_cpu(r_l, Hp_t):
-        return closed_sim_band_plain(tables, lane_consts, Hp_t, r_l, nit,
-                                     lp_iters, s2_iters, dims)
+def launch_band(lib, tables, lane_consts, Hp_t, r_l, nit, lp_iters, s2_iters,
+                dims):
+    """One launch of the band kernel of ``lib`` (the port's library or a
+    build of the same source); checks the inputs, returns (Y, U, E)."""
     from mpc_tuning_tpu_torch.ops.qp import (WS_EPS, pdip_constants,
                                              split_margins)
 
@@ -920,7 +975,7 @@ def closed_sim_band(tables, lane_consts, Hp_t, r_l, nit, lp_iters, s2_iters,
     B = r_l.shape[2]
     nxa, nxp = t["A"].shape[0], t["Apl"].shape[0]
     pny = t["SxF"].shape[0]
-    nmv = band_envelope(t["G0"], dims, pny)
+    nmv = band_envelope(t["G0"], dims, pny, nxa, nxp)
     shapes = {
         "Cpl": (ny, nxp), "Apl": (nxp, nxp), "Bplu": (nxp, nu), "C": (ny, nxa),
         "Mk": (nxa, ny), "A": (nxa, nxa), "Bu": (nxa, nu), "SxF": (pny, nxa),
@@ -934,29 +989,25 @@ def closed_sim_band(tables, lane_consts, Hp_t, r_l, nit, lp_iters, s2_iters,
         _require(lc[k], (nr, B), dtype, k)
     _require(Hp_t, (n, n, B), dtype, "Hp")
     _require(r_l, (nit, ny, B), dtype, "r_l")
-
-    lib = _build.library()
+    rm = lc["rmask"]
+    if not (bool(((rm == 0) | (rm == 1)).all())
+            and torch.equal(rm[nmv:nmv + pny], rm[nmv + pny:nmv + 2 * pny])):
+        raise ValueError("band kernel: rmask is not 0/1 with equal masks on "
+                         "each y_hi / y_lo pair")
     if (lib.mpc_closed_sim_band_ptr_count() != len(_BAND_PTRS)
             or lib.mpc_closed_sim_band_dim_count() != len(_BAND_DIMS)
             or lib.mpc_closed_sim_band_max_n() != BAND_MAX_N):
         raise RuntimeError("closed_sim_band argument layout mismatch")
-    G0 = t["G0"]
-    sparse = dict(zip(("s_ptr", "s_col", "s_val", "st_ptr", "st_row", "st_val",
-                       "e_ptr", "e_row", "e_coef"),
-                      _band_sparse(G0, nmv, pny)))
     dim_vals = dict(B=B, nit=nit, lp_iters=lp_iters, s2_iters=s2_iters, ny=ny,
                     nu=nu, nxa=nxa, nxp=nxp, pny=pny, n=n, mc=mc, nmv=nmv)
     dims_c = (ctypes.c_int * len(_BAND_DIMS))(*[dim_vals[k] for k in _BAND_DIMS])
-    per_lane = lib.mpc_closed_sim_band_work_per_lane(dims_c)
     kw = dict(dtype=dtype, device=r_l.device)
     Y = torch.empty((nit, ny, B), **kw)
     U = torch.empty((nit, nu, B), **kw)
     E = torch.empty((nit, B), **kw)
-    bufs = dict({k: t[k] for k in _BAND_TABLES}, **sparse,
-                GbT=G0[nmv:nmv + pny, :-1].T.contiguous(),
-                scol=G0[:, -1].contiguous(),
-                Hp=Hp_t.permute(2, 0, 1).contiguous(), r=r_l, Y=Y, U=U, E=E,
-                work=torch.empty((max(per_lane, 1) * B,), **kw))
+    bufs = dict({k: t[k].T.contiguous() if k in _BAND_TRANSPOSED else t[k]
+                 for k in _BAND_TABLES},
+                Hp=Hp_t.permute(2, 0, 1).contiguous(), r=r_l, Y=Y, U=U, E=E)
     bufs.update({k: lc[k].T.contiguous() for k in _BAND_LANES})
     for k, v in bufs.items():
         if v.device != r_l.device:
@@ -968,8 +1019,28 @@ def closed_sim_band(tables, lane_consts, Hp_t, r_l, nit, lp_iters, s2_iters,
     scal_c = (ctypes.c_double * 5)(WS_EPS, ridge, w_cap, m_rel, m_abs)
     _build.check(lib.mpc_closed_sim_band(ptrs, dims_c, scal_c, _stream(r_l)),
                  "closed_sim_band")
-    closed_sim_band.launches += 1
     return Y, U, E
+
+
+def closed_sim_band(tables, lane_consts, Hp_t, r_l, nit, lp_iters, s2_iters,
+                    dims):
+    """Whole band closed loop: per step the slack seeding, an `lp_iters`
+    stage-0 slack LP and an `s2_iters` slack-frozen stage-2 PDIP against
+    the per-lane Hessians Hp_t (n, n, B).  Returns (Y, U, E), E (nit, B)
+    each step's frozen ECR slack ehat.  Float64 only: float32 band loops
+    leave the hard input bounds (PERF.md), so float32 inputs raise; raises
+    outside ``band_envelope``."""
+    if r_l.dtype != torch.float64:
+        raise ValueError(f"closed_sim_band runs at float64 only, got "
+                         f"{r_l.dtype}: float32 band loops leave the hard "
+                         "input bounds")
+    if _on_cpu(r_l, Hp_t):
+        return closed_sim_band_plain(tables, lane_consts, Hp_t, r_l, nit,
+                                     lp_iters, s2_iters, dims)
+    out = launch_band(_build.library(), tables, lane_consts, Hp_t, r_l, nit,
+                      lp_iters, s2_iters, dims)
+    closed_sim_band.launches += 1
+    return out
 
 
 closed_sim_band.launches = 0

@@ -1,10 +1,7 @@
-"""The band whole-sim kernel (ops/csrc/closed_sim_band.cu) of this tree
-against another build of it with the block-per-candidate C interface
-(``--old``: an ``ops/csrc`` unpacked with ``git archive``), on one card.
-Run from a tree holding the thread-block-cluster kernel (the commit
-"Redesign the band whole-sim kernel as a thread-block cluster per
-candidate", with this tree's tools/band_spread.py and ops/band_cert.py)
-it holds that redesign against the block-per-candidate kernel.
+"""The band whole-sim kernel (ops/csrc/closed_sim_band.cu) of this tree,
+a thread-block cluster per candidate, against a build of the
+block-per-candidate design it replaced (``--old``: an ``ops/csrc`` with
+that C interface, unpacked with ``git archive``), on one card.
 
     mkdir -p .chip_archive/old
     git archive <commit> mpc_tuning_tpu_torch/ops/csrc \\

@@ -1,11 +1,10 @@
 """Where one launch of the band whole-sim kernel spends its cycles, phase
-by phase, on one card: a copy of ops/csrc/closed_sim_band.cu (this tree's,
-or another with its C interface, ``--src``) with clock64() marks patched
-in, built beside the port's library.  The shipped source has no switch
-for this.
+by phase, on one card: a copy of ops/csrc/closed_sim_band.cu (this tree's
+or an earlier one, ``--src``) with clock64() marks patched in, built
+beside the port's library.  The shipped source has no switch for this.
 
-    PYTHONPATH=. python scripts/band_phase_clock.py [--src DIR] \\
-        [--nit 40] [--out FILE]
+    PYTHONPATH=.:scripts python scripts/band_phase_clock.py [--src DIR] \\
+        [--nit 40] [--min-cluster C] [--out FILE]
 
 Block 0's thread 0 reads clock64() at each mark (the phases end at a
 barrier, so its clock is the block's) and adds the cycles since the last
@@ -83,7 +82,7 @@ extern "C" int pc_reset() {
 """
 
 # phase names by mark index
-PHASES = {0: "step level (estimator, free response, seeding, freeze)",
+OLD_PHASES = {0: "step level (estimator, free response, seeding, freeze)",
               13: "pdip warm start", 1: "residuals (G z, G'lam, merit)",
               2: "best iterate", 3: "normal matrix", 4: "factor",
               5: "G't and rhs", 6: "substitutions", 7: "G dz",
@@ -91,8 +90,74 @@ PHASES = {0: "step level (estimator, free response, seeding, freeze)",
               12: "pdip tail (last residuals, best restore)",
               14: "loop top", 15: "mark"}
 
-# (pattern, replacement, expected count) on the source
-PATCHES = (
+# the same for the block-cluster design (this tree's source)
+NEW_PHASES = {0: OLD_PHASES[0], 13: "pdip warm start",
+              1: "row phases (r_p, w, t, ds, dl, updates)",
+              3: "cross-row product (normal matrix, G'lam, G't)",
+              16: "cross-row product (corrector G't)",
+              17: "cluster barriers after the products",
+              18: "combine over the cluster (normal matrix, G'y)",
+              4: "warp 0 section's end (the other warps' wait)",
+              6: "corrector warp 0 section's end",
+              9: "step-length reductions (with their cluster barriers)",
+              12: OLD_PHASES[12], 14: "loop top", 15: "mark",
+              19: "warp 0: r_d and merit", 20: "warp 0: factor",
+              21: "warp 0: predictor solve", 22: "warp 0: corrector combine",
+              23: "warp 0: corrector solve"}
+
+
+def _after(anchor, mark, count=1):
+    return (f"({re.escape(anchor)})", r"\1" + mark, count)
+
+
+def _before(anchor, mark, count=1):
+    return (f"({re.escape(anchor)})", mark + r"\1", count)
+
+
+NEW_PATCHES = (
+    (r"__syncthreads\(\);", "PC_SYNC();", None),
+    (r"cg::this_cluster\(\)\.sync\(\);",
+     "{ cg::this_cluster().sync(); if (PC_ON) ++pc_cbars; }", 1),
+    _after("  Band<T> c(a);\n", "  PC_START();\n"),
+    _after("__device__ void pdip(Band<T>& c, bool diag_h, const T* colm, "
+           "int iters) {\n", "  MARK(0);\n"),
+    _before("  T bm = inf_value<T>();  // warp 0's\n", "  MARK(13);\n"),
+    _after("  for (int it = 0; it <= iters; ++it) {\n",
+           "    if (it < iters) PC_ITER();\n    MARK(14); MARK(15);\n"),
+    _before("      const int idx[5] = {SC_WSS,", "      MARK(1);\n"),
+    _after("      cross_rows(c, last ? t_e : 0, t_end);\n", "      MARK(3);\n"),
+    _after("    c.sync_cluster();\n    const int t0 = last ? t_e : 0;\n",
+           "    MARK(17);\n"),
+    _after("    PC_SYNC();\n    const T gap = c.xsc[7];\n", "    MARK(18);\n"),
+    _before("    if (last) break;\n", "    MARK(4);\n"),
+    _before("    T S1, S2;\n", "    MARK(1);\n"),
+    _after("    T mn = cluster_step<T, true>(c, mr.value(), s1, s2, S1, S2);\n",
+           "    MARK(9);\n"),
+    _before("      const int idx[1] = {SC_ST};\n", "      MARK(1);\n"),
+    _after("      cross_rows(c, t_e, t_end);\n    }\n    c.sync_cluster();\n",
+           "    MARK(17);\n"),
+    _after("      cross_rows(c, t_e, t_end);\n", "      MARK(16);\n"),
+    _after("    PC_SYNC();\n    MinRatio<T> mr2;\n", "    MARK(6);\n"),
+    _before("    T unused;\n", "    MARK(1);\n"),
+    _after("    mn = cluster_step<T, false>(c, mr2.value(), T(0), T(0), "
+           "unused, unused);\n", "    MARK(9);\n"),
+    _before("  }\n  // the best iterate, if the last", "    MARK(1);\n"),
+    _after("      const bool take = m < bm;  // NaN never wins\n",
+           "      MARK(19);\n"),
+    _after("        warp_factor<T, R, true>(c.L, n, c.ldn, ln);\n",
+           "        MARK(20);\n"),
+    _after("        warp_chol_solve<T, R>(c.L, c.ldn, n, x, ln);\n",
+           "        MARK(21);\n"),
+    _before("\n      warp_chol_solve<T, R>(c.L, c.ldn, n, x, ln);\n",
+            " MARK(22);"),
+    _after("\n      warp_chol_solve<T, R>(c.L, c.ldn, n, x, ln);\n",
+           "      MARK(23);\n"),
+    (r"(  PC_SYNC\(\);\n)(\}\n\n// The block's K-rows)", r"\1  MARK(12);\n\2",
+     1),
+)
+
+# (pattern, replacement, expected count) on the old source
+OLD_PATCHES = (
     (r"__syncthreads\(\);", "PC_SYNC();", None),
     (r"(  Band<T> c\(a\);\n)", r"\1  PC_START();\n", 1),
     (r"(__device__ void pdip\(Band<T>& c, bool diag_h, const T\* colm, "
@@ -136,69 +201,36 @@ def patch(src: str, patches) -> str:
     return head + inc + line + nl + HEADER + rest + FOOTER
 
 
-def build(src_dir: pathlib.Path, tag: str):
-    """The instrumented copy of ``src_dir``'s band kernel as a library."""
+def build(src_dir: pathlib.Path, tag: str, min_cluster: int = 1):
+    """The instrumented copy of ``src_dir``'s band kernel as a library;
+    ``min_cluster`` > 1 makes this tree's launcher take clusters of at
+    least that many blocks (a what-if: the shipped rule takes the
+    smallest that fits)."""
     out = OUT / tag
     if out.exists():
         shutil.rmtree(out)
     shutil.copytree(src_dir, out)
     cu = out / "closed_sim_band.cu"
-    cu.write_text(patch(cu.read_text(), PATCHES))
+    text = cu.read_text()
+    old = "struct BandLayout" in text
+    patches = OLD_PATCHES if old else NEW_PATCHES
+    if min_cluster > 1:
+        patches += ((r"for \(int C = 1; C <= kBandMaxCluster",
+                     f"for (int C = {min_cluster}; C <= kBandMaxCluster", 1),)
+    cu.write_text(patch(text, patches))
     so = out / "libphase.so"
     subprocess.run([_build._nvcc(), *_build._NVCC_FLAGS, "-shared", "-o",
                     str(so), str(cu)], check=True)
-    lib = ctypes.CDLL(str(so))
-    vp, d = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
-    lib.mpc_closed_sim_band_work_per_lane.argtypes = [d]
-    lib.mpc_closed_sim_band_work_per_lane.restype = ctypes.c_longlong
-    lib.mpc_closed_sim_band.argtypes = [ctypes.POINTER(vp), d,
-                                        ctypes.POINTER(ctypes.c_double), vp]
+    if old:
+        from band_old_vs_new import old_band, old_band_lib
+
+        lib = old_band_lib(so)
+        call = lambda *a: old_band(lib, *a)
+    else:
+        lib = _build.bind_band(ctypes.CDLL(str(so)))
+        call = lambda *a: K.launch_band(lib, *a)
     lib.pc_read.argtypes = [ctypes.c_void_p]
-    return lib
-
-
-def band_call(lib, tables, lc, Hp_t, r_l, nit, lp_iters, s2_iters, dims):
-    """A launch of ``lib``'s band kernel, marshalled as ``ops/kernels.
-    closed_sim_band`` does for the port's library; (Y, U, E)."""
-    from mpc_tuning_tpu_torch.ops.qp import (WS_EPS, pdip_constants,
-                                             split_margins)
-
-    t = tables
-    ny, nu, n, mc, m_max = (dims[k] for k in ("ny", "nu", "n", "mc", "m_max"))
-    B = r_l.shape[2]
-    pny = t["SxF"].shape[0]
-    nmv = 4 * m_max * nu
-    G0 = t["G0"]
-    sparse = dict(zip(("s_ptr", "s_col", "s_val", "st_ptr", "st_row",
-                       "st_val", "e_ptr", "e_row", "e_coef"),
-                      K._band_sparse(G0, nmv, pny)))
-    vals = dict(B=B, nit=nit, lp_iters=lp_iters, s2_iters=s2_iters, ny=ny,
-                nu=nu, nxa=t["A"].shape[0], nxp=t["Apl"].shape[0], pny=pny,
-                n=n, mc=mc, nmv=nmv)
-    dims_c = (ctypes.c_int * len(K._BAND_DIMS))(
-        *[vals[k] for k in K._BAND_DIMS])
-    kw = dict(dtype=torch.float64, device=r_l.device)
-    Y = torch.empty((nit, ny, B), **kw)
-    U = torch.empty((nit, nu, B), **kw)
-    E = torch.empty((nit, B), **kw)
-    per_lane = lib.mpc_closed_sim_band_work_per_lane(dims_c)
-    bufs = dict({k: t[k] for k in K._BAND_TABLES}, **sparse,
-                GbT=G0[nmv:nmv + pny, :-1].T.contiguous(),
-                scol=G0[:, -1].contiguous(),
-                Hp=Hp_t.permute(2, 0, 1).contiguous(), r=r_l, Y=Y, U=U, E=E,
-                work=torch.empty((max(per_lane, 1) * B,), **kw))
-    bufs.update({k: lc[k].T.contiguous() for k in K._BAND_LANES})
-    ptrs = (ctypes.c_void_p * len(K._BAND_PTRS))(
-        *[bufs[k].data_ptr() if bufs[k].numel() else None
-          for k in K._BAND_PTRS])
-    ridge, w_cap = pdip_constants(torch.float64)
-    m_rel, m_abs = split_margins(torch.float64)
-    scal = (ctypes.c_double * 5)(WS_EPS, ridge, w_cap, m_rel, m_abs)
-    _build.check(lib.mpc_closed_sim_band(
-        ptrs, dims_c, scal,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)),
-        "instrumented closed_sim_band")
-    return Y, U, E
+    return lib, call, OLD_PHASES if old else NEW_PHASES
 
 
 def read(lib):
@@ -210,28 +242,28 @@ def read(lib):
     return v[:24], v[24:48], v[48:72], v[72]
 
 
-def shape_row(lib, problem, caps, B, nit):
+def shape_row(lib, call, phases, problem, caps, B, nit):
     inp, _, _ = band_inputs(problem, caps, B, nit, torch.float64, 7)
     t, lc, Hp, r_l, dims = inp
     args = (t, lc, Hp, r_l, nit, 20, 12, dims)
-    band_call(lib, *args)
+    call(*args)
     lib.pc_reset()
-    ms = cs.timed(lambda: band_call(lib, *args), 1, warm=False)[0]
+    ms = cs.timed(lambda: call(*args), 1, warm=False)[0]
     cyc, bar, cbar, iters = read(lib)
     ms_port = cs.timed(lambda: K.closed_sim_band(*args), 1)[0]
-    total = sum(cyc[k] for k in PHASES)
-    per = {PHASES[k]: dict(cycles_per_iter=cyc[k] / iters,
+    total = sum(cyc[k] for k in phases)
+    per = {phases[k]: dict(cycles_per_iter=cyc[k] / iters,
                            share=cyc[k] / total,
                            barriers_per_iter=bar[k] / iters,
                            cluster_barriers_per_iter=cbar[k] / iters)
-           for k in sorted(PHASES, key=lambda k: -cyc[k])}
-    loop_bars = sum(bar[k] for k in PHASES if k not in (0, 12, 13)) / iters
-    loop_cbars = sum(cbar[k] for k in PHASES if k not in (0, 12, 13)) / iters
+           for k in sorted(phases, key=lambda k: -cyc[k])}
+    loop_bars = sum(bar[k] for k in phases if k not in (0, 12, 13)) / iters
+    loop_cbars = sum(cbar[k] for k in phases if k not in (0, 12, 13)) / iters
     return dict(caps=caps, B=B, nit=nit, n=dims["n"], ms=ms, port_ms=ms_port,
                 pdip_iters=iters, cycles=total,
                 cycles_per_iter=total / iters,
                 barriers_per_pdip_iter=loop_bars,
-                cluster_barriers_per_pdip_iter=loop_cbars, PHASES=per)
+                cluster_barriers_per_pdip_iter=loop_cbars, phases=per)
 
 
 BARRIER_BENCH = r"""
@@ -294,6 +326,7 @@ def main():
     ap.add_argument("--src", type=pathlib.Path, default=CSRC)
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--nit", type=int, default=40)
+    ap.add_argument("--min-cluster", type=int, default=1)
     ap.add_argument("--out", type=pathlib.Path)
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -301,11 +334,11 @@ def main():
                           text=True).stdout.strip()
     print(card, flush=True)
     _build.library()
-    lib = build(args.src, args.tag)
+    lib, call, phases = build(args.src, args.tag, args.min_cluster)
     problem, _ = build_problem(shell7x5.make_case(), device="cuda")
     rows = []
     for caps, B in SHAPES:
-        rows.append(shape_row(lib, problem, caps, B, args.nit))
+        rows.append(shape_row(lib, call, phases, problem, caps, B, args.nit))
         print(json.dumps(rows[-1]), flush=True)
     bars = barrier_bench()
     print("barrier cycles: " + json.dumps(bars), flush=True)

@@ -203,8 +203,7 @@ def test_closed_sim_band_matches_plain(cuda, caps):
     the kernel's U (tools/band_spread.band_witness), the lanes over it (if
     any) decided step by step by the certificate relative to correct runs
     of the plain solve chain (ops/band_cert.hold_relative).
-    (127, 15) keeps the per-lane vectors in global scratch, (32, 4) in
-    shared memory."""
+    (127, 15) runs a cluster of four blocks a candidate, (32, 4) one."""
     from mpc_tuning_tpu_torch.ops.band_cert import hold_relative
     from mpc_tuning_tpu_torch.tools.band_spread import band_candidates
 
@@ -242,7 +241,8 @@ def _lanes(x, b):
 @pytest.mark.parametrize("caps", [(127, 2), (48, 4), (127, 15)])
 def test_closed_sim_band_bits_do_not_depend_on_b(cuda, caps):
     """A lane's (Y, U, E) are the same bits at B = 1, 8 and 37 and in two
-    runs: each candidate's block reduces in a fixed order."""
+    runs: each candidate's cluster reduces in a fixed order (2, 1 and 4
+    blocks a cluster at these buckets)."""
     t, lc, Hp, r_l, nit, lp, s2, dims = _band_inputs(cuda, caps, B=37, nit=40)
     run = lambda b: K.closed_sim_band(t, _lanes(lc, b), _lanes(Hp, b),
                                       _lanes(r_l, b), nit, lp, s2, dims)
@@ -274,6 +274,84 @@ def test_closed_sim_band_certified_at_the_tuned_point(cuda):
                    caps=(N, Nu), pool=pool)
     assert out["steps"] == nit and out["eps_pos"] > 20, out
     assert out["ok"], out
+
+
+def _pad_pairs(inputs, extra):
+    """Band inputs with `extra` band pairs more, all masked: zero rows of
+    G0 after the y_hi and the y_lo blocks, zero rows of the free-response
+    tables, rhs 1 and mask 0.  The loop is unchanged."""
+    t, lc, Hp, r_l, nit, lp, s2, dims = inputs
+    B = r_l.shape[2]
+    pny = t["SxF"].shape[0]
+    nmv = 4 * dims["m_max"] * dims["nu"]
+    zrows = lambda x, k: torch.cat([x, x.new_zeros((k,) + x.shape[1:])])
+
+    def ins(x, fill):  # rows after the y_hi block and after the y_lo block
+        new = x.new_full((extra,) + x.shape[1:], fill)
+        return torch.cat([x[:nmv + pny], new, x[nmv + pny:nmv + 2 * pny],
+                          new, x[nmv + 2 * pny:]])
+
+    t = dict(t, G0=ins(t["G0"], 0.0), SxF=zrows(t["SxF"], extra),
+             SstF=zrows(t["SstF"], extra), Vt=zrows(t["Vt"], extra),
+             ThT=torch.cat([t["ThT"], t["ThT"].new_zeros((t["ThT"].shape[0],
+                                                          extra))], 1))
+    lc = dict(lc, rmask=ins(lc["rmask"], 0.0), q=zrows(lc["q"], extra),
+              **{k: torch.cat([lc[k], lc[k].new_full((extra, B), v)])
+                 for k, v in (("hbyh", 1.0), ("hbyl", 1.0), ("rmyh", 0.0),
+                              ("rmyl", 0.0))})
+    return t, lc, Hp, r_l, nit, lp, s2, dict(dims, mc=dims["mc"] + 2 * extra)
+
+
+def test_band_envelope_matches_the_launcher(cuda):
+    """The C side's plan (mpc_closed_sim_band_plan) is band_plan's at
+    every Shell7x5 bucket shape and at the edge; at the edge (the widest
+    bucket with 138 masked band pairs more: four blocks of ~227 KB) the
+    kernel runs and gives the unpadded run's bits; one pair more, the
+    wrapper raises without launching and the C launcher refuses."""
+    from mpc_tuning_tpu_torch.ops import _build
+
+    lib = _build.library()
+    inputs = _band_inputs(cuda, (127, 15), B=2, nit=6)
+    t, lc, Hp, r_l, nit, lp, s2, dims = inputs
+    nxa, nxp = t["A"].shape[0], t["Apl"].shape[0]
+
+    def c_plan(n, mc, pny, ny, nu):
+        vals = dict(B=2, nit=nit, lp_iters=lp, s2_iters=s2, ny=ny, nu=nu,
+                    nxa=nxa, nxp=nxp, pny=pny, n=n, mc=mc,
+                    nmv=mc - 2 * pny - 1)
+        d = (ctypes.c_int * len(K._BAND_DIMS))(*[vals[k]
+                                                 for k in K._BAND_DIMS])
+        b = ctypes.c_longlong()
+        return lib.mpc_closed_sim_band_plan(d, ctypes.byref(b)), b.value, d
+
+    for p_cap in (7, 15, 31, 48, 63, 127):
+        for m_cap in (1, 2, 4, 7, 15):
+            n, pny = 3 * m_cap + 1, 7 * p_cap
+            mc = 12 * m_cap + 2 * pny + 1
+            assert c_plan(n, mc, pny, 7, 3)[:2] == K.band_plan(
+                n, mc, pny, 7, 3, nxa, nxp), (p_cap, m_cap)
+    ref = K.closed_sim_band(*inputs)
+    pny = t["SxF"].shape[0]
+    for extra, fits in ((138, True), (139, False)):
+        padded = _pad_pairs(inputs, extra)
+        d = padded[-1]
+        C, b = K.band_plan(d["n"], d["mc"], pny + extra, 7, 3, nxa, nxp)
+        assert c_plan(d["n"], d["mc"], pny + extra, 7, 3)[:2] == (C, b)
+        if fits:
+            assert C == 4 and b > 226 * 1024
+            for x, y in zip(K.closed_sim_band(*padded), ref):
+                assert torch.equal(x, y)
+        else:
+            assert C == 0
+            before = K.launch_counts()
+            with pytest.raises(ValueError, match="shared memory"):
+                K.closed_sim_band(*padded)
+            assert K.launch_counts() == before
+            dims_c = c_plan(d["n"], d["mc"], pny + extra, 7, 3)[2]
+            ptrs = (ctypes.c_void_p * len(K._BAND_PTRS))()
+            scal = (ctypes.c_double * 5)()
+            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+            assert lib.mpc_closed_sim_band(ptrs, dims_c, scal, stream) != 0
 
 
 def test_closed_sim_band_refuses_float32(cuda):
@@ -404,6 +482,82 @@ def test_factor_envelope_matches_the_launcher(cuda):
             K.spd_factor(M.contiguous())
         with pytest.raises(ValueError, match="SPD factor kernels"):
             K.factor_lanes(M.permute(1, 2, 0).contiguous())
+        assert K.launch_counts() == before
+
+
+# spd_factor_solve, one warp per system: n = 1, the tunes' sizes, 32 / 33
+# (one row a lane full, then the first with two) and the edge, 64
+SOLVE_N = [1, 5, 17, 31, 32, 33, 46, 64]
+
+
+def _solve_tol(dtype, ref):
+    """The tolerance of chip_smoke.py's SPD gates: 1e-10 absolute at
+    float64, 1e-4 relative to max |x| at float32."""
+    return 1e-10 if dtype == F64 else 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("B", [37, 1024])
+@pytest.mark.parametrize("n", SOLVE_N)
+def test_factor_solve_matches_plain_and_one_thread(cuda, n, B, dtype):
+    """The warp kernel against the plain version and against the
+    one-thread design it replaced (its forward pass has that design's
+    order, its back pass not, so the two differ in the last digits)."""
+    M, rhs = _spd_batch(cuda, B, n, dtype)
+    L = K.spd_factor_plain(M)
+    before = K.spd_factor_solve.launches
+    x = K.spd_factor_solve(L, rhs)
+    assert K.spd_factor_solve.launches == before + 1
+    xp = K.spd_factor_solve_plain(L, rhs)
+    xo = K.spd_factor_solve_one_thread(L, rhs)
+    assert K.spd_factor_solve.launches == before + 1
+    assert torch.isfinite(x).all()
+    assert float((x - xp).abs().max()) <= _solve_tol(dtype, xp)
+    assert float((x - xo).abs().max()) <= _solve_tol(dtype, xo)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("n", [17, 46])
+def test_factor_solve_block_invariance(cuda, n, dtype):
+    """A system's x is the same bits wherever a batch puts it in a block
+    (W = 4 or 8 systems a block) and whatever the batch's size."""
+    M, rhs = _spd_batch(cuda, 37, n, dtype)
+    L = K.spd_factor_plain(M)
+    x = K.spd_factor_solve(L, rhs)
+    for lo, hi in ((0, 37), (5, 18), (36, 37), (1, 4)):
+        assert torch.equal(K.spd_factor_solve(L[lo:hi].contiguous(),
+                                              rhs[lo:hi].contiguous()),
+                           x[lo:hi]), (lo, hi)
+
+
+def test_factor_solve_refuses_above_the_envelope(cuda):
+    """The C launcher takes n = 64 and refuses n = 65 with an error and no
+    launch; the wrapper raises at 65 without launching."""
+    from mpc_tuning_tpu_torch.ops import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype in (torch.float32, F64):
+        M, rhs = _spd_batch(cuda, 3, 64, dtype)
+        L = K.spd_factor_plain(M)
+        x = torch.full_like(rhs, 7.0)
+        assert lib.mpc_spd_factor_solve(int(dtype == F64), 0, L.data_ptr(),
+                                        rhs.data_ptr(), x.data_ptr(), 3, 64,
+                                        stream) == 0
+        xp = K.spd_factor_solve_plain(L, rhs)
+        assert float((x - xp).abs().max()) <= _solve_tol(dtype, xp)
+        L = torch.eye(65, device=cuda, dtype=dtype).expand(3, 65, 65)
+        L = L.contiguous()
+        rhs = torch.ones((3, 65), device=cuda, dtype=dtype)
+        x = torch.full_like(rhs, 7.0)
+        assert lib.mpc_spd_factor_solve(int(dtype == F64), 0, L.data_ptr(),
+                                        rhs.data_ptr(), x.data_ptr(), 3, 65,
+                                        stream) != 0
+        torch.cuda.synchronize()
+        assert bool((x == 7.0).all())
+        before = K.launch_counts()
+        with pytest.raises(ValueError, match="spd_factor_solve: n = 65"):
+            K.spd_factor_solve(L, rhs)
         assert K.launch_counts() == before
 
 
