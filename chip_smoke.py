@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # needs one card; about 15 minutes
+    python3 chip_smoke.py            # needs one card; about 18 minutes
 
 Phases, each printing one line (with its wall time):
  1. environment: the card (nvidia-smi name and power limit), torch and CUDA
@@ -53,8 +53,7 @@ Phases, each printing one line (with its wall time):
     check of the result
     and of ``shell7x5.final_simulation`` on the card;
  3c. the per-step engines' path: a seeded Shell3x3 hybrid tune in float32
-    on the card (the full width, nbp/nbc 7/4, at nit 250 of the case's 500:
-    S3_NIT) through
+    on the card (the full case: nit 500, nbp/nbc 7/4; S3_NIT) through
     ``hybrid_tune`` with GAM 'pdip_ws_fused' and VNS 'admm_fused' (no
     joint weight polish), ``shell3x3.final_simulation`` on the card at
     float64 inside the input bounds, the tuned incumbent's VNS
@@ -124,15 +123,17 @@ U_BOUND = 0.5            # Shell7x5 |u| limit (raw units)
 # CPU; the plain version on the card with the constraint rhs one ulp up
 # against one ulp down) over both buckets, rounded up to two digits, as
 # phase 2c printed them on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
-# §6).  The first move du, which the loop applies, is held at
-# F64_SIM_GATE on every lane at float64.
+# §6; the pdip_fused rows anew for the warp-per-lane kernel, from the
+# witnesses of the plain version whose sums run lane by lane,
+# ops/qp.lane_sum).  The first move du, which the loop applies, is held
+# at F64_SIM_GATE on every lane at float64.
 QP_LIMITS = {
-    ("pdip_fused", "f64"): dict(z=(1.3e-12, 2.6e-10, 1.1e-9, 2.0e-9),
-                                lam=(1.3e-7, 5.2e-5, 2.2e-4, 4.0e-4)),
+    ("pdip_fused", "f64"): dict(z=(1.4e-12, 2.3e-10, 1.1e-9, 1.9e-9),
+                                lam=(2.0e-7, 4.6e-5, 2.2e-4, 3.8e-4)),
     ("admm_fused", "f64"): dict(z=(5.9e-14, 2.8e-13, 4.7e-13, 6.0e-13),
                                 lam=(5.2e-17, 3.4e-15, 9.6e-15, 4.2e-14)),
-    ("pdip_fused", "f32"): dict(z=(2.4e-4, 1.9e-3, 6.8e-3, 1.6e-2),
-                                lam=(1.2e-2, 0.26, 1.3, 2.7)),
+    ("pdip_fused", "f32"): dict(z=(2.3e-4, 2.0e-3, 6.3e-3, 5.9e-2),
+                                lam=(9.3e-3, 0.25, 1.2, 2.1)),
     ("admm_fused", "f32"): dict(z=(3.0e-5, 1.4e-4, 2.5e-4, 3.4e-4),
                                 lam=(2.9e-8, 1.7e-6, 4.5e-6, 8.7e-6)),
 }
@@ -728,11 +729,9 @@ def band_cert_hold(kernel, band_problem, tight=()):
 
 STEP_TAKE = 85  # the Shell3x3 step whose QPs phase 2c solves (after the
                 # setpoint change at step 80)
-# phase 3c's depth: the case's 500 steps cut to 250 (the setpoint changes
-# at steps 9, 79 and 199; not the return to rest at 399) to keep the run
-# inside its time limit; the tune, its host-side checks and the re-score
-# scale with it
-S3_NIT = 250
+# phase 3c's depth: the case's 500 steps (the setpoint changes at steps 9,
+# 79 and 199, the return to rest at 399)
+S3_NIT = 500
 
 
 def to_cpu(x, fn=lambda t: t.cpu()):
@@ -817,6 +816,9 @@ def phase_step_kernels(s3_problem):
             Lk, Lp = K.factor_lanes(M), K.factor_lanes_plain(M)
             xk = K.solve_lanes(Lk, rhs)
             xp = K.solve_lanes_plain(Lp, rhs)
+            # the warp solve_lanes gives spd_factor_solve's bits
+            same = torch.equal(xk.T, K.spd_factor_solve(
+                Lk.permute(2, 0, 1).contiguous(), rhs.T.contiguous()))
             torch.cuda.synchronize()
             eL, ex = maxabs(Lk, Lp), maxabs(xk, xp)
             if f64:
@@ -825,8 +827,10 @@ def phase_step_kernels(s3_problem):
             else:
                 eL /= float(Lp.abs().max())
                 ex /= float(xp.abs().max())
-            rows.append(f"lanes(n={n},B={Bs}):{tag}=L {eL:.3e} x {ex:.3e}")
-            if max(eL, ex) > (F64_SPD_GATE if f64 else F32_SPD_GATE):
+            rows.append(f"lanes(n={n},B={Bs}):{tag}=L {eL:.3e} x {ex:.3e}"
+                        f", x = spd_factor_solve's bits: {same}")
+            if max(eL, ex) > (F64_SPD_GATE if f64 else F32_SPD_GATE) or \
+                    not same:
                 bad.append(rows[-1])
         for caps in ((32, 4), (127, 15)):
             for engine, name in (("pdip_ws_fused", "pdip_fused"),
@@ -856,6 +860,15 @@ def phase_step_kernels(s3_problem):
                     f"{'/'.join(f'{v:g}' for v in lim[k])}; witnesses cpu "
                     f"{fmt(wits[0][k])}, ulp {fmt(wits[1][k])})"
                     for k in ("z", "lam")))
+                if name == "pdip_fused":
+                    # the warp-per-lane kernel against the one-thread
+                    # design it replaced (reported)
+                    old = qp_lane_errors(name, args, out_k,
+                                         K.pdip_fused_one_thread(*args),
+                                         dims["nu"])
+                    rows[-1] += ("; vs the one-thread design: "
+                                 + " ".join(f"{k} {fmt(old[k])}"
+                                            for k in ("du", "z", "lam")))
                 if f64:
                     err64[name] = max(err64.get(name, 0.0),
                                       float(errs["z"].max()))
@@ -882,7 +895,8 @@ def phase_step_kernels(s3_problem):
           f"gates: lanes f64 {F64_SPD_GATE:g}, f32 {F32_SPD_GATE:g} "
           f"relative; QPs: f64 first move du {F64_SIM_GATE:g} on every "
           f"lane, z and lam at QP_LIMITS (lane quantiles p50/p90/p99/max); "
-          f"admm_fused bit for bit against its one-thread design | "
+          f"admm_fused bit for bit against its one-thread design, pdip_fused"
+          f"'s distance from its one-thread design reported | "
           + " | ".join(rows)
           + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
     if bad:
@@ -1106,7 +1120,8 @@ def vns_neighbours(best, dmin_max):
 def phase_step_path():
     """3c. The seeded Shell3x3 hybrid tune on the card through the
     per-step engines, the f64 final simulation and the f64 re-score of the
-    incumbent's neighbourhood; returns the launch counts."""
+    incumbent's neighbourhood; returns the launch counts and the tune's
+    shapes for phase 4 (as TUNE_SHAPES)."""
     from mpc_tuning_tpu_torch.cases import shell3x3
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.sim import mpc_loop
@@ -1158,6 +1173,9 @@ def phase_step_path():
     # decision-grade 'pdip_ws_lanes': on the card (factor_lanes /
     # solve_lanes) against the plain version on the CPU
     Ns, Nus = vns_neighbours(best, int(np.max(problem.dmin)))
+    m_cap = mpc_loop.horizon_caps(127, 15, Ns, Nus)[1]
+    shapes = dict(rescore=(problem.my * len(Ns), m_cap * problem.nu + 1),
+                  incumbent=(N, int(Nu.max())))
     F = {}
     for dev in ("cuda", "cpu"):
         p64, _ = api.build_problem(case, dtype=torch.float64, qp_iters=15,
@@ -1236,7 +1254,7 @@ def phase_step_path():
           flush=True)
     if bad:
         fail("Shell3x3 path: " + " | ".join(bad))
-    return launches
+    return launches, shapes
 
 
 def phase_throughput(problem, band_problem):
@@ -1330,6 +1348,25 @@ def phase_throughput(problem, band_problem):
     return rec
 
 
+# phase 4's rows at the Shell3x3 tune's own batches, as phase 3c returns
+# them: the f64 re-score's (lanes, n) through pdip_ws_lanes and the tuned
+# incumbent's (N, max Nu); these defaults are the nit-250 tune's
+TUNE_SHAPES = {"rescore": (30, 25), "incumbent": (8, 7)}
+
+
+def qp_reads(name, args):
+    """The tensors a single-solve kernel ``name`` reads on ``args``: its
+    inputs, the warm state and G0's shared tables (the PDIP's term list
+    too)."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    G = args[6] if name == "pdip_fused" else args[7]
+    read = [a for a in args if isinstance(a, torch.Tensor)]
+    read += [args[5] if name == "pdip_fused" else args[6]]
+    keys = K._QP_CSR + (K._QP_TERMS if name == "pdip_fused" else ())
+    return read + [G[k] for k in keys]
+
+
 # Phase 4's shapes of admm_fused beyond the record's (WB B=8192 (64,8)):
 # the Shell3x3 tune's VNS batches at its widest bucket, f32, 40 iterations,
 # one step's QPs (STEP_TAKE): one candidate's three selector lanes and a
@@ -1361,11 +1398,7 @@ def admm_fused_record(rec, args, txt):
     for caps, B in ADMM_FUSED_SHAPES:
         a, N, Nu, t, dims = step_qp_args(s3, caps, B, torch.float32,
                                          "admm_fused", caps[0])
-        G = a[7]
-        read = [x for x in a if isinstance(x, torch.Tensor)] + [a[6]]
-        read += [G[k] for k in ("g_ptr", "g_col", "g_val", "gt_ptr", "gt_row",
-                                "gt_val")]
-        b, by = bound_ms(nbytes(read, a[6]),
+        b, by = bound_ms(nbytes(qp_reads("admm_fused", a), a[6]),
                          sim_flops("closed_sim_admm", t, dims, 1, 40, N, Nu,
                                    loop=False), torch.float32)
         rows.append(dict(case="shell3x3", caps=caps, B=B, bound_ms=b,
@@ -1381,31 +1414,115 @@ def admm_fused_record(rec, args, txt):
     return rec
 
 
-def phase_step_throughput(problem):
+def pdip_fused_record(rec, args, txt, incumbent=TUNE_SHAPES["incumbent"]):
+    """pdip_fused's phase-4 record ``rec`` (its ms, plain ms and bound on
+    ``args``, the record's shape) with the device ms and the one-thread
+    design's ms there, and the same at the Shell3x3 tune's GAM batches
+    (popsize 8, f32, 15 iterations, step STEP_TAKE's QPs): the first
+    bucket (127, 2) and the tuned incumbent's, (N, max Nu) ``incumbent``
+    (under 'shapes'); appends the text to ``txt``."""
+    from mpc_tuning_tpu_torch.cases import shell3x3
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.sim.mpc_loop import horizon_caps
+    from mpc_tuning_tpu_torch.tuning.api import build_problem
+
+    def times(a):
+        new = lambda: K.pdip_fused(*a)
+        old = lambda: K.pdip_fused_one_thread(*a)
+        return dict(ms=timed(new, 20)[0], device_ms=device_ms(new),
+                    old_ms=timed(old, 20)[0], old_device_ms=device_ms(old))
+
+    rec = dict(rec, **times(args))
+    rows = [dict(case="woodberry", caps=(32, 4), B=args[1].shape[1],
+                 **{k: rec[k] for k in ("ms", "device_ms", "old_ms",
+                                        "old_device_ms", "bound_ms",
+                                        "bound_by")})]
+    s3, _ = build_problem(shell3x3.make_case(), device="cuda")
+    N_inc, Nu_inc = incumbent
+    inc_caps = horizon_caps(127, 15, [N_inc], [Nu_inc])
+    for caps, N, Nu in (((127, 2), 127, 2), (inc_caps, N_inc, Nu_inc)):
+        a, N_b, Nu_b, t, dims = step_qp_args(s3, caps, 8, torch.float32,
+                                             "pdip_ws_fused", caps[0], N=N,
+                                             Nu=Nu)
+        out = K.pdip_fused(*a)
+        b, by = bound_ms(nbytes(qp_reads("pdip_fused", a), out),
+                         sim_flops("closed_sim_pdip", t, dims, 1, 15, N_b,
+                                   Nu_b, loop=False), torch.float32)
+        rows.append(dict(case="shell3x3", caps=caps, B=8, N=N, Nu=Nu,
+                         bound_ms=b, bound_by=by, **times(a)))
+    rec["shapes"] = rows
+    txt.append("pdip_fused f32 15 it., one step's QPs, warp per lane vs the "
+               "one-thread design: " + "; ".join(
+                   f"{r['case']} B={r['B']} caps={r['caps']}: kernel "
+                   f"{r['ms']:.4f} ms (device {fmt_ms(r['device_ms'])}), "
+                   f"one-thread {r['old_ms']:.4f} ms (device "
+                   f"{fmt_ms(r['old_device_ms'])}), bound "
+                   f"{r['bound_ms']:.5f} ({r['bound_by']})" for r in rows))
+    return rec
+
+
+def solve_lanes_record(rescore=TUNE_SHAPES["rescore"]):
+    """solve_lanes (one warp per system) and the one-thread design it
+    replaced, CUDA-event ms per call (20 calls) and device ms per call, at
+    the table's shape (f32 B=1024 n=17, with the plain version and
+    torch.cholesky_solve) and at phase 3c's f64 re-score through
+    pdip_ws_lanes, its (lanes, n) ``rescore``, with the bound (the factor's
+    lower triangle and the rhs read, x written).  Returns the record (the
+    table's keys at the first shape, every shape under 'shapes') and its
+    text."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    B_r, n_r = rescore
+    rows = []
+    for dtype, B, n in ((torch.float32, 1024, 17), (torch.float64, B_r, n_r)):
+        M, rhs = spd_batch(B, n, dtype, seed=0)
+        Lt = K.factor_lanes_plain(M.permute(1, 2, 0).contiguous())
+        Lt, rt = Lt.contiguous(), rhs.T.contiguous()
+        calls = dict(kernel=lambda: K.solve_lanes(Lt, rt),
+                     old=lambda: K.solve_lanes_one_thread(Lt, rt))
+        if not rows:
+            calls.update(plain=lambda: K.solve_lanes_plain(Lt, rt),
+                         library=lambda: torch.cholesky_solve(
+                             rt.T[:, :, None], Lt.permute(2, 0, 1)))
+        row = dict(dtype=str(dtype).removeprefix("torch."), B=B, n=n)
+        for name, fn in calls.items():
+            key = "" if name == "kernel" else name + "_"
+            row[key + "ms"] = timed(fn, 20)[0]
+            row[key + "device_ms"] = device_ms(fn)
+        tri = n * (n + 1) // 2
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            B * (tri + 2 * n) * M.element_size(), B * 2 * n * n, dtype)
+        rows.append(row)
+    rec = {k: rows[0][k] for k in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")}
+    rec["shapes"] = rows
+    txt = "; ".join(
+        f"{r['dtype']} B={r['B']} n={r['n']}: kernel {r['ms']:.5f} ms "
+        f"(device {fmt_ms(r['device_ms'])}), one-thread {r['old_ms']:.5f} "
+        f"(device {fmt_ms(r['old_device_ms'])})"
+        + (f", cholesky_solve {r['library_ms']:.5f}, plain "
+           f"{r['plain_ms']:.5f}" if "plain_ms" in r else "")
+        + f", bound {r['bound_ms']:.3g} ({r['bound_by']})" for r in rows)
+    return rec, txt
+
+
+def phase_step_throughput(problem, tune_shapes=TUNE_SHAPES):
     """4, the per-step engines: kernel, plain and library times of their
-    kernels at the bench shapes, and one evaluation through each per-step
-    engine beside the whole-sim kernel of the same algorithm; returns
-    {name: dict(ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    kernels at the bench shapes and at the Shell3x3 tune's batches
+    (``tune_shapes``, from phase 3c), and one evaluation through each
+    per-step engine beside the whole-sim kernel of the same algorithm;
+    returns {name: dict(ms, plain_ms, bound_ms, bound_by, library_ms)}."""
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.sim import mpc_loop
 
     t0 = time.perf_counter()
     f32 = torch.float32
     rec, txt = {}, []
-    M, rhs = spd_batch(1024, 17, f32, seed=0)
-    Mt, rt = M.permute(1, 2, 0).contiguous(), rhs.T.contiguous()
-    Lt = K.factor_lanes_plain(Mt).contiguous()
     fac, fac_txt = spd_record("factor_lanes")
-    sol = dict(ms=timed(lambda: K.solve_lanes(Lt, rt), 20)[0],
-               plain_ms=timed(lambda: K.solve_lanes_plain(Lt, rt), 20)[0],
-               library_ms=timed(lambda: torch.cholesky_solve(
-                   rt.T[:, :, None], Lt.permute(2, 0, 1)), 20)[0])
-    sol["bound_ms"], sol["bound_by"] = bound_ms(
-        nbytes(Lt) + 2 * nbytes(rt), 1024 * 2 * 2 * 17 ** 2, f32)
+    sol, sol_txt = solve_lanes_record(tune_shapes["rescore"])
     rec["factor_lanes"], rec["solve_lanes"] = fac, sol
-    txt.append(f"factor_lanes {fac_txt} | solve_lanes B=1024 n=17 f32: "
-               f"{sol['ms']:.4f} ms (plain {sol['plain_ms']:.4f}, "
-               f"cholesky_solve {sol['library_ms']:.4f})")
+    txt.append(f"factor_lanes {fac_txt} | solve_lanes, warp per system vs "
+               f"the one-thread design: {sol_txt}")
 
     # one step's QP solve at the GAM shape (PDIP) and the VNS headline
     # shape (ADMM), the inputs of a real Wood-Berry step
@@ -1420,11 +1537,7 @@ def phase_step_throughput(problem):
         ms, out = timed(lambda: getattr(K, name)(*args), 20)
         pm = timed(lambda: getattr(K, name + "_plain")(*args), 1,
                    warm=False)[0]
-        G = args[6] if name == "pdip_fused" else args[7]
-        read = [a for a in args if isinstance(a, torch.Tensor)]
-        read += [args[5] if name == "pdip_fused" else args[6]]
-        read += [G[k] for k in ("g_ptr", "g_col", "g_val", "gt_ptr",
-                                "gt_row", "gt_val")]
+        read = qp_reads(name, args)
         b, by = bound_ms(nbytes(read, out),
                          sim_flops("closed_sim_" + whole[:4], t, dims, 1,
                                    iters, N, Nu, loop=False), f32)
@@ -1432,6 +1545,9 @@ def phase_step_throughput(problem):
                          library_ms=None)
         if name == "admm_fused":
             rec[name] = admm_fused_record(rec[name], args, txt)
+        else:
+            rec[name] = pdip_fused_record(rec[name], args, txt,
+                                          tune_shapes["incumbent"])
         # one whole evaluation (nit 400) through the per-step engine and
         # through the whole-sim kernel of the same algorithm
         inp, _, _ = sim_inputs(problem, caps, B, 400, f32, engine, seed,
@@ -1849,11 +1965,11 @@ def main():
     err64["closed_sim_band"] = phase_band_kernels(band_problem)
     err64.update(phase_step_kernels(s3_problem))
     err64.update(phase_nmpc_kernels(vdv_problem))
-    paths = [fn() for fn in (phase_main_path, phase_band_main_path,
-                             phase_step_path, phase_nmpc_path,
-                             phase_spd_solve_entry)]
+    paths = [phase_main_path(), phase_band_main_path()]
+    launches, tune_shapes = phase_step_path()
+    paths += [launches, phase_nmpc_path(), phase_spd_solve_entry()]
     rec = phase_throughput(problem, band_problem)
-    rec.update(phase_step_throughput(problem))
+    rec.update(phase_step_throughput(problem, tune_shapes))
     rec.update(phase_nmpc_throughput(vdv_problem))
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -64,8 +64,6 @@ def _bind(lib):
     lib.mpc_pdip_fused_ptr_count.restype = i
     lib.mpc_admm_fused_ptr_count.restype = i
     lib.mpc_qp_fused_dim_count.restype = i
-    lib.mpc_pdip_fused_work_rows.argtypes = [i, i]
-    lib.mpc_pdip_fused_work_rows.restype = ctypes.c_longlong
     for fn in (lib.mpc_pdip_fused, lib.mpc_admm_fused):
         fn.argtypes = [i, ctypes.POINTER(vp), d,
                        ctypes.POINTER(ctypes.c_double), vp]
@@ -161,13 +159,17 @@ def reference_library():
         so, _ = _built("mpc_reference", srcs, srcs + _sources())
         _ref = ctypes.CDLL(str(so))
         vp, i = ctypes.c_void_p, ctypes.c_int
-        _ref.mpc_admm_fused_one_thread.argtypes = [
-            i, ctypes.POINTER(vp), ctypes.POINTER(i),
-            ctypes.POINTER(ctypes.c_double), vp]
-        _ref.mpc_admm_fused_one_thread.restype = i
-        _ref.mpc_spd_factor_solve_one_thread.argtypes = [i, vp, vp, vp, i, i,
-                                                         vp]
-        _ref.mpc_spd_factor_solve_one_thread.restype = i
+        for fn in (_ref.mpc_admm_fused_one_thread,
+                   _ref.mpc_pdip_fused_one_thread):
+            fn.argtypes = [i, ctypes.POINTER(vp), ctypes.POINTER(i),
+                           ctypes.POINTER(ctypes.c_double), vp]
+            fn.restype = i
+        _ref.mpc_pdip_fused_one_thread_work_rows.argtypes = [i, i]
+        _ref.mpc_pdip_fused_one_thread_work_rows.restype = ctypes.c_longlong
+        for fn in (_ref.mpc_spd_factor_solve_one_thread,
+                   _ref.mpc_solve_lanes_one_thread):
+            fn.argtypes = [i, vp, vp, vp, i, i, vp]
+            fn.restype = i
     return _ref
 
 

@@ -12,110 +12,33 @@
 // bytes moved (each input read once, each output written once) or by
 // FLOP/s.
 //
-// pdip_fused runs one thread per lane with the per-lane device code of
-// lane_qp.cuh, its vectors and normal matrix in a lane-major scratch
-// buffer (row * B + lane: a warp's loads are one coalesced line), G0 read
-// through its CSR; the solves substitute with the factor in place of the
-// TPU kernel's explicit L^{-1} (the two differ only in rounding).
-//
-// admm_fused runs one warp per lane, the design of the whole-sim ADMM
-// kernel (closed_sim.cu): W = QpShape<T>::kW lanes a block (4 at float, 2
-// at double), each lane's Minv tile (row stride factor_ld(n)), its
-// vectors and its staged constants in its warp's share of shared memory
-// (AdmmLayout), copied there once per launch with cp.async, and the
-// iterations of warp_qp.cuh's warp_admm, which spreads each one over rows
-// and columns (one dot deep) and forms every dot in the one-thread order:
-// the result is the one-thread kernel's (ops/csrc/reference/
-// admm_fused_one_thread.cu), bit for bit.  The TPU kernels' (8, 128) tile
-// padding is dropped.  Envelope (ops/kernels.admm_fused_envelope holds the
-// same arithmetic): W AdmmLayout::total elements of shared memory a block,
-// at most kFactorSmemMax; the launcher refuses outside it.
+// Both run one warp per lane, the design of the whole-sim kernels
+// (closed_sim.cu): W = QpShape<T>::kW lanes a block (4 at float, 2 at
+// double), each lane's n x n tiles (row stride factor_ld(n)), its vectors
+// and its staged constants in its warp's share of shared memory
+// (PdipLayout, AdmmLayout), copied there once per launch with cp.async, so
+// no iteration touches device memory but through G0's shared tables.
+// Each iteration's work is spread over rows and columns (warp_qp.cuh), one
+// dot deep:
+//  * pdip_fused runs warp_pdip: the normal matrix per lower entry from the
+//    wrapper's list of G0[r,a] G0[r,b] terms, the warp-per-matrix factor
+//    (warp_factor.cuh), row-parallel substitutions with the right-hand
+//    side in registers, shuffle-tree reductions; it keeps the best
+//    iterate's slacks beside (z, lam), as the TPU kernel returns them.
+//    Its reductions and back substitution round differently from the
+//    one-thread design it replaced (reference/pdip_fused_one_thread.cu);
+//  * admm_fused runs warp_admm, which forms every dot in the one-thread
+//    order: the result is the one-thread kernel's
+//    (reference/admm_fused_one_thread.cu), bit for bit.
+// The TPU kernels' (8, 128) tile padding is dropped.  Envelopes
+// (ops/kernels.pdip_fused_envelope and admm_fused_envelope hold the same
+// arithmetic): W Layout::total elements of shared memory a block, at most
+// kFactorSmemMax, and for the PDIP n <= 32 kFactorMaxRows (the factor's
+// two rows a lane); the launchers refuse outside them.
 
-#include "lane_qp.cuh"
 #include "warp_qp.cuh"
 
 namespace mpc {
-
-constexpr int kQpThreads = 32;
-
-template <typename T>
-struct PdipFusedArgs {
-  Csr<T> g;
-  const T* Hp;     // (n, n, B)
-  const T* f;      // (n, B)
-  const T* h;      // (mc, B)
-  const T* rmask;  // (mc, B)
-  const T* cmask;  // (n, B)
-  const T* z0;     // (n, B) warm pair
-  const T* lam0;   // (mc, B)
-  T* z;            // (n, B) best iterate
-  T* lam;          // (mc, B)
-  T* s;            // (mc, B)
-  T* work;         // (PdipRows::rows, B)
-  int B, n, mc, iters;
-  T eps_c, ridge, w_cap;
-};
-
-// Row offsets of the PDIP kernel's per-lane scratch vectors.
-struct PdipRows {
-  size_t rhs, dz, bz, rd, blam, bs, rp, w, t, ds, dl, dsa, dla, L, rows;
-  __host__ __device__ PdipRows(int n, int mc) {
-    size_t o = 0;
-    rhs = o; o += n;
-    dz = o; o += n;
-    bz = o; o += n;
-    rd = o; o += n;
-    blam = o; o += mc;
-    bs = o; o += mc;
-    rp = o; o += mc;
-    w = o; o += mc;
-    t = o; o += mc;
-    ds = o; o += mc;
-    dl = o; o += mc;
-    dsa = o; o += mc;
-    dla = o; o += mc;
-    L = o; o += (size_t)n * n;
-    rows = o;
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kQpThreads)
-pdip_fused_kernel(const PdipFusedArgs<T> a) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.B) return;
-  const int B = a.B;
-  const PdipRows o(a.n, a.mc);
-  PdipLane<T> v;
-  // f and h are inputs, only read (PdipLane takes them as Lane)
-  v.f = Lane<T>{const_cast<T*>(a.f) + lane, B};
-  v.h = Lane<T>{const_cast<T*>(a.h) + lane, B};
-  v.rmask = clane_at(a.rmask, B, lane);
-  v.cmask = clane_at(a.cmask, B, lane);
-  v.H = clane_at(a.Hp, B, lane);
-  v.z = lane_at(a.z, 0, B, lane);
-  v.lam = lane_at(a.lam, 0, B, lane);
-  v.s = lane_at(a.s, 0, B, lane);
-  v.rhs = lane_at(a.work, o.rhs, B, lane);
-  v.dz = lane_at(a.work, o.dz, B, lane);
-  v.bz = lane_at(a.work, o.bz, B, lane);
-  v.rd = lane_at(a.work, o.rd, B, lane);
-  v.blam = lane_at(a.work, o.blam, B, lane);
-  v.bs = lane_at(a.work, o.bs, B, lane);
-  v.rp = lane_at(a.work, o.rp, B, lane);
-  v.w = lane_at(a.work, o.w, B, lane);
-  v.t = lane_at(a.work, o.t, B, lane);
-  v.ds = lane_at(a.work, o.ds, B, lane);
-  v.dl = lane_at(a.work, o.dl, B, lane);
-  v.dsa = lane_at(a.work, o.dsa, B, lane);
-  v.dla = lane_at(a.work, o.dla, B, lane);
-  v.L = lane_at(a.work, o.L, B, lane);
-  const CLane<T> z0 = clane_at(a.z0, B, lane);
-  const CLane<T> lam0 = clane_at(a.lam0, B, lane);
-  for (int i = 0; i < a.n; ++i) v.z[i] = z0[i];
-  for (int r = 0; r < a.mc; ++r) v.lam[r] = lam0[r];
-  pdip_solve(a.g, v, a.n, a.mc, a.iters, a.eps_c, a.ridge, a.w_cap);
-}
 
 template <typename T>
 struct QpShape {
@@ -216,33 +139,185 @@ __global__ void __launch_bounds__(32 * QpShape<T>::kW)
   }
 }
 
+template <typename T>
+struct PdipFusedArgs {
+  GSparse<T> g;    // G0's CSR by rows and columns and its entry terms
+  const T* Hp;     // (n, n, B)
+  const T* f;      // (n, B)
+  const T* h;      // (mc, B)
+  const T* rmask;  // (mc, B)
+  const T* cmask;  // (n, B)
+  const T* z0;     // (n, B) warm pair
+  const T* lam0;   // (mc, B)
+  T* z;            // (n, B) best iterate
+  T* lam;          // (mc, B)
+  T* s;            // (mc, B)
+  int B, n, mc, iters;
+  T eps_c, ridge, w_cap;
+};
+
+// Offsets (in elements of T) of one lane's data in its warp's share of
+// shared memory: the H and normal-matrix tiles, the n-vectors, then the
+// mc-vectors (bs: the best iterate's slacks).
+struct PdipLayout {
+  size_t H, L, f, cmask, z, bz, rd, dz;
+  size_t h, rmask, lam, s, blam, bs, rp, w, t, ds, dl, total;
+  __host__ __device__ PdipLayout(int n, int mc) {
+    const size_t nn = (size_t)n * factor_ld(n);
+    size_t o = 0;
+    H = o; o += nn;
+    L = o; o += nn;
+    f = o; o += n;
+    cmask = o; o += n;
+    z = o; o += n;
+    bz = o; o += n;
+    rd = o; o += n;
+    dz = o; o += n;
+    h = o; o += mc;
+    rmask = o; o += mc;
+    lam = o; o += mc;
+    s = o; o += mc;
+    blam = o; o += mc;
+    bs = o; o += mc;
+    rp = o; o += mc;
+    w = o; o += mc;
+    t = o; o += mc;
+    ds = o; o += mc;
+    dl = o; o += mc;
+    total = o;
+  }
+};
+
+// R: rows a lane owns in the factor and the solves (n <= 32 R).
+template <typename T, int R>
+__global__ void __launch_bounds__(32 * QpShape<T>::kW)
+    pdip_fused_kernel(const __grid_constant__ PdipFusedArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int wi = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const int b = blockIdx.x * QpShape<T>::kW + wi;
+  if (b >= a.B) return;
+  const int B = a.B, n = a.n, mc = a.mc, ld = factor_ld(n);
+  const PdipLayout lay(n, mc);
+  T* sm = reinterpret_cast<T*>(smem_raw) + (size_t)wi * lay.total;
+  T* H = sm + lay.H;
+  T* f = sm + lay.f;
+  T* cmask = sm + lay.cmask;
+  T* h = sm + lay.h;
+  T* rmask = sm + lay.rmask;
+  WarpPdip<T> v;
+  v.f = f;
+  v.h = h;
+  v.rmask = rmask;
+  v.cmask = cmask;
+  v.H = H;
+  v.z = sm + lay.z;
+  v.lam = sm + lay.lam;
+  v.s = sm + lay.s;
+  v.bs = sm + lay.bs;
+  v.bz = sm + lay.bz;
+  v.rd = sm + lay.rd;
+  v.dz = sm + lay.dz;
+  v.blam = sm + lay.blam;
+  v.rp = sm + lay.rp;
+  v.w = sm + lay.w;
+  v.t = sm + lay.t;
+  v.ds = sm + lay.ds;
+  v.dl = sm + lay.dl;
+  v.L = sm + lay.L;
+  v.ld = ld;
+  for (int el = ln; el < n * n; el += 32) {
+    const int i = el / n;
+    cp_async(H + i * ld + (el - i * n), a.Hp + (size_t)el * B + b);
+  }
+  stage(f, a.f, n, B, b, ln);
+  stage(cmask, a.cmask, n, B, b, ln);
+  stage(h, a.h, mc, B, b, ln);
+  stage(rmask, a.rmask, mc, B, b, ln);
+  stage(v.z, a.z0, n, B, b, ln);
+  stage(v.lam, a.lam0, mc, B, b, ln);
+  cp_async_wait();
+  __syncwarp();
+  T nact = T(0);
+  for (int r = ln; r < mc; r += 32) nact += rmask[r];
+  v.nact = nmax(warp_sum(nact), T(1));
+  warp_pdip<T, R, true>(a.g, v, n, mc, a.iters, a.eps_c, a.ridge, a.w_cap,
+                        ln);
+  for (int i = ln; i < n; i += 32) a.z[(size_t)i * B + b] = v.z[i];
+  for (int r = ln; r < mc; r += 32) {
+    a.lam[(size_t)r * B + b] = v.lam[r];
+    a.s[(size_t)r * B + b] = v.s[r];
+  }
+}
+
 // ----------------------------------------------------------------- launch
 
-// argument order of the C launchers (ops/kernels.py _QP_CSR, _PDIP_PTRS,
-// _ADMM_PTRS)
+// argument order of the C launchers (ops/kernels.py _QP_CSR, _QP_TERMS,
+// _PDIP_PTRS, _ADMM_PTRS)
 enum { C_GPTR, C_GCOL, C_GVAL, C_GTPTR, C_GTROW, C_GTVAL, C_COUNT };
-enum { PF_HP = C_COUNT, PF_F, PF_H, PF_RMASK, PF_CMASK, PF_Z0, PF_LAM0, PF_Z,
-       PF_LAM, PF_S, PF_WORK, PF_COUNT };
+enum { PF_EPTR = C_COUNT, PF_EROW, PF_ECOEF, PF_HP, PF_F, PF_H, PF_RMASK,
+       PF_CMASK, PF_Z0, PF_LAM0, PF_Z, PF_LAM, PF_S, PF_COUNT };
 enum { AF_MINV = C_COUNT, AF_FS, AF_HS, AF_AROW, AF_ACOL, AF_PAR, AF_X0,
        AF_ZC0, AF_Y0, AF_X, AF_ZC, AF_Y, AF_COUNT };
 // dims: B, n, mc, iters
 enum { QD_B, QD_N, QD_MC, QD_ITERS, QD_COUNT };
 
 template <typename T>
-Csr<T> csr_of(void* const* p) {
-  return Csr<T>{static_cast<const int*>(p[C_GPTR]),
-                static_cast<const int*>(p[C_GCOL]),
-                static_cast<const T*>(p[C_GVAL]),
-                static_cast<const int*>(p[C_GTPTR]),
-                static_cast<const int*>(p[C_GTROW]),
-                static_cast<const T*>(p[C_GTVAL])};
+GSparse<T> gsparse_of(void* const* p, bool terms) {
+  return GSparse<T>{
+      static_cast<const int*>(p[C_GPTR]), static_cast<const int*>(p[C_GCOL]),
+      static_cast<const T*>(p[C_GVAL]), static_cast<const int*>(p[C_GTPTR]),
+      static_cast<const int*>(p[C_GTROW]), static_cast<const T*>(p[C_GTVAL]),
+      terms ? static_cast<const int*>(p[PF_EPTR]) : nullptr,
+      terms ? static_cast<const int*>(p[PF_EROW]) : nullptr,
+      terms ? static_cast<const T*>(p[PF_ECOEF]) : nullptr};
+}
+
+namespace {
+// The dynamic shared memory each kernel (admm_fused; pdip_fused at one and
+// two rows a lane) is allowed on each device so far, by dtype: above 48 KB
+// a launch's has to be allowed, once a kernel and device, for the most any
+// launch has needed.  Internal linkage, so two libraries loaded in one
+// process keep their own.
+constexpr int kMaxDevices = 64;
+enum { kQpAdmm, kQpPdip1, kQpPdip2, kQpKernels };
+int g_qp_smem[kQpKernels][2][kMaxDevices];
+}  // namespace
+
+// Allow `kernel` (g_qp_smem's `which`, dtype T) `smem` bytes of dynamic
+// shared memory on the current device; a CUDA error code or 0.
+template <typename T, typename Kernel>
+int allow_qp_smem(Kernel kernel, int which, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev >= kMaxDevices) e = cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return (int)e;
+  int& allowed = g_qp_smem[which][sizeof(T) == 8][dev];
+  if (smem > allowed) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    allowed = smem;
+  }
+  return 0;
+}
+
+template <typename T, int R>
+int launch_pdip_rows(const PdipFusedArgs<T>& a, int smem, cudaStream_t st) {
+  constexpr int W = QpShape<T>::kW;
+  const int e = allow_qp_smem<T>(pdip_fused_kernel<T, R>,
+                                 R == 1 ? kQpPdip1 : kQpPdip2, smem);
+  if (e) return e;
+  pdip_fused_kernel<T, R><<<(a.B + W - 1) / W, 32 * W, smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_pdip_fused(void* const* p, const int* d, const double* c,
                       cudaStream_t st) {
+  constexpr int W = QpShape<T>::kW;
   PdipFusedArgs<T> a;
-  a.g = csr_of<T>(p);
+  a.g = gsparse_of<T>(p, true);
   a.Hp = static_cast<const T*>(p[PF_HP]);
   a.f = static_cast<const T*>(p[PF_F]);
   a.h = static_cast<const T*>(p[PF_H]);
@@ -253,7 +328,6 @@ int launch_pdip_fused(void* const* p, const int* d, const double* c,
   a.z = static_cast<T*>(p[PF_Z]);
   a.lam = static_cast<T*>(p[PF_LAM]);
   a.s = static_cast<T*>(p[PF_S]);
-  a.work = static_cast<T*>(p[PF_WORK]);
   a.B = d[QD_B];
   a.n = d[QD_N];
   a.mc = d[QD_MC];
@@ -261,32 +335,21 @@ int launch_pdip_fused(void* const* p, const int* d, const double* c,
   a.eps_c = static_cast<T>(c[0]);
   a.ridge = static_cast<T>(c[1]);
   a.w_cap = static_cast<T>(c[2]);
-  const int blocks = (a.B + kQpThreads - 1) / kQpThreads;
-  pdip_fused_kernel<T><<<blocks, kQpThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  const long long smem =
+      (long long)W * PdipLayout(a.n, a.mc).total * sizeof(T);
+  if (a.n < 1 || a.n > 32 * kFactorMaxRows || a.mc < 1 ||
+      smem > kFactorSmemMax)
+    return (int)cudaErrorInvalidValue;
+  return a.n <= 32 ? launch_pdip_rows<T, 1>(a, (int)smem, st)
+                   : launch_pdip_rows<T, 2>(a, (int)smem, st);
 }
-
-namespace {
-// The dynamic shared memory admm_fused (by dtype) is allowed on each device
-// so far: above 48 KB a launch's has to be allowed, once a kernel and
-// device, for the most any launch has needed.  Internal linkage, so two
-// libraries loaded in one process keep their own.
-constexpr int kMaxDevices = 64;
-int g_admm_smem[2][kMaxDevices];
-}  // namespace
 
 template <typename T>
 int launch_admm_fused(void* const* p, const int* d, const double* c,
                       cudaStream_t st) {
   constexpr int W = QpShape<T>::kW;
   AdmmFusedArgs<T> a;
-  a.g = GSparse<T>{static_cast<const int*>(p[C_GPTR]),
-                   static_cast<const int*>(p[C_GCOL]),
-                   static_cast<const T*>(p[C_GVAL]),
-                   static_cast<const int*>(p[C_GTPTR]),
-                   static_cast<const int*>(p[C_GTROW]),
-                   static_cast<const T*>(p[C_GTVAL]),
-                   nullptr, nullptr, nullptr};
+  a.g = gsparse_of<T>(p, false);
   a.Minv = static_cast<const T*>(p[AF_MINV]);
   a.fs = static_cast<const T*>(p[AF_FS]);
   a.hs = static_cast<const T*>(p[AF_HS]);
@@ -309,20 +372,8 @@ int launch_admm_fused(void* const* p, const int* d, const double* c,
       (long long)W * AdmmLayout(a.n, a.mc).total * sizeof(T);
   if (a.n < 1 || a.mc < 1 || smem > kFactorSmemMax)
     return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess && dev >= kMaxDevices) e = cudaErrorInvalidDevice;
-    if (e != cudaSuccess) return (int)e;
-    int& allowed = g_admm_smem[sizeof(T) == 8][dev];
-    if (smem > allowed) {
-      e = cudaFuncSetAttribute(admm_fused_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-      if (e != cudaSuccess) return (int)e;
-      allowed = (int)smem;
-    }
-  }
+  const int e = allow_qp_smem<T>(admm_fused_kernel<T>, kQpAdmm, (int)smem);
+  if (e) return e;
   const int blocks = (a.B + W - 1) / W;
   admm_fused_kernel<T><<<blocks, 32 * W, (int)smem, st>>>(a);
   return (int)cudaGetLastError();
@@ -338,11 +389,8 @@ int mpc_admm_fused_ptr_count() { return mpc::AF_COUNT; }
 
 int mpc_qp_fused_dim_count() { return mpc::QD_COUNT; }
 
-// Rows of the PDIP kernel's lane-major scratch buffer (rows * B).
-long long mpc_pdip_fused_work_rows(int n, int mc) {
-  return (long long)mpc::PdipRows(n, mc).rows;
-}
-
+// Both refuse (cudaErrorInvalidValue, nothing launched) outside their
+// envelopes.
 int mpc_pdip_fused(int is_f64, void* const* ptrs, const int* dims,
                    const double* scal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -350,7 +398,6 @@ int mpc_pdip_fused(int is_f64, void* const* ptrs, const int* dims,
                 : mpc::launch_pdip_fused<float>(ptrs, dims, scal, st);
 }
 
-// Refuses (cudaErrorInvalidValue, nothing launched) outside the envelope.
 int mpc_admm_fused(int is_f64, void* const* ptrs, const int* dims,
                    const double* scal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

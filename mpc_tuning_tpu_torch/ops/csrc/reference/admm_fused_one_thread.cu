@@ -6,7 +6,7 @@
 // into its own library (ops/_build.reference_library); no path of the port
 // calls it.
 
-#include "../lane_qp.cuh"
+#include "lane_qp.cuh"
 
 namespace mpc {
 

@@ -1,7 +1,8 @@
-// Per-lane QP device code of the single-solve PDIP kernel (qp_fused.cu
-// pdip_fused) and of the one-thread ADMM reference
-// (reference/admm_fused_one_thread.cu): one thread solves one candidate
-// lane's masked MPC QP
+// Per-lane QP device code of the one-thread-per-lane designs that the
+// warp-per-lane single-solve kernels (qp_fused.cu: pdip_fused, admm_fused)
+// replaced, kept for their references (pdip_fused_one_thread.cu,
+// admm_fused_one_thread.cu beside this file): one thread solves one
+// candidate lane's masked MPC QP
 //
 //     min 1/2 z'Hz + f'z   s.t.  G z <= h,   G = diag(rmask) G0 diag(cmask)
 //
@@ -13,7 +14,7 @@
 // O(mc n) and O(mc n^2) of the TPU kernels' T2T table.
 #pragma once
 
-#include "common.cuh"
+#include "../common.cuh"
 
 namespace mpc {
 

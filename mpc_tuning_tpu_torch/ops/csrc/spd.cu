@@ -46,8 +46,12 @@
 // the one-thread solve's order (ascending k, then the division); the back
 // pass subtracts in descending k, so it rounds differently from the
 // one-thread design (kept as reference/spd_factor_solve_one_thread.cu).
-// The lane-major solve (solve_lanes) and spd_solve stay one thread per
-// system.
+// The lane-major solve (solve_lanes; the TPU's _solve_kernel on lane-major
+// blocks, launched by solve_lanes at pallas_kernels.py:302) runs the same
+// design on the lane-major layout: its tiles are loaded as factor_lanes
+// loads them, and a system's x is the bits spd_factor_solve gives on it
+// (its one-thread design is kept as reference/solve_lanes_one_thread.cu).
+// spd_solve stays one thread per system.
 
 #include "warp_factor.cuh"
 
@@ -55,7 +59,7 @@ namespace mpc {
 
 // ------------------------------------------------ factors and the solve
 //
-// Envelope of the two factors and of spd_factor_solve, which reads a
+// Envelope of the two factors and of the two solves, which read a
 // factor in the same tiles (ops/kernels.factor_envelope and
 // factor_solve_envelope hold the same arithmetic): W =
 // FactorShape<T>::kW matrices per block (8 at float, 4 at double, so that
@@ -268,24 +272,44 @@ __global__ void __launch_bounds__(32 * FactorShape<T>::kW)
     }
 }
 
-template <typename T>
-__global__ void solve_lanes_kernel(const T* __restrict__ L,
-                                   const T* __restrict__ rhs,
-                                   T* __restrict__ x, int B, int n) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+// Lane-major solve, the factors' envelope (factor_fits): block x takes
+// systems b0 = x W ... b0 + W - 1; their factors' lower triangles go into
+// the tiles by factor_lanes_kernel's lane-major copy (the W values of one
+// element, one run of 32 bytes), the right-hand sides into registers, one
+// warp a system, and the substitutions of spd_factor_solve_kernel: a
+// system's x is the bits the batch-major solve gives on it.
+template <typename T, int R>
+__global__ void __launch_bounds__(32 * FactorShape<T>::kW)
+    solve_lanes_kernel(const T* __restrict__ L, const T* __restrict__ rhs,
+                       T* __restrict__ x, int B, int n) {
+  constexpr int W = FactorShape<T>::kW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tiles = reinterpret_cast<T*>(smem);
+  const int ld = factor_ld(n), nn = n * n;
+  const int b0 = blockIdx.x * W;
+  const int mine = threadIdx.x % W;
+  T* tile = tiles + mine * n * ld;
+  if (b0 + mine < B)
+    for (int e = threadIdx.x / W; e < nn; e += 32) {
+      const int i = e / n, j = e - i * n;
+      if (j <= i) cp_async(tile + i * ld + j, L + (size_t)e * B + b0 + mine);
+    }
+  cp_async_wait();
+  __syncthreads();
+  const int w = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const int b = b0 + w;
   if (b >= B) return;
-  const CLane<T> Lb = clane_at(L, B, b);
-  const CLane<T> r = clane_at(rhs, B, b);
-  const Lane<T> xb = lane_at(x, 0, B, b);
-  for (int i = 0; i < n; ++i) {
-    T v = r[i];
-    for (int k = 0; k < i; ++k) v -= Lb[i * n + k] * xb[k];
-    xb[i] = v / Lb[i * n + i];
+  T v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = ln + 32 * r;
+    v[r] = i < n ? rhs[(size_t)i * B + b] : T(0);
   }
-  for (int i = n - 1; i >= 0; --i) {
-    T v = xb[i];
-    for (int k = i + 1; k < n; ++k) v -= Lb[k * n + i] * xb[k];
-    xb[i] = v / Lb[i * n + i];
+  warp_chol_solve<T, R>(tiles + w * n * ld, ld, n, v, ln);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = ln + 32 * r;
+    if (i < n) x[(size_t)i * B + b] = v[r];
   }
 }
 
@@ -299,7 +323,8 @@ namespace {
 // loaded in one process keep their own (a template's static would be one
 // symbol in the whole process).
 constexpr int kMaxDevices = 64;
-enum { kTileFactor, kTileFactorLanes, kTileSolve, kTileKernels };
+enum { kTileFactor, kTileFactorLanes, kTileSolve, kTileSolveLanes,
+       kTileKernels };
 int g_tile_smem[kTileKernels][2][kFactorMaxRows][kMaxDevices];
 }  // namespace
 
@@ -347,34 +372,30 @@ int launch_factor(bool lanes, const void* M, void* L, int B, int n,
 }
 
 template <typename T, int R>
-int launch_solve_rows(const T* L, const T* rhs, T* x, int B, int n,
-                      cudaStream_t st) {
+int launch_solve_rows(bool lanes, const T* L, const T* rhs, T* x, int B,
+                      int n, cudaStream_t st) {
   constexpr int W = FactorShape<T>::kW;
+  void (*kernel)(const T*, const T*, T*, int, int) =
+      lanes ? solve_lanes_kernel<T, R> : spd_factor_solve_kernel<T, R>;
   const int smem = (int)factor_smem_bytes<T>(n);
-  const int e = allow_tile_smem<T, R>(spd_factor_solve_kernel<T, R>,
-                                      kTileSolve, smem);
+  const int e = allow_tile_smem<T, R>(
+      kernel, lanes ? kTileSolveLanes : kTileSolve, smem);
   if (e) return e;
-  spd_factor_solve_kernel<T, R><<<(B + W - 1) / W, 32 * W, smem, st>>>(
-      L, rhs, x, B, n);
+  kernel<<<(B + W - 1) / W, 32 * W, smem, st>>>(L, rhs, x, B, n);
   return (int)cudaGetLastError();
 }
 
-// lanes: the lane-major solve_lanes (one thread a system); else the
-// batch-major spd_factor_solve, inside the factors' envelope.
+// lanes: the lane-major solve_lanes, else the batch-major
+// spd_factor_solve; both inside the factors' envelope.
 template <typename T>
 int launch_solve(bool lanes, const void* L, const void* rhs, void* x, int B,
                  int n, cudaStream_t st) {
+  if (!factor_fits<T>(n)) return (int)cudaErrorInvalidValue;
   const T* l = static_cast<const T*>(L);
   const T* r = static_cast<const T*>(rhs);
   T* xo = static_cast<T*>(x);
-  if (lanes) {
-    const int blocks = (B + kSpdThreads - 1) / kSpdThreads;
-    solve_lanes_kernel<T><<<blocks, kSpdThreads, 0, st>>>(l, r, xo, B, n);
-    return (int)cudaGetLastError();
-  }
-  if (!factor_fits<T>(n)) return (int)cudaErrorInvalidValue;
-  return n <= 32 ? launch_solve_rows<T, 1>(l, r, xo, B, n, st)
-                 : launch_solve_rows<T, 2>(l, r, xo, B, n, st);
+  return n <= 32 ? launch_solve_rows<T, 1>(lanes, l, r, xo, B, n, st)
+                 : launch_solve_rows<T, 2>(lanes, l, r, xo, B, n, st);
 }
 
 template <typename T>

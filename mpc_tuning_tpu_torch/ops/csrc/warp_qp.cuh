@@ -1,6 +1,6 @@
 // Per-lane QP device code of the whole-sim kernels (closed_sim.cu) and of
-// the single-solve ADMM kernel (qp_fused.cu admm_fused), one warp per
-// candidate lane: the lane's masked MPC QP
+// the single-solve kernels (qp_fused.cu: admm_fused, pdip_fused), one warp
+// per candidate lane: the lane's masked MPC QP
 //
 //     min 1/2 z'Hz + f'z   s.t.  G z <= h,   G = diag(rmask) G0 diag(cmask)
 //
@@ -15,7 +15,8 @@
 // Work is spread over rows and columns, not over the terms of one dot:
 // lane l owns the rows r = l, l + 32, ... of every mc-vector and the
 // columns i = l, l + 32, ... of every n-vector, and forms each of its
-// dots alone, in the order of the one-thread code (lane_qp.cuh).  A vector
+// dots alone, in the order of the one-thread code (reference/lane_qp.cuh).
+// A vector
 // a lane writes is read by another lane only after a __syncwarp().  The
 // ADMM iteration is therefore the one-thread iteration's arithmetic; the
 // PDIP's scalar reductions (merit norms, gap, mu_aff, active rows) run a
@@ -144,8 +145,9 @@ struct WarpPdip {
   const T *f, *h;              // (n), (mc)
   const T *rmask, *cmask, *H;  // (mc), (n), n x n tile (row stride ld)
   // z, lam, s: the warm pair on entry (s is recomputed from h), the best
-  // iterate (z, lam) on exit (s then holds the last iterate's)
-  T *z, *lam, *s;
+  // iterate (z, lam) on exit; s holds the best iterate's with KeepS (bs
+  // its scratch, mc), else the last iterate's (bs unused)
+  T *z, *lam, *s, *bs;
   T *bz, *rd, *dz;                      // (n)
   T *blam, *rp, *w, *t, *ds, *dl;       // (mc)
   T* L;                                 // n x n tile, row stride ld
@@ -238,10 +240,12 @@ __device__ void warp_newton(const GSparse<T>& g, const WarpPdip<T>& v, int n,
 }
 
 // `iters` warm-started masked Mehrotra iterations from (z, lam); leaves the
-// best iterate by merit in (z, lam).  Masked rows are exact no-ops: their
-// duals stay zero and mu normalises by the active row count.  R: rows a
-// lane owns in the factor and the solves (n <= 32 R).
-template <typename T, int R>
+// best iterate by merit in (z, lam), and in s with KeepS (the single-solve
+// kernel returns it; the whole-sim kernel reads only z and lam).  Masked
+// rows are exact no-ops: their duals stay zero and mu normalises by the
+// active row count.  R: rows a lane owns in the factor and the solves (n
+// <= 32 R).
+template <typename T, int R, bool KeepS = false>
 __device__ void warp_pdip(const GSparse<T>& g, const WarpPdip<T>& v, int n,
                           int mc, int iters, T eps_c, T ridge, T w_cap,
                           int ln) {
@@ -251,6 +255,7 @@ __device__ void warp_pdip(const GSparse<T>& g, const WarpPdip<T>& v, int n,
     v.lam[r] = l;
     v.blam[r] = l;
     v.s[r] = nmax(v.h[r] - g_row(g, r, v.rmask, v.cmask, v.z), eps_c);
+    if constexpr (KeepS) v.bs[r] = v.s[r];
   }
   for (int i = ln; i < n; i += 32) v.bz[i] = v.z[i];
   T bm = inf_value<T>();
@@ -262,6 +267,8 @@ __device__ void warp_pdip(const GSparse<T>& g, const WarpPdip<T>& v, int n,
     if (mnew < bm) {  // warp-uniform; NaN never wins
       for (int i = ln; i < n; i += 32) v.bz[i] = v.z[i];
       for (int r = ln; r < mc; r += 32) v.blam[r] = v.lam[r];
+      if constexpr (KeepS)
+        for (int r = ln; r < mc; r += 32) v.bs[r] = v.s[r];
       bm = mnew;
     }
     for (int r = ln; r < mc; r += 32)
@@ -310,6 +317,8 @@ __device__ void warp_pdip(const GSparse<T>& g, const WarpPdip<T>& v, int n,
   if (!(mlast < bm)) {  // the best iterate
     for (int i = ln; i < n; i += 32) v.z[i] = v.bz[i];
     for (int r = ln; r < mc; r += 32) v.lam[r] = v.blam[r];
+    if constexpr (KeepS)
+      for (int r = ln; r < mc; r += 32) v.s[r] = v.bs[r];
   }
   __syncwarp();
 }

@@ -33,7 +33,8 @@ from mpc_tuning_tpu_torch.models.ode import nmpc_envelope, nmpc_rollout_plain
 from mpc_tuning_tpu_torch.ops import _build
 
 __all__ = ["spd_factor", "spd_factor_solve", "spd_solve", "factor_lanes",
-           "factor_envelope", "factor_solve_envelope",
+           "factor_envelope", "factor_solve_envelope", "pdip_fused_envelope",
+           "admm_fused_envelope",
            "solve_lanes", "pdip_fused", "admm_fused", "closed_sim_admm",
            "closed_sim_pdip", "closed_sim_band", "nmpc_rollout",
            "spd_factor_plain", "spd_factor_solve_plain", "spd_solve_plain",
@@ -170,12 +171,12 @@ spd_factor.launches = 0
 # and envelope, ~2 n dependent steps (ops/csrc/spd.cu).
 
 
-def factor_solve_envelope(n, dtype):
-    """(systems per block, shared-memory bytes per block) of
-    ``spd_factor_solve``: its tiles are the factors' (``factor_envelope``),
-    and every solve follows a factor; raises ValueError outside (both
-    dtypes take n <= 64)."""
-    return factor_envelope(n, dtype, "spd_factor_solve")
+def factor_solve_envelope(n, dtype, kernel="spd_factor_solve"):
+    """(systems per block, shared-memory bytes per block) of the solves
+    ``spd_factor_solve`` and ``solve_lanes``: their tiles are the factors'
+    (``factor_envelope``), and every solve follows a factor; raises
+    ValueError, naming ``kernel``, outside (both dtypes take n <= 64)."""
+    return factor_envelope(n, dtype, kernel)
 
 
 def spd_factor_solve_plain(L, rhs):
@@ -265,11 +266,11 @@ spd_solve.launches = 0
 #
 # Replace factor_lanes / solve_lanes (mpc_tuning_tpu/ops/pallas_kernels.py,
 # _factor_kernel / _solve_kernel on lane-major blocks), the factor and solve
-# of the per-step engine 'pdip_ws_lanes' (ops/qp.pdip_lanes).  The
-# arithmetic of spd_factor / spd_factor_solve (the factor one warp per
-# matrix, the solve one thread per system) in the lane-major layout
-# (n, n, B) / (n, B): loads coalesce and the PDIP loop around them needs no
-# transposes (ops/csrc/spd.cu).
+# of the per-step engine 'pdip_ws_lanes' (ops/qp.pdip_lanes).  The designs
+# of spd_factor / spd_factor_solve (one warp per matrix or system, the
+# factor in a shared-memory tile; the same bits) in the lane-major layout
+# (n, n, B) / (n, B): the tiles load in 32-byte runs and the PDIP loop
+# around them needs no transposes (ops/csrc/spd.cu).
 
 
 def factor_lanes_plain(M):
@@ -300,19 +301,31 @@ factor_lanes.launches = 0
 
 
 def solve_lanes_plain(L, rhs):
-    """x (n, B) with L L' x = rhs; L (n, n, B) lower, rhs (n, B)."""
-    return spd_factor_solve_plain(L.permute(2, 0, 1), rhs.T).T
+    """x (n, B) with L L' x = rhs; L (n, n, B) lower, rhs (n, B).  The
+    factor goes batch-major and contiguous (as factor_lanes_plain's view
+    of it already is): torch's triangular solve rounds a strided batch
+    otherwise than a lone system, so a lane would read by the batch's
+    size."""
+    return spd_factor_solve_plain(L.permute(2, 0, 1).contiguous(), rhs.T).T
 
 
-def solve_lanes(L, rhs):
-    """(n, n, B) lower factor, (n, B) rhs -> x (n, B) with L L' x = rhs."""
-    if _on_cpu(L, rhs):
-        return solve_lanes_plain(L, rhs)
+def _solve_lanes_args(L, rhs):
     dtype = _float_dtype(L)
     n, B = L.shape[0], L.shape[-1]
     L, rhs = L.contiguous(), rhs.contiguous()
     _require(L, (n, n, B), dtype, "L")
     _require(rhs, (n, B), dtype, "rhs")
+    return L, rhs, dtype, n, B
+
+
+def solve_lanes(L, rhs):
+    """(n, n, B) lower factor, (n, B) rhs -> x (n, B) with L L' x = rhs;
+    a system's x is the bits ``spd_factor_solve`` gives on it.  Reads L's
+    lower triangle only.  Raises above ``factor_solve_envelope``."""
+    if _on_cpu(L, rhs):
+        return solve_lanes_plain(L, rhs)
+    L, rhs, dtype, n, B = _solve_lanes_args(L, rhs)
+    factor_solve_envelope(n, dtype, "solve_lanes")
     x = torch.empty_like(rhs)
     _build.check(_build.library().mpc_spd_factor_solve(
         int(dtype == torch.float64), 1, L.data_ptr(), rhs.data_ptr(),
@@ -324,6 +337,19 @@ def solve_lanes(L, rhs):
 solve_lanes.launches = 0
 
 
+def solve_lanes_one_thread(L, rhs):
+    """``solve_lanes`` by the one-thread-per-system design it replaced
+    (ops/csrc/reference/solve_lanes_one_thread.cu, built on demand into
+    its own library), its reference: CUDA tensors only, not counted, on no
+    path of the port."""
+    L, rhs, dtype, n, B = _solve_lanes_args(L, rhs)
+    x = torch.empty_like(rhs)
+    _build.check(_build.reference_library().mpc_solve_lanes_one_thread(
+        int(dtype == torch.float64), L.data_ptr(), rhs.data_ptr(),
+        x.data_ptr(), B, n, _stream(L)), "solve_lanes_one_thread")
+    return x
+
+
 # ------------------------------------------------- single-solve QP kernels
 #
 # One closed-loop step's QP for every candidate lane in one launch, lane-major:
@@ -332,31 +358,39 @@ solve_lanes.launches = 0
 #                'pdip_ws_fused');
 #   admm_fused — replaces admm_fused_lanes / _admm_fused_kernel: `iters`
 #                warm equilibrated ADMM iterations (engine 'admm_fused').
-# pdip_fused runs one thread per lane (ops/csrc/lane_qp.cuh); admm_fused
-# one warp per lane, the design of the whole-sim ADMM kernel
-# (ops/csrc/warp_qp.cuh), within ``admm_fused_envelope`` (see
-# ops/csrc/qp_fused.cu for what bounds them).  The shared constraint matrix
-# comes as ``g_shared(G0, T2T)``, built once per evaluation.
+# Both run one warp per lane, the design of the whole-sim kernels
+# (ops/csrc/warp_qp.cuh), within ``pdip_fused_envelope`` /
+# ``admm_fused_envelope`` (see ops/csrc/qp_fused.cu for what bounds them).
+# The shared constraint matrix comes as ``g_shared(G0, T2T)``, built once
+# per evaluation.
 
 _QP_CSR = ("g_ptr", "g_col", "g_val", "gt_ptr", "gt_row", "gt_val")
+# the PDIP normal matrix's term list (``_entry_terms``)
+_QP_TERMS = ("e_ptr", "e_row", "e_coef")
 # argument order of the C launchers (ops/csrc/qp_fused.cu, enums PF_* / AF_*)
-_PDIP_PTRS = _QP_CSR + ("Hp", "f", "h", "rmask", "cmask", "z0", "lam0", "z",
-                        "lam", "s", "work")
+_PDIP_ARGS = ("Hp", "f", "h", "rmask", "cmask", "z0", "lam0", "z", "lam", "s")
+_PDIP_PTRS = _QP_CSR + _QP_TERMS + _PDIP_ARGS
 _ADMM_PTRS = _QP_CSR + ("Minv", "fs", "hs", "arow", "acol", "par", "x0",
                         "zc0", "y0", "x", "zc", "y")
-# ... and of the one-thread ADMM reference (ops/csrc/reference/
-# admm_fused_one_thread.cu), with its lane-major rhs scratch
+# ... and of the one-thread references (ops/csrc/reference/
+# pdip_fused_one_thread.cu, admm_fused_one_thread.cu), with their
+# lane-major scratch
+_PDIP_ONE_THREAD_PTRS = _QP_CSR + _PDIP_ARGS + ("work",)
 _ADMM_ONE_THREAD_PTRS = _ADMM_PTRS + ("work",)
 
 
 def g_shared(G0, T2T=None):
     """The shared constraint matrix as the single-solve QPs take it: G0
-    (mc, n), its row outer products T2T (n*n, mc) (the plain PDIP's normal
-    matrix; None where no PDIP runs) and the kernels' CSR of G0 by rows and
-    by columns.  The CSR syncs with the host: build this once per
-    evaluation, not per step."""
+    (mc, n), the kernels' CSR of G0 by rows and by columns and, where a
+    PDIP runs (T2T, its row outer products (n*n, mc), given: the plain
+    PDIP's normal matrix), the warp PDIP's list of the normal matrix's
+    terms (``_entry_terms``).  The CSR and the term list sync with the
+    host: build this once per evaluation, not per step."""
     csr = _csr(G0) + _csr(G0.T.contiguous())
-    return dict(zip(_QP_CSR, csr), G0=G0, T2T=T2T)
+    G = dict(zip(_QP_CSR, csr), G0=G0, T2T=T2T)
+    if T2T is not None:
+        G.update(zip(_QP_TERMS, _entry_terms(G0)))
+    return G
 
 
 def _launch_qp(fn, ptr_count, names, bufs, dims, scal, dtype, what):
@@ -369,12 +403,14 @@ def _launch_qp(fn, ptr_count, names, bufs, dims, scal, dtype, what):
     _build.check(fn(int(dtype == torch.float64), ptrs,
                     (ctypes.c_int * len(dims))(*dims),
                     (ctypes.c_double * len(scal))(*scal),
-                    _stream(bufs[names[len(_QP_CSR)]])), what)
+                    _stream(bufs[names[-1]])), what)
 
 
-def _require_g(G, dtype, mc, n, device):
+def _require_g(G, dtype, mc, n, device, keys=_QP_CSR):
     _require(G["G0"], (mc, n), dtype, "G0")
-    for k in _QP_CSR:
+    for k in keys:
+        if k not in G:
+            raise ValueError(f"G lacks {k}: build it with g_shared(G0, T2T)")
         if G[k].device != device:
             raise ValueError(f"{k}: on {G[k].device}, expected {device}")
 
@@ -388,16 +424,32 @@ def pdip_fused_plain(Hp, f, h, rmask, cmask, warm, G, iters):
                       factor=factor_lanes_plain, solve=solve_lanes_plain)
 
 
-def pdip_fused(Hp, f, h, rmask, cmask, warm, G, iters):
-    """One masked PDIP solve per lane, all `iters` Mehrotra iterations in
-    one launch: Hp (n, n, B), f (n, B), h / rmask (mc, B), cmask (n, B),
-    warm = (z0 (n, B), lam0 (mc, B)) (the slacks are recomputed from h,
-    duals and slacks floored at WS_EPS), G = ``g_shared(G0, ...)``.
-    Returns the best iterate by merit, (z, lam, s)."""
-    if _on_cpu(Hp, f):
-        return pdip_fused_plain(Hp, f, h, rmask, cmask, warm, G, iters)
-    from mpc_tuning_tpu_torch.ops.qp import WS_EPS, pdip_constants
+def pdip_fused_envelope(dtype, n, mc):
+    """(lanes per block, shared-memory bytes per block) of the
+    single-solve PDIP kernel (ops/csrc/qp_fused.cu, QpShape / PdipLayout):
+    one warp per lane, 4 lanes a block at float32 and 2 at float64; each
+    lane's H and normal-matrix tiles (row stride n | 1), six n-vectors and
+    eleven mc-vectors in shared memory, at most FACTOR_SMEM_MAX bytes a
+    block, and n <= 64 (the factor's two rows a lane).  Raises ValueError
+    outside the envelope."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"kernels take float32 or float64, got {dtype}")
+    f64 = dtype == torch.float64
+    per_block = 2 if f64 else 4
+    smem = (per_block * (2 * n * (n | 1) + 6 * n + 11 * mc)
+            * (8 if f64 else 4))
+    if not (1 <= n <= 32 * FACTOR_MAX_ROWS and mc >= 1
+            and smem <= FACTOR_SMEM_MAX):
+        raise ValueError(
+            f"pdip_fused kernel: n = {n}, mc = {mc} at {dtype} needs {smem} "
+            f"bytes of shared memory a block, at most {FACTOR_SMEM_MAX}, and "
+            f"n <= {32 * FACTOR_MAX_ROWS}")
+    return per_block, smem
 
+
+def _pdip_bufs(Hp, f, h, rmask, cmask, warm, G, keys):
+    """Checked launch buffers of a PDIP single solve (G's ``keys``):
+    inputs and the best iterate (z, lam, s)."""
     dtype = _float_dtype(f)
     n, B = f.shape
     mc = h.shape[0]
@@ -406,22 +458,59 @@ def pdip_fused(Hp, f, h, rmask, cmask, warm, G, iters):
                        ("cmask", cmask, n), ("z0", warm[0], n),
                        ("lam0", warm[1], mc)):
         _require(x, (rows, B), dtype, k)
-    _require_g(G, dtype, mc, n, f.device)
-    lib = _build.library()
+    _require_g(G, dtype, mc, n, f.device, keys)
     kw = dict(dtype=dtype, device=f.device)
     z, lam, s = (torch.empty((rows, B), **kw) for rows in (n, mc, mc))
-    work = torch.empty((lib.mpc_pdip_fused_work_rows(n, mc) * B,), **kw)
-    bufs = dict(G, Hp=Hp, f=f, h=h, rmask=rmask, cmask=cmask, z0=warm[0],
-                lam0=warm[1], z=z, lam=lam, s=s, work=work)
-    ridge, w_cap = pdip_constants(dtype)
+    return dict({k: G[k] for k in keys}, Hp=Hp, f=f, h=h, rmask=rmask,
+                cmask=cmask, z0=warm[0], lam0=warm[1], z=z, lam=lam, s=s)
+
+
+def pdip_fused(Hp, f, h, rmask, cmask, warm, G, iters):
+    """One masked PDIP solve per lane, all `iters` Mehrotra iterations in
+    one launch: Hp (n, n, B), f (n, B), h / rmask (mc, B), cmask (n, B),
+    warm = (z0 (n, B), lam0 (mc, B)) (the slacks are recomputed from h,
+    duals and slacks floored at WS_EPS), G = ``g_shared(G0, T2T)``.
+    Returns the best iterate by merit, (z, lam, s).  Raises outside
+    ``pdip_fused_envelope``."""
+    if _on_cpu(Hp, f):
+        return pdip_fused_plain(Hp, f, h, rmask, cmask, warm, G, iters)
+    from mpc_tuning_tpu_torch.ops.qp import WS_EPS, pdip_constants
+
+    bufs = _pdip_bufs(Hp, f, h, rmask, cmask, warm, G, _QP_CSR + _QP_TERMS)
+    n, B = f.shape
+    mc = h.shape[0]
+    pdip_fused_envelope(f.dtype, n, mc)
+    lib = _build.library()
+    ridge, w_cap = pdip_constants(f.dtype)
     _launch_qp(lib.mpc_pdip_fused, lib.mpc_pdip_fused_ptr_count, _PDIP_PTRS,
-               bufs, (B, n, mc, iters), (WS_EPS, ridge, w_cap), dtype,
+               bufs, (B, n, mc, iters), (WS_EPS, ridge, w_cap), f.dtype,
                "pdip_fused")
     pdip_fused.launches += 1
-    return z, lam, s
+    return bufs["z"], bufs["lam"], bufs["s"]
 
 
 pdip_fused.launches = 0
+
+
+def pdip_fused_one_thread(Hp, f, h, rmask, cmask, warm, G, iters):
+    """``pdip_fused`` by the one-thread-per-lane design it replaced
+    (ops/csrc/reference/pdip_fused_one_thread.cu, built on demand into its
+    own library), its reference: CUDA tensors only, not counted, on no
+    path of the port."""
+    from mpc_tuning_tpu_torch.ops.qp import WS_EPS, pdip_constants
+
+    bufs = _pdip_bufs(Hp, f, h, rmask, cmask, warm, G, _QP_CSR)
+    n, B = f.shape
+    mc = h.shape[0]
+    lib = _build.reference_library()
+    bufs["work"] = torch.empty(
+        (lib.mpc_pdip_fused_one_thread_work_rows(n, mc) * B,),
+        dtype=f.dtype, device=f.device)
+    ridge, w_cap = pdip_constants(f.dtype)
+    _launch_qp(lib.mpc_pdip_fused_one_thread, None, _PDIP_ONE_THREAD_PTRS,
+               bufs, (B, n, mc, iters), (WS_EPS, ridge, w_cap), f.dtype,
+               "pdip_fused_one_thread")
+    return bufs["z"], bufs["lam"], bufs["s"]
 
 
 def admm_fused_plain(Minv_t, fs, hs, arow, acol, par, state, G, iters,
@@ -756,7 +845,7 @@ def _launch_sim(pdip: bool, tables, lc, Hm, r_l, nit, iters, dims, scal,
     sim_envelope(pdip, dtype, n, mc, pny, ny, nu, nxa, nxp)
 
     lib = _build.library()
-    G = g_shared(tables["G0"])
+    G = g_shared(tables["G0"], tables["T2T"] if pdip else None)
     dim_vals = dict(B=B, nit=nit, iters=iters, ny=ny, nu=nu, nxa=nxa, nxp=nxp,
                     pny=pny, n=n, mc=mc, m_max=m_max)
     dims_c = (ctypes.c_int * len(_SIM_DIMS))(*[dim_vals[k] for k in _SIM_DIMS])
@@ -766,14 +855,12 @@ def _launch_sim(pdip: bool, tables, lc, Hm, r_l, nit, iters, dims, scal,
     kw = dict(dtype=dtype, device=r_l.device)
     Y = torch.empty((nit, ny, B), **kw)
     U = torch.empty((nit, nu, B), **kw)
-    bufs = dict(tables, **{k: G[k] for k in _QP_CSR}, r=r_l, q=lc["q"],
+    keys = _QP_CSR + (_QP_TERMS if pdip else ())
+    bufs = dict(tables, **{k: G[k] for k in keys}, r=r_l, q=lc["q"],
                 hbase=lc["hbase"], su=lc["su"], rowm=lc[row_key],
                 colm=lc[col_key], sfy=lc["sfy"], sfu=lc["sfu"], Hm=Hm, Y=Y,
                 U=U)
-    if pdip:
-        bufs.update(zip(("e_ptr", "e_row", "e_coef"),
-                        _entry_terms(tables["G0"])))
-    else:
+    if not pdip:
         bufs.update(Dinv=lc["Dinv"], e=lc["e"], par=lc["par"])
     for k, v in bufs.items():
         if isinstance(v, torch.Tensor) and v.device != r_l.device:

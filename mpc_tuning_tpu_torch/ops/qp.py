@@ -52,6 +52,57 @@ def pdip_constants(dtype):
     return 1e-6, 1e7
 
 
+# lanes a CPU sum of ``lane_sum`` takes at a time: torch's CPU sum over
+# the rows of a lane-major (rows, B) tensor runs full groups of 32 (float32)
+# or 16 (float64) lanes vectorised and the rest scalar, which round
+# differently; a group of 8 lanes runs scalar, as a batch of up to 8 lanes
+# always did
+_CPU_LANES = 8
+
+
+def lane_sum(x, batch_major=False):
+    """x (rows, B) summed over its rows, (1, B), each lane's bits the same
+    wherever the batch puts it.  ``batch_major``: x is the transpose of a
+    batch-major (B, rows) tensor, each lane's rows contiguous
+    (``solve_qp_masked``'s inputs, the open legs).
+
+    torch's own sum over the rows rounds a lane by its place in two
+    layouts: on the card where each lane's rows lie contiguous (its vector
+    loads start at the lane's first aligned row, so the rounding follows
+    the lane's address: identical candidates of one Shell3x3 VNS batch
+    read F 299.69048 / 299.69050 / 299.69052, ``scripts/slot_trace.py``),
+    and on the CPU where the lanes lie contiguous (full groups of 32
+    float32 or 16 float64 lanes run vectorised, the rest scalar,
+    _CPU_LANES).  So:
+      * card, batch-major: a pairwise tree of elementwise adds (row i +
+        row i + h, an odd last row added to row 0 first), which rounds
+        each lane alone and whatever the batch's size;
+      * card, lane-major: torch's sum over the lanes' contiguous columns,
+        every column in one order (the rows' split over threads follows
+        the batch's width, so a lane's bits may follow the batch's size);
+      * CPU, batch-major: torch's sum lane by lane;
+      * CPU, lane-major: torch's sum over groups of _CPU_LANES lanes
+        (padded with zeros to whole groups), all on its scalar path."""
+    rows, B = x.shape
+    if x.device.type != "cpu":
+        if not batch_major:
+            return x.contiguous().sum(0, keepdim=True)
+        while x.shape[0] > 1:
+            h = x.shape[0] // 2
+            y = x[:h] + x[h:2 * h]
+            if x.shape[0] % 2:
+                y[:1] += x[2 * h:]
+            x = y
+        return x
+    if batch_major:
+        return x.sum(0, keepdim=True)
+    pad = -B % _CPU_LANES
+    if pad:
+        x = torch.cat([x, x.new_zeros((rows, pad))], dim=1)
+    groups = x.reshape(rows, -1, _CPU_LANES).transpose(0, 1).contiguous()
+    return groups.sum(1).reshape(1, -1)[:, :B]
+
+
 def _max_step(v, dv):
     """Fraction-to-the-boundary step per lane (rows on axis 0); NaN
     propagates (as jnp.min does)."""
@@ -163,7 +214,7 @@ def solve_qp_masked(H, f, G0, T2, rmask, cmask_z, h, iters: int = 30,
     warm = None if init is None else (init[0].T, init[1].T)
     out = pdip_lanes(H.permute(1, 2, 0), f.T, G0, T2.T, rmask.T, cmask_z.T,
                      h.T, iters, warm, factor=_spd_factor_t,
-                     solve=_spd_solve_t)
+                     solve=_spd_solve_t, batch_major=True)
     return tuple(x.T for x in out)
 
 
@@ -178,7 +229,7 @@ def _spd_solve_t(L, rhs):
 
 
 def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
-               factor=factor_lanes, solve=solve_lanes):
+               factor=factor_lanes, solve=solve_lanes, batch_major=False):
     """Masked Mehrotra PDIP, lane-major: the batch B is the last axis.
 
     Hp (n, n, B), f (n, B), rmask (mc, B), cmask (n, B), h (mc, B), shared
@@ -187,15 +238,20 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
     start.  ``factor(M (n, n, B)) -> L`` and ``solve(L, rhs (n, B)) -> x
     (n, B)``: the lane-major kernels by default (the 'pdip_ws_lanes'
     engine), their plain versions in the plain versions of the other PDIP
-    kernels.  Returns the best iterate by merit, (z, lam, s).
+    kernels.  ``batch_major``: the inputs are transposed batch-major
+    tensors (``lane_sum``).  Returns the best iterate by merit, (z, lam,
+    s).
 
     Masked rows are exact no-ops: their duals are pinned to zero and mu
     normalises by the active row count.  Every reduction runs over axis 0,
-    so the zero rows and columns of a capacity bucket add exact zeros in
-    order and bucketing is exact on the CPU too.
+    the sums by ``lane_sum``: a lane's bits do not depend on its column.
+    The zero rows and columns of a capacity bucket are exact no-ops in the
+    products; the sums group a lane's rows by their index, so two buckets
+    agree to rounding.
     """
     n, B = f.shape
     kw = dict(dtype=f.dtype, device=f.device)
+    lsum = lambda x: lane_sum(x, batch_major)
 
     def Gmat(z):
         return rmask * (G0 @ (cmask * z))
@@ -206,9 +262,9 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
     def residuals(z, lam, s):
         r_d = torch.einsum("ijb,jb->ib", Hp, z) + f + GTmat(lam)
         r_p = Gmat(z) + s - h
-        gap = (lam * s).sum(0, keepdim=True)
-        merit = (torch.sqrt((r_d * r_d).sum(0, keepdim=True))
-                 + torch.sqrt((r_p * r_p).sum(0, keepdim=True)) + gap)
+        gap = lsum(lam * s)
+        merit = (torch.sqrt(lsum(r_d * r_d)) + torch.sqrt(lsum(r_p * r_p))
+                 + gap)
         return r_d, r_p, gap, merit
 
     nact = torch.clamp_min(rmask.sum(0, keepdim=True), 1.0)
@@ -248,8 +304,7 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
         ds_aff = -(r_p + Gmat(dz_aff))
         dlam_aff = -(lam * s + lam * ds_aff) / s * rmask
         a_aff = torch.minimum(_max_step(s, ds_aff), _max_step(lam, dlam_aff))
-        mu_aff = ((lam + a_aff * dlam_aff) * (s + a_aff * ds_aff)).sum(
-            0, keepdim=True) / nact
+        mu_aff = lsum((lam + a_aff * dlam_aff) * (s + a_aff * ds_aff)) / nact
         sig_r = mu_aff / (mu + 1e-30)
         sigma = sig_r * sig_r * sig_r
 
@@ -316,6 +371,19 @@ def split_stage2(z1, G0, rmask, cmask, h):
     return h2, cmask2, z2, ehat
 
 
+def _frobenius(M):
+    """||M_b||_F of a (B, n, n) batch, each candidate's bits the same
+    wherever the batch puts it: on the card torch's norm reads a matrix
+    with vector loads from its first aligned element, so its rounding
+    follows the matrix's address where n n is no multiple of the vector
+    (Shell3x3's (16, 4) and (32, 8) buckets, ``scripts/slot_trace.py``);
+    there the squares are summed by ``lane_sum``'s tree.  The CPU's norm
+    reads each matrix alone."""
+    if M.device.type == "cpu":
+        return torch.linalg.matrix_norm(M)
+    return torch.sqrt(lane_sum((M * M).reshape(M.shape[0], -1).T, True))[0]
+
+
 def admm_precompute(H, G, sigma: float = 1e-6, cmask=None):
     """Per-candidate constants of the equilibrated ADMM (batched).
 
@@ -336,8 +404,7 @@ def admm_precompute(H, G, sigma: float = 1e-6, cmask=None):
     Gs = Gs0 * e[:, :, None]
     GtG = Gs.transpose(1, 2) @ Gs
     Hn = Hs if cmask is None else Hs * cmask[:, :, None] * cmask[:, None, :]
-    rho = 0.1 * (torch.linalg.matrix_norm(Hn)
-                 / (torch.linalg.matrix_norm(GtG) + 1e-12))
+    rho = 0.1 * (_frobenius(Hn) / (_frobenius(GtG) + 1e-12))
     rho = torch.clamp(rho, 1e-3, 1e2)
     eye = torch.eye(n, dtype=H.dtype, device=H.device)
     M = Hs + sigma * eye + rho[:, None, None] * GtG

@@ -14,7 +14,7 @@ on one card.
     new, new, old in turns, each turn CUDA-event ms per call (20 calls
     after a warm-up) and device ms per call (chip_smoke.device_ms), with
     the bound chip_smoke.py computes;
-  * with --tune: chip_smoke.py phase 3c's Shell3x3 tune (nit 250) through
+  * with --tune: chip_smoke.py phase 3c's Shell3x3 tune (nit S3_NIT) through
     each design in turn (the one-thread design routed in as the engine's
     QP), its result, wall and admm_fused launches.
 Prints one line per row and, with --out, writes them as JSON.  Needs one

@@ -14,7 +14,7 @@ them (the first candidate with F below the incumbent's,
 generations, 1 alternation, qp_iters 60, seed 0) with this tree's band
 kernel and with a build of the block-per-candidate design (``--old``: its
 ``ops/csrc``, as ``scripts/band_old_vs_new.py`` takes it); ``shell3x3``:
-the Shell3x3 tune of phase 3c (per-step engines, float32, nit 250, no
+the Shell3x3 tune of phase 3c (per-step engines, float32, nit S3_NIT, no
 joint polish) with this tree's ``spd_factor_solve`` and with its
 one-thread design (``ops/csrc/reference``).  Prints each run's result,
 then the first objective call at which the two runs' candidates or

@@ -375,9 +375,9 @@ def test_wrong_dtype_or_layout_raises(cuda):
 # single QP solves on identical inputs: max over lanes of |dz| and of
 # |dlam| / max(1, |lam|) (ADMM: x and its duals y), at the max column of
 # chip_smoke.py's QP_LIMITS; the first move at 1e-9 at float64
-QP_MAX = {("pdip_fused", F64): (2.0e-9, 4.0e-4),
+QP_MAX = {("pdip_fused", F64): (1.9e-9, 3.8e-4),
           ("admm_fused", F64): (6.0e-13, 4.2e-14),
-          ("pdip_fused", torch.float32): (1.6e-2, 2.7),
+          ("pdip_fused", torch.float32): (5.9e-2, 2.1),
           ("admm_fused", torch.float32): (3.4e-4, 8.7e-6)}
 
 
@@ -654,12 +654,14 @@ def test_admm_fused_envelope_matches_the_launcher(cuda):
     assert lib.mpc_admm_fused(1, ptrs, dims, scal, stream) != 0
 
 
-def test_pdip_ws_fused_follows_pdip_sim(cuda):
-    """The per-step engine and the whole-sim kernel run the same PDIP:
-    stepping on the whole-sim kernel's U, the per-step engine's own U and Y
-    agree with it step by step at float64."""
-    t, lc, Hp, r_l, dims = _inputs("pdip_ws_fused", B=64, nit=80,
-                                   caps=(32, 4), case=shell3x3)
+@pytest.mark.parametrize("caps,B", [((32, 4), 64), ((127, 15), 37)])
+def test_pdip_ws_fused_follows_pdip_sim(cuda, caps, B):
+    """The per-step engine and the whole-sim kernel run the same warp PDIP
+    (at (127, 15) n = 46, two rows a lane): stepping on the whole-sim
+    kernel's U, the per-step engine's own U and Y agree with it step by
+    step at float64."""
+    t, lc, Hp, r_l, dims = _inputs("pdip_ws_fused", B=B, nit=80, caps=caps,
+                                   case=shell3x3)
     Y, U = K.closed_sim_pdip(t, lc, Hp, r_l, r_l.shape[0], 15, dims)
     G = K.g_shared(t["G0"], t["T2T"])
     solve, warm = K.pdip_step(t, lc, Hp, dims, G, 15, K.pdip_fused)
@@ -668,6 +670,246 @@ def test_pdip_ws_fused_follows_pdip_sim(cuda):
     assert K.pdip_fused.launches == before + r_l.shape[0]
     torch.testing.assert_close(Ys, Y, rtol=0, atol=1e-9)
     torch.testing.assert_close(Us, U, rtol=0, atol=1e-9)
+
+
+def _qp_lanes(args, lo, hi):
+    """A single solve's arguments (lane-major, the batch last) of lanes
+    lo ... hi - 1 alone."""
+    cut = lambda x: x[..., lo:hi].contiguous()
+    return tuple(cut(a) if isinstance(a, torch.Tensor)
+                 else tuple(map(cut, a)) if isinstance(a, tuple) else a
+                 for a in args)
+
+
+def _pdip_errors(out, ref):
+    """max |dz|, max |dlam| / max(1, |lam|), max |ds| / max(1, |s|), max
+    |d first move| of two single PDIP solves."""
+    rel = lambda a, b: float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+    return (float((out[0] - ref[0]).abs().max()), rel(out[1], ref[1]),
+            rel(out[2], ref[2]), float((out[0][:3] - ref[0][:3]).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("caps,B", [((32, 4), 37), ((32, 4), 64),
+                                    ((127, 15), 37), ((127, 15), 64)])
+def test_pdip_fused_matches_plain_and_one_thread(cuda, caps, B, dtype):
+    """The warp-per-lane pdip_fused against its plain version and against
+    the one-thread design it replaced, on a real Shell3x3 step's QPs: z
+    and the duals at QP_MAX, the best iterate's slacks as the duals, the
+    first move at 1e-9 at float64 (the one-thread design rounds its
+    reductions and back substitution otherwise)."""
+    args = _step_qp("pdip_ws_fused", dtype, caps=caps, B=B)
+    before = K.pdip_fused.launches
+    out = K.pdip_fused(*args)
+    assert K.pdip_fused.launches == before + 1
+    assert all(torch.isfinite(x).all() for x in out)
+    lim = QP_MAX[("pdip_fused", dtype)]
+    for ref in (K.pdip_fused_plain(*args), K.pdip_fused_one_thread(*args)):
+        dz, dl, ds, du = _pdip_errors(out, ref)
+        assert dz <= lim[0] and dl <= lim[1] and ds <= lim[1], (dz, dl, ds)
+        assert dtype != F64 or du <= 1e-9, du
+    assert K.pdip_fused.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_pdip_fused_does_not_depend_on_the_slot(cuda, dtype):
+    """A lane's (z, lam, s) are the same bits wherever a batch puts it in
+    a block (4 or 2 lanes a block) and whatever the batch's size."""
+    args = _step_qp("pdip_ws_fused", dtype, caps=(127, 15), B=37)
+    whole = K.pdip_fused(*args)
+    for lo, hi in ((0, 37), (5, 18), (36, 37)):
+        for a, b in zip(K.pdip_fused(*_qp_lanes(args, lo, hi)), whole):
+            assert torch.equal(a, b[:, lo:hi]), (lo, hi)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_pdip_ws_lanes_does_not_depend_on_the_slot(cuda, dtype):
+    """The 'pdip_ws_lanes' solve (torch ops around factor_lanes and
+    solve_lanes, its sums by ops/qp.lane_sum) gives one lane's QP the same
+    bits in every slot: lane 5 of a real step's batch copied to 37
+    slots."""
+    args = _step_qp("pdip_ws_fused", dtype, caps=(127, 15), B=37)
+    wide = lambda x: x.expand(*x.shape[:-1], 37).contiguous()
+    rep = tuple(wide(a) if isinstance(a, torch.Tensor)
+                else tuple(map(wide, a)) if isinstance(a, tuple) else a
+                for a in _qp_lanes(args, 5, 6))
+    for x in mpc_loop._pdip_ws_lanes(*rep):
+        assert torch.equal(x, x[:, :1].expand_as(x))
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_lane_sum_on_the_card(cuda, dtype):
+    """ops/qp.lane_sum on the card: lanes holding one column read one sum
+    in both layouts; the batch-major tree also whatever the batch's size
+    (slices of a batch read the whole batch's bits)."""
+    from mpc_tuning_tpu_torch.ops.qp import lane_sum
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    v = torch.randn((181, 1), generator=g, device=cuda, dtype=dtype)
+    for batch_major in (False, True):
+        x = v.expand(181, 57)
+        x = x.T.contiguous().T if batch_major else x.contiguous()
+        s = lane_sum(x, batch_major)
+        assert torch.equal(s, s[:, :1].expand_as(s)), batch_major
+    x = torch.randn((181, 37), generator=g, device=cuda,
+                    dtype=dtype).T.contiguous().T
+    whole = lane_sum(x, True)
+    for lo, hi in ((0, 37), (5, 18), (36, 37)):
+        assert torch.equal(lane_sum(x[:, lo:hi], True), whole[:, lo:hi])
+
+
+def test_pdip_fused_envelope_matches_the_launcher(cuda):
+    """At Shell3x3's n = 46 the largest admitted mc (902: the step's 181
+    rows and 721 zero rows more) runs, and gives the unpadded solve's bits
+    on the first 181 rows (zero rows add exact zeros to every sum); one
+    row more, or n = 65, the wrapper raises without launching and the C
+    launcher refuses."""
+    from mpc_tuning_tpu_torch.ops import _build
+
+    Hp, f, h, rmask, cmask, warm, G, iters = _step_qp(
+        "pdip_ws_fused", F64, caps=(127, 15), B=4)
+    mc, n = G["G0"].shape
+    ref = K.pdip_fused(Hp, f, h, rmask, cmask, warm, G, iters)
+
+    def padded(extra):
+        B = f.shape[1]
+        rows = lambda x, v: torch.cat([x, x.new_full((extra, B), v)])
+        G0 = torch.cat([G["G0"], G["G0"].new_zeros((extra, n))])
+        T2T = torch.cat([G["T2T"], G["T2T"].new_zeros((n * n, extra))], 1)
+        return (Hp, f, rows(h, 1.0), rows(rmask, 0.0), cmask,
+                (warm[0], rows(warm[1], 1.0)), K.g_shared(G0, T2T), iters)
+
+    edge = 902
+    assert K.pdip_fused_envelope(F64, n, edge)[1] <= K.FACTOR_SMEM_MAX
+    out = K.pdip_fused(*padded(edge - mc))
+    assert torch.equal(out[0], ref[0])
+    for a, b in zip(out[1:], ref[1:]):
+        assert torch.equal(a[:mc], b)
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="pdip_fused kernel"):
+        K.pdip_fused(*padded(edge + 1 - mc))
+    assert K.launch_counts() == before
+    lib = _build.library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    scal = (ctypes.c_double * 3)(1e-4, 1e-9, 1e13)
+    for dims in ((4, n, edge + 1, 15), (4, 65, mc, 15)):
+        ptrs = (ctypes.c_void_p * len(K._PDIP_PTRS))()
+        assert lib.mpc_pdip_fused(1, ptrs, (ctypes.c_int * 4)(*dims), scal,
+                                  stream) != 0
+
+
+# solve_lanes, one warp per system: the bits of spd_factor_solve on the same
+# systems in the batch-major layout
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("B", [37, 1024])
+@pytest.mark.parametrize("n", SOLVE_N)
+def test_solve_lanes_bits_equal_spd_factor_solve(cuda, n, B, dtype):
+    M, rhs = _spd_batch(cuda, B, n, dtype)
+    L = K.spd_factor_plain(M)
+    before = K.solve_lanes.launches
+    x = K.solve_lanes(L.permute(1, 2, 0).contiguous(), rhs.T.contiguous())
+    assert K.solve_lanes.launches == before + 1
+    assert torch.equal(x.T, K.spd_factor_solve(L, rhs))
+    xo = K.solve_lanes_one_thread(L.permute(1, 2, 0).contiguous(),
+                                  rhs.T.contiguous())
+    assert K.solve_lanes.launches == before + 1
+    assert float((x - xo).abs().max()) <= _solve_tol(dtype, xo)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("n", [17, 46])
+def test_solve_lanes_block_invariance(cuda, n, dtype):
+    """A system's x is the same bits wherever a batch puts it in a block
+    and whatever the batch's size."""
+    M, rhs = _spd_batch(cuda, 37, n, dtype)
+    L = K.spd_factor_plain(M).permute(1, 2, 0).contiguous()
+    rhs = rhs.T.contiguous()
+    x = K.solve_lanes(L, rhs)
+    for lo, hi in ((0, 37), (5, 18), (36, 37), (1, 4)):
+        assert torch.equal(K.solve_lanes(L[..., lo:hi].contiguous(),
+                                         rhs[:, lo:hi].contiguous()),
+                           x[:, lo:hi]), (lo, hi)
+
+
+def test_solve_lanes_refuses_above_the_envelope(cuda):
+    """The C launcher takes n = 64 lane-major and refuses n = 65 with an
+    error and no launch; the wrapper raises at 65 without launching."""
+    from mpc_tuning_tpu_torch.ops import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype in (torch.float32, F64):
+        M, rhs = _spd_batch(cuda, 3, 64, dtype)
+        L = K.spd_factor_plain(M).permute(1, 2, 0).contiguous()
+        rhs = rhs.T.contiguous()
+        x = torch.full_like(rhs, 7.0)
+        assert lib.mpc_spd_factor_solve(int(dtype == F64), 1, L.data_ptr(),
+                                        rhs.data_ptr(), x.data_ptr(), 3, 64,
+                                        stream) == 0
+        assert torch.equal(x, K.solve_lanes(L, rhs))
+        L = torch.eye(65, device=cuda, dtype=dtype)[:, :, None].expand(
+            65, 65, 3).contiguous()
+        rhs = torch.ones((65, 3), device=cuda, dtype=dtype)
+        x = torch.full_like(rhs, 7.0)
+        assert lib.mpc_spd_factor_solve(int(dtype == F64), 1, L.data_ptr(),
+                                        rhs.data_ptr(), x.data_ptr(), 3, 65,
+                                        stream) != 0
+        torch.cuda.synchronize()
+        assert bool((x == 7.0).all())
+        before = K.launch_counts()
+        with pytest.raises(ValueError, match="solve_lanes: n = 65"):
+            K.solve_lanes(L, rhs)
+        assert K.launch_counts() == before
+
+
+# ------------------------------------------------- a lane's F and its slot
+
+# (N, max Nu) per candidate of float32 Shell3x3 VNS batches: one candidate
+# in every slot of a neighbourhood-sized batch (19 candidates, 57 lanes, at
+# the widest bucket), and mixes at the (32, 8) and (16, 4) buckets (n = 25,
+# 13) with one candidate at five slots
+SLOT_BATCHES = {"same (8, 7)": [(8, 7)] * 19,
+                "bucket (32, 8)": [(20, 6), (32, 8), (9, 3), (20, 6), (20, 6),
+                                   (17, 5), (12, 8), (20, 6), (31, 2),
+                                   (20, 6)],
+                "bucket (16, 4)": [(12, 3), (16, 4), (12, 3), (12, 3), (9, 2),
+                                   (14, 4), (12, 3), (5, 3), (12, 3)]}
+
+
+@pytest.mark.parametrize("batch", sorted(SLOT_BATCHES))
+def test_vns_objective_of_repeated_candidates(cuda, batch):
+    """Phase 3c's float32 Shell3x3 VNS objective ('admm_fused', 40
+    iterations) on the card: every slot of one candidate reads the same
+    closed-loop and open-loop bits and the same F."""
+    from mpc_tuning_tpu_torch.tuning.objectives import vns_objective_batch
+
+    problem, _ = build_problem(shell3x3.make_case(nit=120),
+                               dtype=torch.float32, qp_iters=15,
+                               device="cuda")
+    problem.vns_qp_method = "admm_fused"
+    problem.admm_iters = 40
+    legs = {}
+    for name in ("closed_batch", "open_batch"):
+        fn = getattr(problem, name)
+
+        def keep(*a, _fn=fn, _name=name, **kw):
+            legs[_name] = _fn(*a, **kw)
+            return legs[_name]
+        setattr(problem, name, keep)
+    pairs = SLOT_BATCHES[batch]
+    N_b, Nu_b = (np.array(x) for x in zip(*pairs))
+    F = vns_objective_batch(problem, N_b, Nu_b, [2.36, 0.43, 0.81],
+                            [0.066, 0.25, 0.086])
+    assert np.isfinite(F).all()
+    slots = [i for i, p in enumerate(pairs) if p == pairs[0]]
+    my = problem.my
+    for Y, U in legs.values():
+        for x in (Y, U):
+            x = np.asarray(x).reshape(len(pairs), my, *np.shape(x)[1:])
+            for i in slots[1:]:
+                assert np.array_equal(x[i].view(np.int32),
+                                      x[slots[0]].view(np.int32)), i
+    assert len(set(F[slots].tolist())) == 1, F[slots]
 
 
 # ------------------------------------------------- spd_solve and the NMPC path

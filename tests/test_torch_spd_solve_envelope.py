@@ -69,3 +69,13 @@ def test_solve_plain_reads_the_lower_triangle_only(n):
     x = K.spd_factor_solve(torch.as_tensor(L), torch.as_tensor(rhs))
     xj = K.spd_factor_solve(torch.as_tensor(junk), torch.as_tensor(rhs))
     assert torch.equal(x, xj)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_solve_lanes_envelope_names_the_kernel(dtype):
+    """The lane-major solve_lanes runs the same tiles: it takes n = 64 and
+    refuses n = 65 with its own name."""
+    assert K.factor_solve_envelope(64, dtype, "solve_lanes") == \
+        K.factor_solve_envelope(64, dtype)
+    with pytest.raises(ValueError, match="solve_lanes: n = 65"):
+        K.factor_solve_envelope(65, dtype, "solve_lanes")
