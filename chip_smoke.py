@@ -16,9 +16,11 @@ Phases, each printing one line (with its wall time):
        SPD factor/solve at n = 5, 17, 31 and 46
        (two rows a lane, over 48 KB of shared memory), each at B = 1024
        and at a ragged B = 37, the solve also beside the one-thread design
-       it replaced (reported));
+       it replaced (reported); spd_solve on the same systems bit for bit
+       against spd_factor_solve(spd_factor(M)), and beside its one-thread
+       design (reported));
     2b the band kernel on Shell7x5 in float64, the only dtype band cases
-       run at (caps (32,4), (127,2), (127,15), B=256, nit=200, the seeded
+       run at (caps (32,4), (127,2), (127,15), B=256, nit=100, the seeded
        candidates of tools/band_spread.band_inputs), held at twice what
        two correct runs differ by along the kernel's own U, measured in
        the same run (tools/band_spread.band_witness / band_gate: the plain
@@ -68,7 +70,20 @@ Phases, each printing one line (with its wall time):
     windows NMPC_HOLD_WINDOWS), and the tuned controller's
     closed loop inside the input bounds with Cb ending at its setpoint,
     printed beside the reference's own tuning;
- 3e. spd_solve's own path, its public entry point (no tune calls it);
+ 3e. spd_solve's own path, its public entry point (no tune calls it),
+    and its refusal above the envelope (n = 65);
+ 3f. the open-vs-closed horizon check (cases/verify_horizons) of the
+    tunes of 3, 3b and 3c on the card at float64, against the same on the
+    CPU (tracking legs at HORIZON_GATE; band legs at phase 2b's Y limit,
+    the closed leg along the card's U);
+ 3g. the DTC-GPC Wood-Berry closed loop (bench.py's shapes: B = 1024, nit
+    400) at float64 and float32: lanes bit-identical, the replay oracle,
+    float32 against float64, the tracking checks;
+ 3h. the explicit NMPC Van de Vusse demo (nit 100, three lanes) against
+    the same loop on the CPU and the staircase checks.
+    The CPU runs that hold 3d, 3f and 3h run in spawned worker processes
+    (cpu_pool, started after phase 1) beside the card's phases; their
+    lines print once collected, after 3h;
  4. throughput of each kernel, its plain version and, where one PyTorch
     call computes the same function, that call (recorded, not gated), one
     evaluation through each per-step engine beside the whole-sim kernel
@@ -81,7 +96,9 @@ Phases, each printing one line (with its wall time):
     launch, (B, n) = (8, 5), (36, 31), (141, 46), each beside
     torch.linalg.cholesky_ex (the solve: torch.cholesky_solve, and the
     one-thread design it replaced) and the plain version, by CUDA events
-    and by device time (torch.profiler).
+    and by device time (torch.profiler).  spd_solve beside its one-thread
+    design at float32 B=1024 n=17 and float64 B=1024 n=31; DTC-GPC sims/s
+    and the explicit NMPC loop's seconds.
 Then one JSON line with the per-kernel record, the card's line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero before that line.
@@ -204,9 +221,36 @@ CB_SETPOINT, CB_TOL = 1.0, 0.1  # phase 3d: Cb ends within 0.1 of 1.0
 NMPC_HOLD_WINDOWS = ((1, 12), (38, 47))
 
 
+POOLS = []  # worker pools still open, terminated by fail
+CPU_WORKERS = 4  # the CPU runs of 3c (three), 3d (two), 3f and 3h
+
+
 def fail(msg: str):
     print(f"FAIL: {msg}", flush=True)
+    for pool in POOLS:
+        pool.terminate()
     sys.exit(1)
+
+
+def _worker_init():
+    torch.set_num_threads(2)
+
+
+def cpu_pool(workers=CPU_WORKERS):
+    """Spawned worker processes for the plain CPU runs that hold the card's
+    (phases 3c, 3d, 3f, 3h), so they run while the card goes on; ``fail``
+    terminates them."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(workers, _worker_init)
+    POOLS.append(pool)
+    return pool
+
+
+def close_pool(pool):
+    pool.close()
+    pool.join()
+    POOLS.remove(pool)
 
 
 def timed(fn, reps: int = 1, warm: bool = True):
@@ -291,6 +335,12 @@ BAND_SHAPES = (((48, 4), 256, 7), ((48, 4), 1, 7), ((127, 2), 1, 7),
                ((127, 2), 8, 7), ((127, 15), 8, 7))
 # phase 2b's per-step certificate: seeded lanes beside the tuned point
 CERT_LANES = ((32, 4), 3, 11)  # caps, B (lane 0, the corner, is skipped), seed
+# phase 2b's depth: the first 100 of the case's 200 steps, the measured
+# disturbance's entry at step 19 and the transient after it (where the
+# certificate's tightest steps lay at nit 200: 19-81); at 200 the script
+# took 1385.8 s of its 1200 s limit on one NVIDIA H100 80GB HBM3 host at
+# 700 W, 2b 514 s of it
+BAND_HOLD_NIT = 100
 
 
 def spd_record(kernel: str):
@@ -505,6 +555,7 @@ def phase_kernels(problem):
     err64 = {}
     rows = []
     one_thread = {}  # spd_factor_solve vs the design it replaced, reported
+    spd_solve_old = {}  # spd_solve vs the design it replaced, reported
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
         tag = "f64" if f64 else "f32"
@@ -543,7 +594,16 @@ def phase_kernels(problem):
             xk = K.spd_factor_solve(Lk, rhs)
             xp = K.spd_factor_solve_plain(Lp, rhs)
             xo = K.spd_factor_solve_one_thread(Lk, rhs)
+            # spd_solve in one launch: the bits of the two kernels above
+            xs = K.spd_solve(M, rhs)
+            xs1 = K.spd_solve_one_thread(M, rhs)
             torch.cuda.synchronize()
+            if not torch.equal(xs.view(torch.uint8), xk.view(torch.uint8)):
+                fail(f"spd_solve n={n} B={Bs} {tag}: not the bits of "
+                     f"spd_factor_solve(spd_factor(M)), max |dx| "
+                     f"{maxabs(xs, xk):.3e}")
+            es1 = maxabs(xs, xs1) / (1.0 if f64 else float(xs1.abs().max()))
+            spd_solve_old[tag] = max(spd_solve_old.get(tag, 0.0), es1)
             eL, ex, eo = maxabs(Lk, Lp), maxabs(xk, xp), maxabs(xk, xo)
             if f64:
                 err64["spd_factor"] = max(err64.get("spd_factor", 0.0), eL)
@@ -565,7 +625,11 @@ def phase_kernels(problem):
           f"spd f64 {F64_SPD_GATE:g}, f32 {F32_SPD_GATE:g} relative | "
           + " | ".join(rows) + " | spd_factor_solve vs the one-thread design "
           f"(reported, not gated): f64 max |dx| {one_thread['f64']:.3e}, "
-          f"f32 {one_thread['f32']:.3e} relative | "
+          f"f32 {one_thread['f32']:.3e} relative | spd_solve: the bits of "
+          f"spd_factor_solve(spd_factor(M)) at every (n, B, dtype) above; vs "
+          f"its one-thread design (reported, not gated): f64 max |dx| "
+          f"{spd_solve_old['f64']:.3e}, f32 {spd_solve_old['f32']:.3e} "
+          f"relative | "
           f"wall_s={time.perf_counter() - t0:.1f}", flush=True)
     return err64
 
@@ -589,7 +653,7 @@ def phase_band_kernels(band_problem):
                                                         tightest_lane)
 
     t0 = time.perf_counter()
-    B, nit = 256, 200
+    B, nit = 256, BAND_HOLD_NIT
     err64 = 0.0
     rows, bad, tight = [], [], []
     for caps in BAND_CAPS:
@@ -641,7 +705,8 @@ def phase_band_kernels(band_problem):
     rel = " | ".join(f"{name}: {relative_text(h)}"
                      for name, h in held["relative"].items())
     print(f"[2b band certificate] the kernel's run, B=1 at the tuned point "
-          f"and {CERT_LANES[1] - 1} seeded lanes at {CERT_LANES[0]}, nit 200, "
+          f"and {CERT_LANES[1] - 1} seeded lanes at {CERT_LANES[0]}, nit "
+          f"{BAND_HOLD_NIT}, "
           f"each step's QP harvested along its U and certified on the host "
           f"(gates: {held['gates']}) | {txt} | relative to the plain chain "
           f"on the same QPs, each bucket's tightest lane and lanes over the "
@@ -678,8 +743,8 @@ def relative_text(h):
 def band_cert_hold(kernel, band_problem, tight=()):
     """The band kernel ``kernel`` (closed_sim_band's arguments; (Y, U, E))
     held step by step by the LP certificate (ops/band_cert.hold): at the
-    reference's tuned point (its own conditioning frame, B = 1, nit 200)
-    and on CERT_LANES' seeded lanes of ``band_problem``; and each of
+    reference's tuned point (its own conditioning frame, B = 1, nit
+    BAND_HOLD_NIT) and on CERT_LANES' seeded lanes of ``band_problem``; and each of
     ``tight``'s lanes ((caps, lane, N, Nu, lam, U, E, why) of a phase 2b
     bucket) relative to the plain chain (ops/band_cert.hold_relative).
     Returns {"lanes": {name: hold's dict}, "relative": {name:
@@ -694,7 +759,7 @@ def band_cert_hold(kernel, band_problem, tight=()):
     t0 = time.perf_counter()
     workers = min(8, os.cpu_count() or 1)
     ref = shell7x5.REF_TUNED
-    nit = 200
+    nit = BAND_HOLD_NIT
     tuned, _ = build_problem(shell7x5.make_case(), L=np.diag(ref.L),
                              R=np.diag(ref.R), device="cuda")
     caps, B, seed = CERT_LANES
@@ -940,7 +1005,7 @@ def keep_last_launches(store):
 
 def phase_main_path():
     """3. The seeded Wood-Berry hybrid tune on the card; returns the
-    launch counts."""
+    launch counts and the tune's result."""
     from mpc_tuning_tpu_torch.cases import woodberry
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.tuning.api import build_problem, mpc_tuning
@@ -1002,12 +1067,12 @@ def phase_main_path():
           f"last batches vs plain: {'; '.join(held)} | "
           f"loop_f32_card_vs_f64_cpu dy={dy:.3e} du={du:.3e} | "
           f"phase_s={time.perf_counter() - t0:.1f}", flush=True)
-    return launches
+    return launches, res
 
 
 def phase_band_main_path():
     """3b. The seeded Shell7x5 band tune on the card at float64; returns
-    the launch counts."""
+    the launch counts and the tune's result."""
     from mpc_tuning_tpu_torch.cases import shell7x5
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.sim import mpc_loop
@@ -1097,7 +1162,7 @@ def phase_band_main_path():
           f"(card, f64, {sim_s:.2f} s): max|u| {umax:.6f} |y1| end "
           f"{abs(y[-1, 0]):.6f} |y2| end {abs(y[-1, 1]):.6f} | "
           f"phase_s={time.perf_counter() - t0:.1f}", flush=True)
-    return launches
+    return launches, res
 
 
 def vns_neighbours(best, dmin_max):
@@ -1117,11 +1182,37 @@ def vns_neighbours(best, dmin_max):
     return np.array(Ns), np.array(Nus)
 
 
-def phase_step_path():
+def rescore_cpu(L, R, Ns, Nus, delta, lam):
+    """3c's f64 re-score of the incumbent's neighbourhood through
+    'pdip_ws_lanes' on the CPU (run in a worker); returns (F, seconds)."""
+    from mpc_tuning_tpu_torch.cases import shell3x3
+    from mpc_tuning_tpu_torch.tuning import api
+    from mpc_tuning_tpu_torch.tuning.objectives import vns_objective_batch
+
+    p64, _ = api.build_problem(shell3x3.make_case(nit=S3_NIT),
+                               dtype=torch.float64, qp_iters=15, L=L, R=R,
+                               device="cpu")
+    p64.qp_method = p64.vns_qp_method = "pdip_ws_lanes"
+    t0 = time.perf_counter()
+    F = vns_objective_batch(p64, Ns, Nus, delta, lam)
+    return F, time.perf_counter() - t0
+
+
+def plain_follow_cpu(name, args, kwargs, U):
+    """The plain step loop ``name`` (ops/kernels) on the CPU following U
+    (run in a worker); returns its U."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    return getattr(K, name)(*args, **kwargs, u_follow=U)[1]
+
+
+def phase_step_path(pool):
     """3c. The seeded Shell3x3 hybrid tune on the card through the
     per-step engines, the f64 final simulation and the f64 re-score of the
-    incumbent's neighbourhood; returns the launch counts and the tune's
-    shapes for phase 4 (as TUNE_SHAPES)."""
+    incumbent's neighbourhood; the CPU's runs (the re-score and the plain
+    loops beside the last batches) in ``pool``'s workers while the card
+    runs its own.  Returns the launch counts, the tune's shapes for phase 4
+    (as TUNE_SHAPES) and the tune's result."""
     from mpc_tuning_tpu_torch.cases import shell3x3
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.sim import mpc_loop
@@ -1176,23 +1267,22 @@ def phase_step_path():
     m_cap = mpc_loop.horizon_caps(127, 15, Ns, Nus)[1]
     shapes = dict(rescore=(problem.my * len(Ns), m_cap * problem.nu + 1),
                   incumbent=(N, int(Nu.max())))
+    cpu_rescore = pool.apply_async(rescore_cpu,
+                                   (L, R, Ns, Nus, delta, lam))
+    cpu_follow = {
+        engine: pool.apply_async(plain_follow_cpu, (
+            PLAIN[engine], to_cpu(last[engine][0]), last[engine][1],
+            last[engine][2][1].cpu()))
+        for engine in ("pdip_ws_fused", "admm_fused") if engine in last}
     F = {}
-    for dev in ("cuda", "cpu"):
-        p64, _ = api.build_problem(case, dtype=torch.float64, qp_iters=15,
-                                   L=L, R=R, device=dev)
-        p64.qp_method = p64.vns_qp_method = "pdip_ws_lanes"
-        t2 = time.perf_counter()
-        F[dev] = vns_objective_batch(p64, Ns, Nus, delta, lam)
-        F[dev + "_s"] = time.perf_counter() - t2
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            launches = K.launch_counts()
-    gap = float(np.max(np.abs(F["cuda"] - F["cpu"]) / np.abs(F["cpu"])))
-    i = int(np.argmin(F["cpu"]))
-    if not (np.isfinite(F["cuda"]).all() and np.argmin(F["cuda"]) == i):
-        bad.append(f"f64 re-score: card argmin {np.argmin(F['cuda'])} vs "
-                   f"cpu {np.argmin(F['cpu'])} (F card {F['cuda']}, cpu "
-                   f"{F['cpu']})")
+    p64, _ = api.build_problem(case, dtype=torch.float64, qp_iters=15, L=L,
+                               R=R, device="cuda")
+    p64.qp_method = p64.vns_qp_method = "pdip_ws_lanes"
+    t2 = time.perf_counter()
+    F["cuda"] = vns_objective_batch(p64, Ns, Nus, delta, lam)
+    torch.cuda.synchronize()
+    F["cuda_s"] = time.perf_counter() - t2
+    launches = K.launch_counts()
     path = ("pdip_fused", "admm_fused", "factor_lanes", "solve_lanes")
     if min(launches[k] for k in path) <= 0:
         bad.append(f"a kernel of the Shell3x3 path was never launched: "
@@ -1216,10 +1306,8 @@ def phase_step_path():
         args, kwargs, out_k = last[engine]
         plain = getattr(K, PLAIN[engine])
         out_p = plain(*args, **kwargs, u_follow=out_k[1])
-        out_c = plain(*to_cpu(args), **kwargs, u_follow=out_k[1].cpu())
         dy, du = lane_errors(out_k, out_p)
         steps = (out_k[1] - out_p[1]).abs().amax(1).flatten()
-        wit = (to_cpu(out_p)[1] - out_c[1]).abs().amax(1).flatten()
         ey, eu = float(dy.max()), float(du.max())
         ok = ey <= F32_SIM_GATE and eu <= (
             F32_SIM_GATE if engine == "admm_fused" else F32_PDIP_U_CAP)
@@ -1230,12 +1318,22 @@ def phase_step_path():
                                            *args[4:], **kwargs, u_follow=U64))
         e64 = max(float(d64[0].max()), float(d64[1].max()))
         ok = ok and e64 <= F64_SIM_GATE
+        wit = (out_p[1].cpu() - cpu_follow[engine].get()).abs().amax(1)
         held.append(f"{engine}(B={out_k[0].shape[2]}, n={kwargs['dims']['n']}"
                     f"): f32 Y {ey:.3e} U {eu:.3e} (per step p50/p90/p99/max "
-                    f"{fmt(steps)}; plain card vs cpu {fmt(wit)}), the same "
-                    f"inputs at f64 Y, U {e64:.3e}")
+                    f"{fmt(steps)}; plain card vs cpu {fmt(wit.flatten())}), "
+                    f"the same inputs at f64 Y, U {e64:.3e}")
         if not ok:
             bad.append(held[-1])
+    t2 = time.perf_counter()
+    F["cpu"], F["cpu_s"] = cpu_rescore.get()
+    wait_s = time.perf_counter() - t2
+    gap = float(np.max(np.abs(F["cuda"] - F["cpu"]) / np.abs(F["cpu"])))
+    i = int(np.argmin(F["cpu"]))
+    if not (np.isfinite(F["cuda"]).all() and np.argmin(F["cuda"]) == i):
+        bad.append(f"f64 re-score: card argmin {np.argmin(F['cuda'])} vs "
+                   f"cpu {np.argmin(F['cpu'])} (F card {F['cuda']}, cpu "
+                   f"{F['cpu']})")
     print(f"[3c step engines] hybrid_tune(Shell3x3 nit={case.nit} nbp/nbc=7/4 f32 "
           f"cuda GAM pdip_ws_fused VNS admm_fused popsize=8 gens=3 alts=1 "
           f"qp_iters=15 admm_iters=40, no joint polish) N={N} "
@@ -1250,11 +1348,12 @@ def phase_step_path():
           f"{Nus[np.argmin(F['cuda'])]}), cpu ({Ns[i]}, {Nus[i]}), F "
           f"{F['cpu'][i]:.9g}, max relative "
           f"F gap card vs cpu {gap:.3e} (card {F['cuda_s']:.1f} s, cpu "
-          f"{F['cpu_s']:.1f} s) | phase_s={time.perf_counter() - t0:.1f}",
+          f"{F['cpu_s']:.1f} s in a worker, waited {wait_s:.1f} s) | "
+          f"phase_s={time.perf_counter() - t0:.1f}",
           flush=True)
     if bad:
         fail("Shell3x3 path: " + " | ".join(bad))
-    return launches, shapes
+    return launches, shapes, res
 
 
 def phase_throughput(problem, band_problem):
@@ -1735,12 +1834,13 @@ def phase_nmpc_kernels(vdv_problem):
     return err64
 
 
-def phase_nmpc_path():
+def phase_nmpc_path(pool):
     """3d. The seeded Van de Vusse NMPC tune on the card at float64 (the
     case's full width: nit 60, nbp/nbc 5/4, substeps 10, SQP 4, QP 25),
     its last closed-loop batch step by step against the plain loop on the
-    CPU, and the final simulation at the tuned controller; returns the
-    launch counts."""
+    CPU (started in ``pool``'s workers, collected by finish_nmpc_hold),
+    and the final simulation at the tuned controller; returns the launch
+    counts and the pending hold."""
     from mpc_tuning_tpu_torch.cases import vandevusse
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.sim import nmpc_loop
@@ -1787,29 +1887,18 @@ def phase_nmpc_path():
     # the tune's last closed-loop batch, step by step against the plain
     # loop on the CPU following its U (launches made here do not count): Y
     # at every step, U at the window steps (elsewhere the plain loop solves
-    # nothing and returns the card's U)
+    # nothing and returns the card's U).  The plain loop (~70 s of one CPU
+    # core) runs in two workers, one window each (a window's solves need
+    # only the plant stepped on the card's U), while the card goes on with
+    # phases 3e-3h; finish_nmpc_hold collects them.
     spec, c, r, Nb, Nub, d, l = last["args"]
     Y, U = last["out"]
     nit = r.shape[1]
-    steps = [k for a, b in NMPC_HOLD_WINDOWS for k in range(a, b + 1)
-             if k < nit]
-    t1 = time.perf_counter()
-    Yp, Up = nmpc_loop.nmpc_closed_core(
+    windows = [[k for k in range(a, b + 1) if k < nit]
+               for a, b in NMPC_HOLD_WINDOWS]
+    pending = [pool.apply_async(nmpc_follow_cpu, (
         spec, to_cpu(c), r.cpu(), Nb.cpu(), Nub.cpu(), d.cpu(), l.cpu(),
-        u_follow=U.cpu(), solve_steps=set(steps))
-    cpu_s = time.perf_counter() - t1
-    ey, eu, ry, ru = nmpc_errors(spec, Y, U, Yp, Up)
-    # (lane, step) pairs with an input on a bound: all, and those held
-    Uc = U.cpu().numpy()
-    on = ((Uc >= vandevusse.UB - 1e-6)
-          | (Uc <= vandevusse.LB + 1e-6)).any(axis=2)
-    held = (f"B={r.shape[0]} caps=({spec.p_max},{spec.m_max}), Y at steps "
-            f"0-{nit - 1}, U at steps {NMPC_HOLD_WINDOWS}: scaled Y {ey:.3e} "
-            f"U {eu:.3e} (raw {ry:.3e}, {ru:.3e}; plain on the CPU "
-            f"{cpu_s:.1f} s); an input on a bound at {int(on[:, 1:].sum())} "
-            f"(lane, step) pairs, {int(on[:, steps].sum())} of them held")
-    if max(ey, eu) > F64_SIM_GATE:
-        bad.append(f"last batch {held}")
+        U.cpu(), w)) for w in windows]
 
     # the tuned controller's closed loop (the check of the verify notes):
     # u inside [LB, UB], Cb ends within CB_TOL of its setpoint
@@ -1833,14 +1922,58 @@ def phase_nmpc_path():
           f"lam={np.round(lam, 6).tolist()} Fvns={Fvns:.6g} Fgam={Fgam:.6g} "
           f"wall_s={wall:.2f} launches={launches} | reference artifact "
           f"(BASELINE.md, another budget; not a gate): N={ref['N']} "
-          f"Nu={ref['Nu']} delta={ref['delta']} lam={ref['lam']} | last "
-          f"batch vs plain: {held} | final simulation (card, f64, "
-          f"{sim_s:.2f} s): outside [LB, UB] by {excess:.3e}, Cb end "
-          f"{float(y[-1, 0]):.6f}, T end {float(y[-1, 1]):.4f} | "
-          f"phase_s={time.perf_counter() - t0:.1f}", flush=True)
+          f"Nu={ref['Nu']} delta={ref['delta']} lam={ref['lam']} | final "
+          f"simulation (card, f64, {sim_s:.2f} s): outside [LB, UB] by "
+          f"{excess:.3e}, Cb end {float(y[-1, 0]):.6f}, T end "
+          f"{float(y[-1, 1]):.4f} | last batch vs plain: on the CPU in a "
+          f"worker, below after 3h | phase_s={time.perf_counter() - t0:.1f}",
+          flush=True)
     if bad:
         fail("NMPC path: " + " | ".join(bad))
-    return launches
+    return launches, (pending, spec, Y, U, r.shape[0], windows)
+
+
+def nmpc_follow_cpu(spec, c, r, Nb, Nub, d, l, U, steps):
+    """3d's plain loop on the CPU following the card's U, solving at
+    ``steps`` (run in a spawned worker); returns (Yp, Up, seconds)."""
+    from mpc_tuning_tpu_torch.sim import nmpc_loop
+
+    t0 = time.perf_counter()
+    Yp, Up = nmpc_loop.nmpc_closed_core(spec, c, r, Nb, Nub, d, l,
+                                        u_follow=U, solve_steps=set(steps))
+    return Yp, Up, time.perf_counter() - t0
+
+
+def finish_nmpc_hold(held):
+    """3d's last batch against the plain loop on the CPU (phase_nmpc_path
+    started it in a worker): Y at every step, U at the window steps, at
+    F64_SIM_GATE in the controller's scaled units."""
+    from mpc_tuning_tpu_torch.cases import vandevusse
+
+    pending, spec, Y, U, B, windows = held
+    t0 = time.perf_counter()
+    # Y is the plant on the card's U in both; U from the window's worker
+    (Yp, Up, cpu_s), *rest = [p.get() for p in pending]
+    for (_, Uw, secs), w in zip(rest, windows[1:]):
+        Up[:, w] = Uw[:, w]
+        cpu_s = max(cpu_s, secs)
+    steps = [k for w in windows for k in w]
+    ey, eu, ry, ru = nmpc_errors(spec, Y, U, Yp, Up)
+    # (lane, step) pairs with an input on a bound: all, and those held
+    Uc = U.cpu().numpy()
+    on = ((Uc >= vandevusse.UB - 1e-6)
+          | (Uc <= vandevusse.LB + 1e-6)).any(axis=2)
+    held = (f"B={B} caps=({spec.p_max},{spec.m_max}), Y at steps "
+            f"0-{Y.shape[1] - 1}, U at steps {NMPC_HOLD_WINDOWS}: scaled Y "
+            f"{ey:.3e} U {eu:.3e} (raw {ry:.3e}, {ru:.3e}; plain on the CPU "
+            f"{cpu_s:.1f} s in two workers, waited "
+            f"{time.perf_counter() - t0:.1f} s for them); an input on a bound "
+            f"at {int(on[:, 1:].sum())} "
+            f"(lane, step) pairs, {int(on[:, steps].sum())} of them held")
+    print(f"[3d nmpc path, last batch] {held} (gate {F64_SIM_GATE:g})",
+          flush=True)
+    if max(ey, eu) > F64_SIM_GATE:
+        fail(f"NMPC path: last batch {held}")
 
 
 def phase_spd_solve_entry():
@@ -1858,9 +1991,392 @@ def phase_spd_solve_entry():
     if launches["spd_solve"] != 1 or not res <= 1e-10:
         fail(f"spd_solve entry point: launches {launches['spd_solve']}, "
              f"max |M x - rhs| {res:.3e}")
+    # above the envelope (n = 65) it raises and launches nothing
+    M65, rhs65 = spd_batch(8, 65, torch.float64)
+    try:
+        K.spd_solve(M65, rhs65)
+        fail("spd_solve took n = 65, above its envelope")
+    except ValueError as e:
+        refused = str(e)
+    if K.launch_counts()["spd_solve"] != 1:
+        fail("spd_solve launched above its envelope")
     print(f"[3e spd_solve] B=1024 n=31 f64: launches 1, max |M x - rhs| "
-          f"{res:.3e}", flush=True)
+          f"{res:.3e}; n = 65 refused without a launch ({refused})",
+          flush=True)
     return launches
+
+
+# phase 3f: the tracking cases' horizon-check legs, card against the CPU,
+# float64 (as the tests hold the port's check against the JAX package's)
+HORIZON_GATE = 1e-8
+
+
+def band_pulse_inputs(loop, L, N, Nu, delta, lam, v_const, nit, device,
+                      pulse=5):
+    """The band check's closed leg as cases/verify_horizons runs it (the
+    pulse protocol's r and v): (args, kwargs) of closed_sim_band and of its
+    plain version on ``device``, and (r, v) NumPy."""
+    from mpc_tuning_tpu_torch.sim.mpc_loop import BAND_LP_ITERS, BAND_S2_ITERS
+
+    ny = L.shape[0]
+    r = np.zeros((nit, ny))
+    r[:pulse] = L @ np.ones(ny)
+    v = np.tile(np.asarray(v_const, dtype=np.float64), (nit, 1))
+    t, lc, Hp, r_l, dims = loop.sim_inputs(
+        r[None], v, [N], [Nu], np.asarray(delta)[None],
+        np.asarray(lam)[None], nit, torch.float64, "band_sim", device)
+    return ((t, lc, Hp, r_l, nit, BAND_LP_ITERS, BAND_S2_ITERS),
+            dict(dims=dims), (r, v))
+
+
+def band_closed_hold(args, kw, run):
+    """The band check's closed leg (the card's closed_sim_band run ``run``
+    = (Y, U, E) on the CPU) held as phase 3b holds the tune's last band
+    batch: against the plain loop on the CPU following its U at the live
+    limits of the witness measured along that U (tools/band_spread
+    band_gate; Y at BAND_Y_LIMIT), a lane over them decided by the
+    certificate relative to the plain chain (ops/band_cert.hold_relative,
+    its replicas on the CPU).  Returns (ok, text)."""
+    import types
+
+    from mpc_tuning_tpu_torch.ops import band_cert as bc
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.tools.band_spread import (band_gate,
+                                                        band_lane_errors,
+                                                        band_witness)
+
+    loop, _, N, Nu, delta, lam = args
+    pargs, pkw, (r, v) = band_pulse_inputs(*args, kw["v_const"],
+                                           run[0].shape[0], "cpu")
+    U_k = run[1]
+    exact = K.closed_sim_band_plain(*pargs, **pkw, u_follow=U_k)
+    dims = pkw["dims"]
+    caps = (pargs[0]["SxF"].shape[0] // dims["ny"], dims["m_max"])
+    ok, text, over = band_gate(band_lane_errors(run, exact),
+                               band_witness(pargs, pkw, U_k, exact), caps)
+    text = f"caps={caps}: {text}"
+    if over:  # the lane over the live limits, decided by the certificate
+        problem = types.SimpleNamespace(loop=loop, r=r, v=v)
+        h = bc.hold_relative(problem, N, Nu, delta, lam,
+                             U_k[:, :, 0].numpy(), run[2][:, 0].numpy(),
+                             caps=(int(N), int(Nu)))
+        ok = h["ok"]
+        text += " | certificate relative to the plain chain: " + \
+            relative_text(h)
+    return ok, text
+
+
+def phase_horizon_checks(results, pool):
+    """3f. The open-vs-closed horizon check (cases/verify_horizons) of the
+    tunes of phases 3 (Wood-Berry), 3b (Shell7x5, the band pulse protocol)
+    and 3c (Shell3x3) on the card at float64.  Each is run again on the
+    CPU in one of ``pool``'s workers (``horizon_checks_cpu``), and
+    finish_horizon_checks holds the card's against it.  Returns the
+    launch counts of the card's checks and the pending hold."""
+    from mpc_tuning_tpu_torch.cases.verify_horizons import verify_horizons
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    runs = []
+    K.reset_launches()
+    for name, res in results.items():
+        prob = res.problem
+        band = prob.loop.ctl.spec.has_y_constraints
+        args = (prob.loop, res.L, res.N, int(np.max(res.Nu)), res.delta,
+                res.lam)
+        kw = dict(v_const=prob.v[-1]) if band else {}
+        t1 = time.perf_counter()
+        card = verify_horizons(*args, dtype=torch.float64, device="cuda",
+                               **kw)
+        torch.cuda.synchronize()
+        runs.append((name, band, args, kw, card, time.perf_counter() - t1))
+    launches = K.launch_counts()
+    if min(launches[k] for k in ("closed_sim_pdip", "closed_sim_band",
+                                 "spd_factor", "spd_factor_solve")) <= 0:
+        fail(f"a kernel of the horizon checks was never launched: "
+             f"{launches}")
+    # the band closed leg's kernel run again on its inputs, for its frozen
+    # slacks E (held in the worker); the same run: the card's U and Y bits
+    items = []
+    for name, band, args, kw, card, _ in runs:
+        run = None
+        if band:
+            kargs, kkw, _ = band_pulse_inputs(*args, kw["v_const"],
+                                              card.y_closed.shape[1], "cuda")
+            run = tuple(x.cpu() for x in K.closed_sim_band(*kargs, **kkw))
+            if not (np.array_equal(run[0][:, :, 0].numpy().T, card.y_closed)
+                    and np.array_equal(run[1][:, :, 0].numpy().T,
+                                       card.u_closed)):
+                fail(f"{name}: closed_sim_band on the horizon check's "
+                     "closed-leg inputs is not the check's closed leg")
+        items.append((band, args, kw, run))
+    pending = pool.apply_async(horizon_checks_cpu, (items,))
+    return launches, (runs, pending, launches, time.perf_counter() - t0)
+
+
+def horizon_checks_cpu(items):
+    """3f's CPU side (run in a worker): for each (band, args, kw, run) the
+    same check on the CPU and, for a band case, the hold of the card's
+    closed-leg run ``run`` (``band_closed_hold``); returns [(cpu check,
+    band_closed_hold's (ok, text) or None, seconds)]."""
+    from mpc_tuning_tpu_torch.cases.verify_horizons import verify_horizons
+
+    out = []
+    for band, args, kw, run in items:
+        t0 = time.perf_counter()
+        cpu = verify_horizons(*args, dtype=torch.float64, device="cpu", **kw)
+        held = band_closed_hold(args, kw, run) if band else None
+        out.append((cpu, held, time.perf_counter() - t0))
+    return out
+
+
+def finish_horizon_checks(held):
+    """3f's hold, each check printed with its mismatch vector and ok: the
+    tracking cases' four legs card vs CPU at HORIZON_GATE; the band closed
+    leg's kernel run by phase 3b's gate (``band_closed_hold``: Y, U, the
+    moves and the frozen slacks against the plain loop following its U),
+    the band open leg's Y against the CPU's at phase 2b's Y limit
+    (tools/band_spread.BAND_Y_LIMIT; U and the free runs' distance
+    reported)."""
+    from mpc_tuning_tpu_torch.tools.band_spread import BAND_Y_LIMIT
+
+    runs, pending, launches, card_phase_s = held
+    t0 = time.perf_counter()
+    cpu_runs = pending.get()
+    wait_s = time.perf_counter() - t0
+    rows, bad = [], []
+    d = lambda a, b: float(np.abs(a - b).max())
+    for (name, band, args, kw, card, card_s), (cpu, held, cpu_s) in zip(
+            runs, cpu_runs):
+        head = (f"{name} (N {args[2]}, Nu {args[3]}, nit "
+                f"{card.y_closed.shape[1]}, card {card_s:.2f} s): mismatch "
+                f"{np.round(card.mismatch, 6).tolist()} ok {card.ok} (cpu "
+                f"{np.round(cpu.mismatch, 6).tolist()} ok {cpu.ok})")
+        if band:
+            closed_ok, closed_text = held
+            eyo = d(cpu.y_open, card.y_open)
+            rows.append(
+                head + f"; closed leg (closed_sim_band) vs the plain loop "
+                f"along its U {closed_text}; open leg Y {eyo:.3e} (limit "
+                f"BAND_Y_LIMIT {BAND_Y_LIMIT:g}) U "
+                f"{d(cpu.u_open, card.u_open):.3e}; free closed runs Y "
+                f"{d(cpu.y_closed, card.y_closed):.3e} U "
+                f"{d(cpu.u_closed, card.u_closed):.3e} (cpu {cpu_s:.1f} s)")
+            ok = closed_ok and eyo <= BAND_Y_LIMIT
+        else:
+            e = {k: d(getattr(cpu, k), getattr(card, k)) for k in
+                 ("y_closed", "u_closed", "y_open", "u_open")}
+            rows.append(head + "; card vs cpu " + " ".join(
+                f"{k} {v:.3e}" for k, v in e.items())
+                + f" (limit {HORIZON_GATE:g}; cpu {cpu_s:.1f} s)")
+            ok = max(e.values()) <= HORIZON_GATE
+        if not (ok and card.ok == cpu.ok and np.isfinite(card.mismatch).all()):
+            bad.append(rows[-1])
+    print("[3f horizon checks] verify_horizons f64 on the card (tracking: "
+          "closed leg 'pdip_sim', band: 'band_sim' and the split open leg), "
+          "the CPU's in a worker | " + " | ".join(rows)
+          + f" | launches={launches} | phase_s={card_phase_s:.1f} on the "
+          f"card, waited {wait_s:.1f} s for the CPU", flush=True)
+    if bad:
+        fail("horizon checks: " + " | ".join(bad))
+
+
+# phase 3g: the DTC-GPC Wood-Berry loop at bench.py's shapes (:246-276)
+DTC_B, DTC_NIT = 1024, 400
+
+
+def dtc_controller():
+    from mpc_tuning_tpu_torch.models import plants
+    from mpc_tuning_tpu_torch.ops import condmin as cm
+    from mpc_tuning_tpu_torch.sim.gpc_loop import DTCGPC
+
+    plant = plants.wood_berry()
+    L, R, _ = cm.condmin(plant.G.dcgain())
+    return DTCGPC.build(plant=plant.G, model=plant.G, Ts=1.0,
+                        p=np.array([3, 3]), m=np.array([3, 3]),
+                        delta=np.array([1.0, 1.0]), lam=np.array([1.0, 1.0]),
+                        L=L, R=R, n_md=1, disturbance=plant.D)
+
+
+def dtc_signals(nit, r2_at, q_at):
+    """Setpoints r1 = 0.8 from step 10, r2 = 0.5 from ``r2_at``, the feed
+    disturbance -0.25 from ``q_at``."""
+    r = np.zeros((nit, 2))
+    r[10:, 0] = 0.8
+    r[r2_at:, 1] = 0.5
+    q = np.zeros((nit, 1))
+    q[q_at:, 0] = -0.25
+    return r, q
+
+
+def phase_dtc_path():
+    """3g. The DTC-GPC Wood-Berry closed loop on the card (bench.py's
+    shapes: p = m = [3, 3], delta = lambda = 1, condmin L and R, n_md 1, B
+    = DTC_B lanes of one scenario, nit DTC_NIT): at float64 every lane
+    bit-identical and lane 0 against the replay oracle simulate_ref at
+    1e-8; float32 against float64 within 1e-5; the physical checks of
+    tests/test_dtc_loop.py on its own signals (nit 200).  No kernel: the
+    loop is eager torch ops.  Returns (controller, (r_b, q_b))."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    ctl = dtc_controller()
+    r, q = dtc_signals(DTC_NIT, 200, 300)
+    r_b = np.broadcast_to(r, (DTC_B, DTC_NIT, 2))
+    q_b = np.broadcast_to(q, (DTC_B, DTC_NIT, 1))
+    K.reset_launches()
+    out, secs = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        t1 = time.perf_counter()
+        out[dtype] = ctl.simulate_scan_batch(r_b, q_b, DTC_NIT, dtype=dtype,
+                                             device="cuda")
+        torch.cuda.synchronize()
+        secs[dtype] = time.perf_counter() - t1
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    Y, U = out[torch.float64]
+    same = all(torch.equal(x, x[:1].expand_as(x)) for x in (Y, U))
+    t1 = time.perf_counter()
+    y_ref, u_ref = ctl.simulate_ref(r, q, DTC_NIT)
+    ref_s = time.perf_counter() - t1
+    e_ref = max(float(np.abs(Y[0].cpu().numpy() - y_ref).max()),
+                float(np.abs(U[0].cpu().numpy() - u_ref).max()))
+    Y32, U32 = out[torch.float32]
+    e32 = max(maxabs(Y32.double(), Y), maxabs(U32.double(), U))
+    r2, q2 = dtc_signals(200, 60, 140)
+    y, u = ctl.simulate_scan(r2, q2, 200, device="cuda")
+    phys = (np.abs(y[135] - [0.8, 0.5]).max(),
+            np.abs(y[-1] - [0.8, 0.5]).max(), np.abs(u).max(),
+            np.abs(u[-1] - u[-5]).max())
+    phys_ok = (phys[0] <= 5e-3 and phys[1] <= 2e-2 and phys[2] < 2.0
+               and phys[3] < 1e-3)
+    print(f"[3g dtc-gpc] Wood-Berry p=m=[3,3] delta=lambda=1 condmin L/R "
+          f"n_md=1 B={DTC_B} nit={DTC_NIT}: f64 {secs[torch.float64]:.2f} s, "
+          f"f32 {secs[torch.float32]:.2f} s (first calls); every lane "
+          f"bit-identical {same}; lane 0 vs simulate_ref "
+          f"{e_ref:.3e} (limit 1e-8; host oracle {ref_s:.1f} s); f32 vs f64 "
+          f"{e32:.3e} (limit 1e-5); nit 200 |y[135] - r| {phys[0]:.3e} "
+          f"(5e-3), |y[-1] - r| {phys[1]:.3e} (2e-2), max |u| "
+          f"{phys[2]:.4f} (2), |u[-1] - u[-5]| {phys[3]:.3e} (1e-3); kernel "
+          f"launches {launches or 'none'} | "
+          f"phase_s={time.perf_counter() - t0:.1f}", flush=True)
+    if not (same and e_ref <= 1e-8 and e32 <= 1e-5 and phys_ok
+            and torch.isfinite(Y32).all()):
+        fail("DTC-GPC path above its gates")
+    return ctl, (r_b, q_b)
+
+
+# phase 3h: the explicit NMPC demo at the JAX package's test settings
+ENMPC_KW = dict(substeps=6, sqp_iters=4, qp_iters=20)
+ENMPC_HOLD_NIT, ENMPC_NIT = 40, 100
+ENMPC_GATE = 1e-9  # card vs the CPU, float64, Y and U
+
+
+def explicit_nmpc_cpu(ctl, x0, u0, r, nit, inK, noise):
+    """3h's CPU run (in a worker): (Y, U, seconds)."""
+    t0 = time.perf_counter()
+    Y, U = ctl.simulate(x0, u0, r, nit, inK=inK, noise=noise, device="cpu")
+    return Y, U, time.perf_counter() - t0
+
+
+def phase_explicit_nmpc(pool):
+    """3h. The explicit NMPC Van de Vusse demo on the card at float64, one
+    batch of three lanes over ENMPC_NIT steps: noise-free, one given noise
+    array (seed 1) and ``vandevusse_explicit.run``'s own draw (seed 0).  The
+    first two held over ENMPC_HOLD_NIT steps against the same loop on the
+    CPU (in one of ``pool``'s workers, beside the card's run) at
+    ENMPC_GATE; the third checks the staircase (the thresholds of
+    tests/test_explicit_nmpc.py).  Returns (the launch counts, the card
+    loop's seconds, B)."""
+    from mpc_tuning_tpu_torch.cases import vandevusse_explicit as vex
+    from mpc_tuning_tpu_torch.models.ode import (VDV_U0, VDV_X0,
+                                                 newton_steady_state,
+                                                 vandevusse_rhs)
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    ctl = vex.make_controller(**ENMPC_KW)
+    x0 = newton_steady_state(vandevusse_rhs, VDV_X0, VDV_U0)
+    u0 = np.asarray(VDV_U0)
+    r = vex.make_reference(x0, ENMPC_NIT)
+    noise = np.stack([np.zeros((ENMPC_NIT, 3)),
+                      ctl.draw_noise(ENMPC_NIT, seed=1),
+                      ctl.draw_noise(ENMPC_NIT, seed=0)])
+    h = ENMPC_HOLD_NIT
+    pending = pool.apply_async(explicit_nmpc_cpu, (
+        ctl, x0, u0, r, h, vex.INK, noise[:2, :h]))
+    K.reset_launches()
+    t1 = time.perf_counter()
+    Y, U = ctl.simulate(x0, u0, r, ENMPC_NIT, inK=vex.INK, noise=noise,
+                        device="cuda")
+    wall = time.perf_counter() - t1
+    launches = K.launch_counts()
+    if min(launches[k] for k in ("spd_factor", "spd_factor_solve")) <= 0:
+        fail(f"a kernel of the explicit NMPC path was never launched: "
+             f"{launches}")
+    Yc, Uc, cpu_s = pending.get()
+    ey, eu = (float(np.abs(a[:2, :h] - b).max()) for a, b in ((Y, Yc),
+                                                             (U, Uc)))
+    y, u = Y[2], U[2]
+    stair = (np.mean(y[38:48, 0]), abs(np.mean(y[90:, 0]) - 1.0),
+             abs(np.mean(y[95:, 1]) - 130.0))
+    bounds = bool((u[:, 0] >= -1e-6).all() and (u[:, 0] <= 150 + 1e-6).all()
+                  and (u[:, 1] >= 40 - 1e-6).all()
+                  and (u[:, 1] <= 150 + 1e-6).all())
+    ok = (np.isfinite(Y).all() and np.isfinite(U).all() and bounds
+          and stair[0] > 1.05 and stair[1] < 0.05 and stair[2] < 0.5
+          and max(ey, eu) <= ENMPC_GATE)
+    print(f"[3h explicit nmpc] Van de Vusse N=5 Nu=(2,2) substeps=6 sqp=4 "
+          f"qp=20 f64: B=3 lanes (noise-free, given noise seed 1, run's draw "
+          f"seed 0) nit={ENMPC_NIT} on the card {wall:.2f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; lanes 0-1 vs the "
+          f"CPU over {h} steps Y {ey:.3e} U {eu:.3e} (limit {ENMPC_GATE:g}; "
+          f"cpu {cpu_s:.1f} s in a worker); staircase (lane 2): mean Cb[38:48] "
+          f"{stair[0]:.4f} (> 1.05), |mean Cb[90:] - 1| {stair[1]:.4f} "
+          f"(< 0.05), |mean T[95:] - 130| {stair[2]:.4f} (< 0.5), inside "
+          f"the input bounds {bounds} | phase_s="
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    if not ok:
+        fail("explicit NMPC path above its gates")
+    return launches, wall, Y.shape[0]
+
+
+def phase_dtc_nmpc_throughput(dtc, enmpc):
+    """4, the DTC-GPC and explicit NMPC paths: DTC-GPC sims/s at bench.py's
+    shape (B = DTC_B, nit DTC_NIT; CUDA events, mean of 3 after a warm-up)
+    at float64 and float32, with the device time and idle share of a
+    20-step loop of the same batch (torch.profiler); the explicit NMPC
+    loop's seconds (phase 3h's run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    ctl, (r_b, q_b) = dtc
+    txt = []
+    for dtype in (torch.float64, torch.float32):
+        run = lambda n=DTC_NIT: ctl.simulate_scan_batch(
+            r_b, q_b, n, dtype=dtype, device="cuda")
+        ms = timed(run, 3)[0]
+        run(20)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(20)
+            torch.cuda.synchronize()
+        short_s = time.perf_counter() - t1
+        dev_us = sum(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                     for e in prof.key_averages())
+        busy = (f"a 20-step loop: device {dev_us / 1e3:.2f} ms of "
+                f"{short_s * 1e3:.1f} ms, idle share "
+                f"{1 - dev_us / 1e6 / short_s:.3f}" if dev_us > 0
+                else "device time not measured (the profiler showed none)")
+        txt.append(f"DTC-GPC {str(dtype).removeprefix('torch.')} B={DTC_B} "
+                   f"nit={DTC_NIT}: {ms:.1f} ms = "
+                   f"{DTC_B / (ms / 1e3):.1f} sims/s; {busy}")
+    _, wall, B = enmpc
+    txt.append(f"explicit NMPC (3h) nit={ENMPC_NIT} B={B}: {wall:.2f} s a "
+               f"loop, {wall / ENMPC_NIT * 1e3:.1f} ms a step")
+    print("[4 dtc / explicit nmpc throughput] " + " | ".join(txt)
+          + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
 
 
 def rollout_flops(B, ncol, p, substeps):
@@ -1881,22 +2397,42 @@ def phase_nmpc_throughput(vdv_problem):
     t0 = time.perf_counter()
     rec, txt = {}, []
     f32, f64 = torch.float32, torch.float64
-    M, rhs = spd_batch(1024, 17, f32, seed=0)
+    # spd_solve (warp per system) beside the one-thread design it replaced,
+    # at f32 B=1024 n=17 (the record's) and at 3e's f64 B=1024 n=31
+    for dtype, n in ((f32, 17), (f64, 31)):
+        M, rhs = spd_batch(1024, n, dtype, seed=0)
 
-    def library():
-        L, _ = torch.linalg.cholesky_ex(M)
-        return torch.cholesky_solve(rhs[:, :, None], L)
+        def library():
+            L, _ = torch.linalg.cholesky_ex(M)
+            return torch.cholesky_solve(rhs[:, :, None], L)
 
-    sol = dict(ms=timed(lambda: K.spd_solve(M, rhs), 20)[0],
-               plain_ms=timed(lambda: K.spd_solve_plain(M, rhs), 20)[0],
-               library_ms=timed(library, 20)[0])
-    sol["bound_ms"], sol["bound_by"] = bound_ms(
-        nbytes(M) + 2 * nbytes(rhs), 1024 * (17 ** 3 / 3 + 2 * 17 ** 2), f32)
-    rec["spd_solve"] = sol
-    txt.append(f"spd_solve B=1024 n=17 f32: kernel {sol['ms']:.4f} ms (plain "
-               f"{sol['plain_ms']:.4f}, cholesky_ex + cholesky_solve "
-               f"{sol['library_ms']:.4f}, bound {sol['bound_ms']:.5f} "
-               f"{sol['bound_by']})")
+        calls = dict(kernel=lambda: K.spd_solve(M, rhs),
+                     old=lambda: K.spd_solve_one_thread(M, rhs),
+                     plain=lambda: K.spd_solve_plain(M, rhs), library=library)
+        sol = {}
+        for name, fn in calls.items():
+            key = "" if name == "kernel" else name + "_"
+            sol[key + "ms"] = timed(fn, 20)[0]
+            if name in ("kernel", "old"):  # both designs' device time
+                sol[key + "device_ms"] = device_ms(fn)
+        # M's lower triangle (all the factor reads) and rhs read, x
+        # written; the factor's n^3 / 3 and the solves' 2 n^2 operations
+        # (as PERF.md's kernel table, row 3)
+        tri = n * (n + 1) // 2
+        sol["bound_ms"], sol["bound_by"] = bound_ms(
+            1024 * (tri + 2 * n) * M.element_size(),
+            1024 * (n ** 3 / 3 + 2 * n * n), dtype)
+        if "spd_solve" not in rec:
+            rec["spd_solve"] = {k: sol[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        tag = str(dtype).removeprefix("torch.")
+        txt.append(
+            f"spd_solve B=1024 n={n} {tag}: kernel {sol['ms']:.5f} ms "
+            f"(device {fmt_ms(sol['device_ms'])}), one-thread "
+            f"{sol['old_ms']:.5f} (device {fmt_ms(sol['old_device_ms'])}), "
+            f"plain {sol['plain_ms']:.5f}, cholesky_ex + cholesky_solve "
+            f"{sol['library_ms']:.5f}, bound {sol['bound_ms']:.5f} "
+            f"({sol['bound_by']})")
 
     spec = vdv_problem.loop.spec
     caps = (31, 15)
@@ -1952,6 +2488,7 @@ def phase_nmpc_throughput(vdv_problem):
 def main():
     t_start = time.perf_counter()
     card = phase_env()
+    pool = cpu_pool()  # started here, while the card's phases need no CPU
     from mpc_tuning_tpu_torch.cases import (shell3x3, shell7x5, vandevusse,
                                             woodberry)
     from mpc_tuning_tpu_torch.tuning.api import build_problem
@@ -1965,12 +2502,25 @@ def main():
     err64["closed_sim_band"] = phase_band_kernels(band_problem)
     err64.update(phase_step_kernels(s3_problem))
     err64.update(phase_nmpc_kernels(vdv_problem))
-    paths = [phase_main_path(), phase_band_main_path()]
-    launches, tune_shapes = phase_step_path()
-    paths += [launches, phase_nmpc_path(), phase_spd_solve_entry()]
+    (wb_launches, wb_res), (band_launches, band_res) = (
+        phase_main_path(), phase_band_main_path())
+    launches, tune_shapes, s3_res = phase_step_path(pool)
+    nmpc_launches, nmpc_held = phase_nmpc_path(pool)
+    paths = [wb_launches, band_launches, launches, nmpc_launches,
+             phase_spd_solve_entry()]
+    horizon_launches, horizon_held = phase_horizon_checks(
+        {"WoodBerry": wb_res, "Shell7x5": band_res, "Shell3x3": s3_res}, pool)
+    paths.append(horizon_launches)
+    dtc = phase_dtc_path()
+    enmpc = phase_explicit_nmpc(pool)
+    paths.append(enmpc[0])
+    finish_horizon_checks(horizon_held)
+    finish_nmpc_hold(nmpc_held)
+    close_pool(pool)
     rec = phase_throughput(problem, band_problem)
     rec.update(phase_step_throughput(problem, tune_shapes))
     rec.update(phase_nmpc_throughput(vdv_problem))
+    phase_dtc_nmpc_throughput(dtc, enmpc)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(launches[k] for launches in paths),

@@ -1,8 +1,8 @@
 """Shell heavy-oil fractionator 3x3 tracking case — configuration transcribed
 from MPC-Tuning/Shell3x3.m:30-163.
 
-The JAX package's ``run`` (tune, final simulation, open-vs-closed horizon
-check) waits for the port of ``cases/verify_horizons``.
+``run`` tunes, simulates the tuned controller and runs the open-vs-closed
+horizon check (the per-output selector protocol, ``cases/verify_horizons``).
 """
 
 from __future__ import annotations
@@ -11,7 +11,8 @@ import numpy as np
 
 from mpc_tuning_tpu_torch.cases._common import diag_pref, ref_trajectory
 from mpc_tuning_tpu_torch.models import plants
-from mpc_tuning_tpu_torch.tuning.api import LinearCase, TuningResult
+from mpc_tuning_tpu_torch.tuning.api import (LinearCase, TuningResult,
+                                           mpc_tuning)
 
 NIT = 500
 TS = 4.0
@@ -79,3 +80,20 @@ def final_simulation(case: LinearCase, res: TuningResult, nominal: bool = True,
     y = (np.linalg.inv(res.L) @ y_c.T).T
     u = u_c * res.Ru[None, :]
     return y, u
+
+
+def run(tuning: bool = True, rest: bool = True, caso: int = 1,
+        nominal: bool = True, nit: int = NIT, **tuner_kwargs):
+    """The case end to end: tune -> final simulation -> open-vs-closed
+    horizon check (Shell3x3.m:195-241), all on the tuner's device
+    (``tuner_kwargs['device']``, the card by default). Returns (case, res,
+    (y, u), check)."""
+    from mpc_tuning_tpu_torch.cases.verify_horizons import verify_horizons
+
+    case = make_case(rest=rest, caso=caso, nit=nit)
+    res = mpc_tuning(case, **tuner_kwargs)
+    y, u = final_simulation(case, res, nominal=nominal)
+    check = verify_horizons(res.problem.loop, res.L, res.N,
+                            int(np.max(res.Nu)), res.delta, res.lam,
+                            device=res.problem.device)
+    return case, res, (y, u), check

@@ -3,8 +3,8 @@ MPC-Tuning/Shell7x5.m:28-204.
 
 7 outputs, 3 MVs, 2 MDs; all OV weights zero => pure band control through
 soft output constraints with per-output ECR softening and ScaleFactors.
-The JAX package's ``run`` (tune, final simulation, open-vs-closed horizon
-check) waits for the port of ``cases/verify_horizons``.
+``run`` tunes, simulates the tuned controller and runs the open-vs-closed
+horizon check (the non-square pulse protocol, ``cases/verify_horizons``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ import numpy as np
 
 from mpc_tuning_tpu_torch.cases._common import ref_trajectory
 from mpc_tuning_tpu_torch.models import lti, plants
-from mpc_tuning_tpu_torch.tuning.api import LinearCase, TuningResult
+from mpc_tuning_tpu_torch.tuning.api import (LinearCase, TuningResult,
+                                           mpc_tuning)
 
 NIT = 200
 TS = 4.0
@@ -116,3 +117,24 @@ def final_simulation(case: LinearCase, res: TuningResult, nominal: bool = True,
     y = (np.linalg.inv(res.L) @ y_c.T).T
     u = u_c * res.Ru[None, :]
     return y, u
+
+
+def run(nominal: bool = True, nit: int = NIT, **tuner_kwargs):
+    """The case end to end: tune -> final simulation -> open-vs-closed
+    horizon check (non-square pulse protocol, Shell7x5.m:242-291), all on
+    the tuner's device (``tuner_kwargs['device']``, the card by default);
+    the check's legs run the split band engine ('band_sim',
+    ``cases/verify_horizons``). Returns (case, res, (y, u), check)."""
+    from mpc_tuning_tpu_torch.cases.verify_horizons import verify_horizons
+
+    # the band-control QP (tight +-0.005 bands, ~600 soft rows) needs more
+    # interior-point iterations than the tracking cases
+    tuner_kwargs.setdefault("qp_iters", 60)
+    case = make_case(nit=nit)
+    res = mpc_tuning(case, **tuner_kwargs)
+    y, u = final_simulation(case, res, nominal=nominal)
+    check = verify_horizons(res.problem.loop, res.L, res.N,
+                            int(np.max(res.Nu)), res.delta, res.lam,
+                            v_const=res.problem.v[-1],
+                            device=res.problem.device)
+    return case, res, (y, u), check

@@ -12,7 +12,8 @@ import numpy as np
 
 from mpc_tuning_tpu_torch.cases._common import diag_pref, ref_trajectory
 from mpc_tuning_tpu_torch.models import plants
-from mpc_tuning_tpu_torch.tuning.api import LinearCase, TuningResult
+from mpc_tuning_tpu_torch.tuning.api import (LinearCase, TuningResult,
+                                           mpc_tuning)
 
 NIT = 400
 TS = 1.0
@@ -76,3 +77,21 @@ def final_simulation(case: LinearCase, res: TuningResult, nominal: bool = True,
     y = (Linv @ y_c.T).T
     u = u_c * res.Ru[None, :]
     return y, u
+
+
+def run(tuning: bool = True, rest: bool = True, caso: int = 1,
+        nominal: bool = True, nit: int = NIT, **tuner_kwargs):
+    """The case end to end: tune -> final simulation -> open-vs-closed
+    horizon check, the reference's built-in sanity protocol
+    (WoodBerry.m:186-251), all on the tuner's device
+    (``tuner_kwargs['device']``, the card by default). Returns (case, res,
+    (y, u), check)."""
+    from mpc_tuning_tpu_torch.cases.verify_horizons import verify_horizons
+
+    case = make_case(rest=rest, caso=caso, nit=nit)
+    res = mpc_tuning(case, **tuner_kwargs)
+    y, u = final_simulation(case, res, nominal=nominal)
+    check = verify_horizons(res.problem.loop, res.L, res.N,
+                            int(np.max(res.Nu)), res.delta, res.lam,
+                            device=res.problem.device)
+    return case, res, (y, u), check

@@ -48,7 +48,7 @@ def _bind(lib):
     lib.mpc_spd_factor.restype = i
     lib.mpc_spd_factor_solve.argtypes = [i, i, vp, vp, vp, i, i, vp]
     lib.mpc_spd_factor_solve.restype = i
-    lib.mpc_spd_solve.argtypes = [i, vp, vp, vp, vp, i, i, vp]
+    lib.mpc_spd_solve.argtypes = [i, vp, vp, vp, i, i, vp]
     lib.mpc_spd_solve.restype = i
     lib.mpc_nmpc_rollout.argtypes = [i, ctypes.POINTER(vp), d,
                                      ctypes.c_double, vp]
@@ -170,6 +170,8 @@ def reference_library():
                    _ref.mpc_solve_lanes_one_thread):
             fn.argtypes = [i, vp, vp, vp, i, i, vp]
             fn.restype = i
+        _ref.mpc_spd_solve_one_thread.argtypes = [i, vp, vp, vp, vp, i, i, vp]
+        _ref.mpc_spd_solve_one_thread.restype = i
     return _ref
 
 

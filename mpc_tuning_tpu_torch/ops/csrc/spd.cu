@@ -5,9 +5,7 @@
 //    (_factor_batched_impl / _solve_batched_impl), reached from the open
 //    leg's masked PDIP (ops/qp.solve_qp_masked) and the NMPC dense PDIP
 //    (ops/qp.solve_qp), and spd_solve (_spd_solve_batched_impl): factor
-//    and both substitutions in one launch, the factor kept in lane-major
-//    device scratch (work[(i n + j) B + b]) so a warp's scratch accesses
-//    coalesce;
+//    and both substitutions in one launch;
 //  * lane-major (n, n, B) / (n, B), element (i, j, b) at (i n + j) B + b:
 //    factor_lanes and solve_lanes, reached from the per-step engine
 //    'pdip_ws_lanes' (ops/qp.pdip_lanes).  Neighbouring threads read
@@ -51,7 +49,14 @@
 // design on the lane-major layout: its tiles are loaded as factor_lanes
 // loads them, and a system's x is the bits spd_factor_solve gives on it
 // (its one-thread design is kept as reference/solve_lanes_one_thread.cu).
-// spd_solve stays one thread per system.
+// spd_solve (the TPU's _cholsolve_kernel, launched by
+// _spd_solve_batched_impl at pallas_kernels.py:120) is the two in one
+// launch: one warp per system, W a block, the matrix loaded into its tile
+// as spd_factor loads it, factored in place by warp_factor, then solved on
+// the same tile by warp_chol_solve, with no device-memory scratch; its x is
+// the bits spd_factor_solve gives on spd_factor's L (its one-thread design,
+// which kept the factor in lane-major device scratch, is kept as
+// reference/spd_solve_one_thread.cu).
 
 #include "warp_factor.cuh"
 
@@ -59,9 +64,10 @@ namespace mpc {
 
 // ------------------------------------------------ factors and the solve
 //
-// Envelope of the two factors and of the two solves, which read a
-// factor in the same tiles (ops/kernels.factor_envelope and
-// factor_solve_envelope hold the same arithmetic): W =
+// Envelope of the two factors, of the two solves, which read a factor in
+// the same tiles, and of spd_solve, which factors and solves in them
+// (ops/kernels.factor_envelope and factor_solve_envelope hold the same
+// arithmetic): W =
 // FactorShape<T>::kW matrices per block (8 at float, 4 at double, so that
 // the W values of one element in the lane-major layout fill a 32-byte
 // sector), each a tile of n rows at a row stride ld = n | 1 (odd, so the 32
@@ -108,6 +114,18 @@ __device__ void load_rows(const T* __restrict__ g, T* __restrict__ tiles,
                           int count, int n, int ld) {
   for (int e = threadIdx.x; e < count; e += blockDim.x)
     cp_async(tiles + e + (e / n) * (ld - n), g + e);
+  cp_async_wait();
+}
+
+// The lower triangles only, laid out as load_rows lays them out: what
+// warp_chol_solve reads.
+template <typename T>
+__device__ void load_lower(const T* __restrict__ g, T* __restrict__ tiles,
+                           int count, int n, int ld) {
+  for (int e = threadIdx.x; e < count; e += blockDim.x) {
+    const int row = e / n;  // the block's row: system row / n, row % n
+    if (e - row * n <= row % n) cp_async(tiles + e + row * (ld - n), g + e);
+  }
   cp_async_wait();
 }
 
@@ -171,12 +189,7 @@ __global__ void __launch_bounds__(32 * FactorShape<T>::kW)
   const int ld = factor_ld(n), nn = n * n;
   const int b0 = blockIdx.x * W;
   const int nb = min(W, B - b0);
-  const T* g = L + (size_t)b0 * nn;
-  for (int e = threadIdx.x; e < nb * nn; e += blockDim.x) {
-    const int row = e / n;  // the block's row: system row / n, row % n
-    if (e - row * n <= row % n) cp_async(tiles + e + row * (ld - n), g + e);
-  }
-  cp_async_wait();
+  load_lower(L + (size_t)b0 * nn, tiles, nb * nn, n, ld);
   __syncthreads();
   const int w = threadIdx.x >> 5, ln = threadIdx.x & 31;
   if (w >= nb) return;
@@ -195,46 +208,44 @@ __global__ void __launch_bounds__(32 * FactorShape<T>::kW)
   }
 }
 
-// Factor and solve in one launch.  A pivot that is not > 0 (the factor
-// fails, as cholesky_ex reports it) makes the whole solution NaN, as the
-// plain version's NaN factor does.
-template <typename T>
-__global__ void spd_solve_kernel(const T* __restrict__ M,
-                                 const T* __restrict__ rhs,
-                                 T* __restrict__ x, T* __restrict__ work,
-                                 int B, int n) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const T* A = M + (size_t)b * n * n;
-  const Lane<T> L = lane_at(work, 0, B, b);
-  bool ok = true;
-  for (int j = 0; j < n; ++j) {
-    T d = A[j * n + j];
-    for (int k = 0; k < j; ++k) d -= L[j * n + k] * L[j * n + k];
-    ok = ok && d > T(0);
-    const T ljj = sqrt(d);
-    L[j * n + j] = ljj;
-    for (int i = j + 1; i < n; ++i) {
-      T v = A[i * n + j];
-      for (int k = 0; k < j; ++k) v -= L[i * n + k] * L[j * n + k];
-      L[i * n + j] = v / ljj;
-    }
+// Factor and solve in one launch, the factors' envelope (factor_fits):
+// block x takes systems x W ... x W + W - 1, their matrices loaded whole
+// as spd_factor_kernel loads them (the factor reads the lower triangle
+// only, but loading it alone, as spd_factor_solve_kernel loads L, took
+// 9-12 % more device time on an H100 at B = 1024, n = 17 and 31:
+// scripts/spd_solve_loads.py), each factored in place by its warp and
+// solved on the same tile, the right-hand side in registers.  A pivot that
+// is not > 0 leaves the tile NaN (warp_factor), so that system's x is all
+// NaN, as the plain version's.
+template <typename T, int R>
+__global__ void __launch_bounds__(32 * FactorShape<T>::kW)
+    spd_solve_kernel(const T* __restrict__ M, const T* __restrict__ rhs,
+                     T* __restrict__ x, int B, int n) {
+  constexpr int W = FactorShape<T>::kW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tiles = reinterpret_cast<T*>(smem);
+  const int ld = factor_ld(n), nn = n * n;
+  const int b0 = blockIdx.x * W;
+  const int nb = min(W, B - b0);
+  load_rows(M + (size_t)b0 * nn, tiles, nb * nn, n, ld);
+  __syncthreads();
+  const int w = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  if (w >= nb) return;
+  T* tile = tiles + w * n * ld;
+  warp_factor<T, R>(tile, n, ld, ln);
+  __syncwarp();
+  const size_t off = (size_t)(b0 + w) * n;
+  T v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = ln + 32 * r;
+    v[r] = i < n ? rhs[off + i] : T(0);
   }
-  const T* r = rhs + (size_t)b * n;
-  T* xb = x + (size_t)b * n;
-  if (!ok) {
-    for (int i = 0; i < n; ++i) xb[i] = T(0) / T(0);
-    return;
-  }
-  for (int i = 0; i < n; ++i) {
-    T v = r[i];
-    for (int k = 0; k < i; ++k) v -= L[i * n + k] * xb[k];
-    xb[i] = v / L[i * n + i];
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    T v = xb[i];
-    for (int k = i + 1; k < n; ++k) v -= L[k * n + i] * xb[k];
-    xb[i] = v / L[i * n + i];
+  warp_chol_solve<T, R>(tile, ld, n, v, ln);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = ln + 32 * r;
+    if (i < n) x[off + i] = v[r];
   }
 }
 
@@ -313,18 +324,17 @@ __global__ void __launch_bounds__(32 * FactorShape<T>::kW)
   }
 }
 
-constexpr int kSpdThreads = 128;
-
 namespace {
 // The dynamic shared memory each tile kernel (spd_factor, factor_lanes,
-// spd_factor_solve; dtype; rows a lane) is allowed on each device so far:
+// spd_factor_solve, solve_lanes, spd_solve; dtype; rows a lane) is
+// allowed on each device so far:
 // above 48 KB a block's has to be allowed, once a kernel and device, for
 // the most any launch has needed.  Internal linkage, so two libraries
 // loaded in one process keep their own (a template's static would be one
 // symbol in the whole process).
 constexpr int kMaxDevices = 64;
 enum { kTileFactor, kTileFactorLanes, kTileSolve, kTileSolveLanes,
-       kTileKernels };
+       kTileSpdSolve, kTileKernels };
 int g_tile_smem[kTileKernels][2][kFactorMaxRows][kMaxDevices];
 }  // namespace
 
@@ -398,14 +408,28 @@ int launch_solve(bool lanes, const void* L, const void* rhs, void* x, int B,
                  : launch_solve_rows<T, 2>(lanes, l, r, xo, B, n, st);
 }
 
-template <typename T>
-int launch_spd_solve(const void* M, const void* rhs, void* x, void* work,
-                     int B, int n, cudaStream_t st) {
-  const int blocks = (B + kSpdThreads - 1) / kSpdThreads;
-  spd_solve_kernel<T><<<blocks, kSpdThreads, 0, st>>>(
-      static_cast<const T*>(M), static_cast<const T*>(rhs),
-      static_cast<T*>(x), static_cast<T*>(work), B, n);
+template <typename T, int R>
+int launch_spd_solve_rows(const T* M, const T* rhs, T* x, int B, int n,
+                          cudaStream_t st) {
+  constexpr int W = FactorShape<T>::kW;
+  const int smem = (int)factor_smem_bytes<T>(n);
+  const int e = allow_tile_smem<T, R>(spd_solve_kernel<T, R>, kTileSpdSolve,
+                                      smem);
+  if (e) return e;
+  spd_solve_kernel<T, R><<<(B + W - 1) / W, 32 * W, smem, st>>>(M, rhs, x, B,
+                                                                n);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_spd_solve(const void* M, const void* rhs, void* x, int B, int n,
+                     cudaStream_t st) {
+  if (!factor_fits<T>(n)) return (int)cudaErrorInvalidValue;
+  const T* m = static_cast<const T*>(M);
+  const T* r = static_cast<const T*>(rhs);
+  T* xo = static_cast<T*>(x);
+  return n <= 32 ? launch_spd_solve_rows<T, 1>(m, r, xo, B, n, st)
+                 : launch_spd_solve_rows<T, 2>(m, r, xo, B, n, st);
 }
 
 }  // namespace mpc
@@ -428,12 +452,12 @@ int mpc_spd_factor_solve(int is_f64, int lanes, const void* L,
                 : mpc::launch_solve<float>(lanes != 0, L, rhs, x, B, n, st);
 }
 
-// work: n * n * B scratch of the factor, lane-major.
-int mpc_spd_solve(int is_f64, const void* M, const void* rhs, void* x,
-                  void* work, int B, int n, void* stream) {
+// Factor and solve in one launch, inside the factors' envelope.
+int mpc_spd_solve(int is_f64, const void* M, const void* rhs, void* x, int B,
+                  int n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_f64 ? mpc::launch_spd_solve<double>(M, rhs, x, work, B, n, st)
-                : mpc::launch_spd_solve<float>(M, rhs, x, work, B, n, st);
+  return is_f64 ? mpc::launch_spd_solve<double>(M, rhs, x, B, n, st)
+                : mpc::launch_spd_solve<float>(M, rhs, x, B, n, st);
 }
 
 const char* mpc_error_string(int code) {

@@ -33,7 +33,8 @@ from mpc_tuning_tpu_torch.models.ode import nmpc_envelope, nmpc_rollout_plain
 from mpc_tuning_tpu_torch.ops import _build
 
 __all__ = ["spd_factor", "spd_factor_solve", "spd_solve", "factor_lanes",
-           "factor_envelope", "factor_solve_envelope", "pdip_fused_envelope",
+           "factor_envelope", "factor_solve_envelope", "spd_solve_envelope",
+           "pdip_fused_envelope",
            "admm_fused_envelope",
            "solve_lanes", "pdip_fused", "admm_fused", "closed_sim_admm",
            "closed_sim_pdip", "closed_sim_band", "nmpc_rollout",
@@ -229,9 +230,11 @@ def spd_factor_solve_one_thread(L, rhs):
 # ------------------------------------------------------------- spd_solve
 #
 # Replaces _spd_solve_batched_impl / _cholsolve_kernel (spd_solve): the
-# factor and both substitutions in one launch, one thread per system, the
-# factor in lane-major device scratch (ops/csrc/spd.cu).  A public entry
-# point with no caller on a tune path, as in the JAX package.
+# factor and both substitutions in one launch, one warp per system on the
+# matrix in a shared-memory tile (spd_factor's tile, then
+# spd_factor_solve's substitutions on it; no device-memory scratch), the
+# factors' envelope (ops/csrc/spd.cu).  A public entry point with no
+# caller on a tune path, as in the JAX package.
 
 
 def spd_solve_plain(M, rhs):
@@ -241,25 +244,55 @@ def spd_solve_plain(M, rhs):
     return spd_factor_solve_plain(spd_factor_plain(M), rhs)
 
 
-def spd_solve(M, rhs):
-    """(B, n, n) SPD, (B, n) rhs -> x (B, n) with M x = rhs; a system whose
-    factor fails (a pivot not > 0) is all NaN."""
-    if _on_cpu(M, rhs):
-        return spd_solve_plain(M, rhs)
+def spd_solve_envelope(n, dtype):
+    """(systems per block, shared-memory bytes per block) of ``spd_solve``:
+    it factors and solves in the factors' tiles (``factor_envelope``);
+    raises ValueError, naming spd_solve, outside (both dtypes take n <=
+    64)."""
+    return factor_envelope(n, dtype, "spd_solve")
+
+
+def _spd_solve_args(M, rhs):
     dtype = _float_dtype(M)
     B, n = M.shape[0], M.shape[-1]
     _require(M, (B, n, n), dtype, "M")
     _require(rhs, (B, n), dtype, "rhs")
+    return dtype, B, n
+
+
+def spd_solve(M, rhs):
+    """(B, n, n) SPD, (B, n) rhs -> x (B, n) with M x = rhs, from M's lower
+    triangle; a system whose factor fails (a pivot not > 0) is all NaN.
+    x is the bits of ``spd_factor_solve(spd_factor(M), rhs)``.  Raises
+    above ``spd_solve_envelope``."""
+    if _on_cpu(M, rhs):
+        return spd_solve_plain(M, rhs)
+    dtype, B, n = _spd_solve_args(M, rhs)
+    spd_solve_envelope(n, dtype)
     x = torch.empty_like(rhs)
-    work = torch.empty((n * n * B,), dtype=dtype, device=M.device)
     _build.check(_build.library().mpc_spd_solve(
         int(dtype == torch.float64), M.data_ptr(), rhs.data_ptr(),
-        x.data_ptr(), work.data_ptr(), B, n, _stream(M)), "spd_solve")
+        x.data_ptr(), B, n, _stream(M)), "spd_solve")
     spd_solve.launches += 1
     return x
 
 
 spd_solve.launches = 0
+
+
+def spd_solve_one_thread(M, rhs):
+    """``spd_solve`` by the one-thread-per-system design it replaced
+    (ops/csrc/reference/spd_solve_one_thread.cu, the factor in lane-major
+    device scratch; built on demand into its own library), its reference:
+    CUDA tensors only, not counted, on no path of the port."""
+    dtype, B, n = _spd_solve_args(M, rhs)
+    x = torch.empty_like(rhs)
+    work = torch.empty((n * n * B,), dtype=dtype, device=M.device)
+    _build.check(_build.reference_library().mpc_spd_solve_one_thread(
+        int(dtype == torch.float64), M.data_ptr(), rhs.data_ptr(),
+        x.data_ptr(), work.data_ptr(), B, n, _stream(M)),
+        "spd_solve_one_thread")
+    return x
 
 
 # -------------------------------------------------- factor_lanes / solve_lanes

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from mpc_tuning_tpu_torch.cases import shell3x3, shell7x5, vandevusse, woodberry
+from mpc_tuning_tpu_torch.models import plants
 from mpc_tuning_tpu_torch.models.ode import nmpc_rollout_plain
 from mpc_tuning_tpu_torch.ops import kernels as K
 from mpc_tuning_tpu_torch.sim import mpc_loop
@@ -929,6 +930,111 @@ def test_spd_solve_matches_plain(cuda, n):
     assert torch.isnan(x[7]).all() and torch.isnan(xp[7]).all()
     ok = torch.arange(300, device=cuda) != 7
     torch.testing.assert_close(x[ok], xp[ok], rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("B", FACTOR_B)
+@pytest.mark.parametrize("n", FACTOR_N + [32, 33])
+def test_spd_solve_is_factor_then_solve_bit_for_bit(cuda, n, B, dtype):
+    """One launch, one warp per system: x is the bits of spd_factor then
+    spd_factor_solve on the same systems, a failed factor's x all NaN in
+    both; beside it the one-thread design it replaced, within the SPD
+    gate."""
+    M, rhs = _spd_batch(cuda, B, n, dtype)
+    M[B // 2, n - 1, n - 1] = -1.0
+    before = K.spd_solve.launches
+    x = K.spd_solve(M, rhs)
+    assert K.spd_solve.launches == before + 1
+    xs = K.spd_factor_solve(K.spd_factor(M), rhs)
+    assert torch.isnan(x[B // 2]).all()
+    assert torch.equal(x.view(torch.int8), xs.view(torch.int8))
+    xo = K.spd_solve_one_thread(M, rhs)
+    ok = torch.arange(B, device=cuda) != B // 2
+    assert torch.isnan(xo[B // 2]).all()
+    if B > 1:
+        assert float((x[ok] - xo[ok]).abs().max()) <= _solve_tol(dtype,
+                                                                xo[ok])
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("n", [5, 33, 64])
+def test_spd_solve_reads_the_lower_triangle_only(cuda, n, dtype):
+    """x depends on M's lower triangle only (the factor reads no other
+    part): NaN above the diagonal leaves x's bits as they are."""
+    M, rhs = _spd_batch(cuda, 37, n, dtype)
+    junk = M + torch.triu(torch.full((n, n), float("nan"), device=cuda,
+                                     dtype=dtype), 1)
+    x = K.spd_solve(M, rhs)
+    assert torch.equal(x.view(torch.int8), K.spd_solve(junk, rhs).view(
+        torch.int8))
+
+
+def test_spd_solve_refuses_above_the_envelope(cuda):
+    """The C launcher takes n = 64 and refuses n = 65 with an error and no
+    launch; the wrapper raises at 65 without launching."""
+    from mpc_tuning_tpu_torch.ops import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype in (torch.float32, F64):
+        M, rhs = _spd_batch(cuda, 3, 64, dtype)
+        x = torch.full_like(rhs, 7.0)
+        assert lib.mpc_spd_solve(int(dtype == F64), M.data_ptr(),
+                                 rhs.data_ptr(), x.data_ptr(), 3, 64,
+                                 stream) == 0
+        assert float((x - K.spd_solve_plain(M, rhs)).abs().max()) <= \
+            _solve_tol(dtype, x)
+        M = torch.eye(65, device=cuda, dtype=dtype).expand(3, 65, 65)
+        M = M.contiguous()
+        rhs = torch.ones((3, 65), device=cuda, dtype=dtype)
+        x = torch.full_like(rhs, 7.0)
+        assert lib.mpc_spd_solve(int(dtype == F64), M.data_ptr(),
+                                 rhs.data_ptr(), x.data_ptr(), 3, 65,
+                                 stream) != 0
+        torch.cuda.synchronize()
+        assert bool((x == 7.0).all())
+        before = K.launch_counts()
+        with pytest.raises(ValueError, match="spd_solve: n = 65"):
+            K.spd_solve(M, rhs)
+        assert K.launch_counts() == before
+
+
+# ------------------------------------------------------------ DTC-GPC
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+def test_dtc_lanes_do_not_depend_on_the_batch(cuda, dtype):
+    """The Wood-Berry DTC-GPC loop on the card (nit 120): one scenario in
+    every lane of batches of 1, 8 and 37 reads the same bits in every
+    lane, and lane 0 follows the replay oracle (1e-8 at float64)."""
+    from mpc_tuning_tpu_torch.ops import condmin as cm
+    from mpc_tuning_tpu_torch.sim.gpc_loop import DTCGPC
+
+    plant = plants.wood_berry()
+    L, R, _ = cm.condmin(plant.G.dcgain())
+    ctl = DTCGPC.build(plant=plant.G, model=plant.G, Ts=1.0,
+                       p=np.array([3, 3]), m=np.array([3, 3]),
+                       delta=np.ones(2), lam=np.ones(2), L=L, R=R, n_md=1,
+                       disturbance=plant.D)
+    nit = 120
+    r = np.zeros((nit, 2))
+    r[10:, 0], r[60:, 1] = 0.8, 0.5
+    q = np.zeros((nit, 1))
+    q[100:, 0] = -0.25
+    out = {B: ctl.simulate_scan_batch(np.broadcast_to(r, (B, nit, 2)),
+                                      np.broadcast_to(q, (B, nit, 1)), nit,
+                                      dtype=dtype, device=cuda)
+           for B in (1, 8, 37)}
+    for B, (Y, U) in out.items():
+        assert Y.device.type == "cuda"
+        for x, x1 in ((Y, out[1][0]), (U, out[1][1])):
+            assert torch.equal(x, x1.expand_as(x)), B
+    if dtype == F64:
+        y_ref, u_ref = ctl.simulate_ref(r, q, nit)
+        np.testing.assert_allclose(out[1][0][0].cpu().numpy(), y_ref,
+                                   atol=1e-8)
+        np.testing.assert_allclose(out[1][1][0].cpu().numpy(), u_ref,
+                                   atol=1e-8)
 
 
 def _vdv_rollout_args(caps, B=64, seed=0):
