@@ -80,10 +80,18 @@ Phases, each printing one line (with its wall time):
     400) at float64 and float32: lanes bit-identical, the replay oracle,
     float32 against float64, the tracking checks;
  3h. the explicit NMPC Van de Vusse demo (nit 100, three lanes) against
-    the same loop on the CPU and the staircase checks.
-    The CPU runs that hold 3d, 3f and 3h run in spawned worker processes
+    the same loop on the CPU and the staircase checks;
+ 3i. the front end: the batch-major scan engines 'pdip', 'pdip_ws',
+    'pdip_dense' and 'admm' on Wood-Berry (B = 8, nit 60, f64) step by
+    step against the plain loop on the CPU following their U; the
+    cross-evaluation (cases/cross_eval.cross_eval_all) at the cases' full
+    sizes with the claims of tests/test_cross_eval.py, its Shell3x3 rows
+    against the CPU's; the fixed-tuning demos (cases/demos) against the
+    CPU with their sims/s (utils/profiling.rate_of); the CLI (cli.run_main)
+    on a small Wood-Berry tune with its report, then --resume.
+    The CPU runs that hold 3d, 3f, 3h and 3i run in spawned worker processes
     (cpu_pool, started after phase 1) beside the card's phases; their
-    lines print once collected, after 3h;
+    lines print once collected, after 3i;
  4. throughput of each kernel, its plain version and, where one PyTorch
     call computes the same function, that call (recorded, not gated), one
     evaluation through each per-step engine beside the whole-sim kernel
@@ -222,7 +230,7 @@ NMPC_HOLD_WINDOWS = ((1, 12), (38, 47))
 
 
 POOLS = []  # worker pools still open, terminated by fail
-CPU_WORKERS = 4  # the CPU runs of 3c (three), 3d (two), 3f and 3h
+CPU_WORKERS = 4  # the CPU runs of 3c (three), 3d (two), 3f, 3h, 3i (five)
 
 
 def fail(msg: str):
@@ -238,8 +246,8 @@ def _worker_init():
 
 def cpu_pool(workers=CPU_WORKERS):
     """Spawned worker processes for the plain CPU runs that hold the card's
-    (phases 3c, 3d, 3f, 3h), so they run while the card goes on; ``fail``
-    terminates them."""
+    (phases 3c, 3d, 3f, 3h, 3i), so they run while the card goes on;
+    ``fail`` terminates them."""
     import multiprocessing
 
     pool = multiprocessing.get_context("spawn").Pool(workers, _worker_init)
@@ -2340,6 +2348,343 @@ def phase_explicit_nmpc(pool):
     return launches, wall, Y.shape[0]
 
 
+# phase 3i: the front end — the batch-major scan engines, the
+# cross-evaluation, the fixed-tuning demos and the CLI, on the card
+FRONT_B, FRONT_NIT = 8, 60
+FRONT_ITERS = {"pdip": 15, "pdip_ws": 15, "pdip_dense": 15, "admm": 40}
+CROSS_EVAL_JSON = "chiprun_out/parity_cross_eval_torch.json"
+CROSS_EVAL_HELD = ("Shell3x3", "Shell3x3_caso2")  # held against the CPU
+CROSS_EVAL_REL = 1e-8  # F_vns and gamma, card vs CPU, relative
+CLI_ARGS = ["woodberry", "--nit", "40", "--nbp", "4", "--nbc", "2",
+            "--budget", "small"]
+
+
+def front_engine_args(problem, seed=12):
+    """closed_batch's arguments of FRONT_B seeded Wood-Berry candidates
+    over FRONT_NIT steps (the case's setpoint steps at 10 and 60 cut to
+    the first)."""
+    rng = np.random.default_rng(seed)
+    B, nit = FRONT_B, FRONT_NIT
+    N = rng.integers(5, 40, size=B)
+    Nu = rng.integers(1, 8, size=B)
+    return (np.broadcast_to(problem.r[:nit], (B, nit, 2)), problem.v, N, Nu,
+            rng.uniform(0.2, 2.0, (B, 2)), rng.uniform(0.01, 0.5, (B, 2)))
+
+
+def front_engines_cpu(runs):
+    """3i's CPU side of the scan engines (in a worker): for each (engine,
+    the card's U (B, nit, nu)) the plain step loop on the CPU following the
+    card's U (Y, U), and the engine's own free run on the CPU (Y, U);
+    returns [(followed, free, seconds)]."""
+    from mpc_tuning_tpu_torch.cases import woodberry
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.sim.mpc_loop import batch_major_step
+    from mpc_tuning_tpu_torch.tuning.api import build_problem
+
+    problem, _ = build_problem(woodberry.make_case(), device="cpu")
+    args = front_engine_args(problem)
+    out = []
+    with torch.inference_mode():
+        for engine, U_k in runs:
+            t0 = time.perf_counter()
+            iters = FRONT_ITERS[engine]
+            t, lc, Hm, r_l, dims = problem.loop.sim_inputs(
+                *args, FRONT_NIT, torch.float64, engine, "cpu")
+            solve, warm = batch_major_step(engine, t, lc, dims, iters)
+            Yf, Uf = K.step_loop(t, lc, r_l, dims, solve, warm,
+                                 u_follow=U_k.permute(1, 2, 0))
+            free = problem.loop.closed_batch(*args, FRONT_NIT, torch.float64,
+                                             iters, engine=engine,
+                                             device="cpu")
+            out.append(((Yf.permute(2, 0, 1), Uf.permute(2, 0, 1)), free,
+                        time.perf_counter() - t0))
+    return out
+
+
+def cross_eval_cpu(name):
+    """3i's CPU run of one cross-evaluation row (in a worker)."""
+    from mpc_tuning_tpu_torch.cases.cross_eval import cross_eval_case
+
+    t0 = time.perf_counter()
+    row = cross_eval_case(name, device="cpu")
+    return row, time.perf_counter() - t0
+
+
+def demo_cpu(name):
+    """3i's CPU run of one fixed-tuning demo (in a worker): ((y, u),
+    seconds)."""
+    from mpc_tuning_tpu_torch.cases import demos
+
+    t0 = time.perf_counter()
+    out = getattr(demos, name)(device="cpu")[2]
+    return out, time.perf_counter() - t0
+
+
+def cross_eval_claims(row) -> tuple[list, list]:
+    """The claims of tests/test_cross_eval.py on one row: (the failed
+    ones, [(claim, margin)]): F_vns repo <= ref, gamma repo <= ref, and
+    for the linear cases the per-output horizon envelope (every output
+    within max(1.3 x the reference's same output, 1.1 x its worst) and the
+    total within 1.3 x the reference's)."""
+    if "repo" not in row:
+        return [f"{row['case']}: no repo artifact"], []
+    margins = [("F_vns", row["ref"]["F_vns"] - row["repo"]["F_vns"]),
+               ("gamma", row["ref"]["gamma"] - row["repo"]["gamma"])]
+    if "horizon_check" in row:
+        repo = np.asarray(row["horizon_check"]["mismatch"], dtype=float)
+        ref = np.asarray(row["horizon_check_ref"]["mismatch"], dtype=float)
+        envelope = np.maximum(1.3 * ref, 1.1 * ref.max())
+        margins += [("envelope", float(np.min(envelope - repo))),
+                    ("total", float(1.3 * ref.sum() - repo.sum()))]
+    elif row["case"] != "VanDeVusse_NMPC":
+        return [f"{row['case']}: no horizon check"], margins
+    bad = [f"{row['case']}: {k} margin {m:.6g}" for k, m in margins
+           if not (np.isfinite(m) and m >= 0)]
+    return bad, margins
+
+
+def cross_eval_diffs(card, cpu) -> tuple[dict, dict]:
+    """Card vs CPU on one row: (F_vns and gamma of both points relative,
+    both horizon checks' mismatch (as the rows round it) absolute; each
+    claim's card-vs-CPU difference: the absolute differences of the
+    quantities its margin is made of)."""
+    rel = lambda a, b: abs(a - b) / abs(b)
+    d = {f"{p}.{k}": rel(card[p][k], cpu[p][k])
+         for p in ("ref", "repo") for k in ("F_vns", "gamma")}
+    for k in ("horizon_check", "horizon_check_ref"):
+        d[k] = float(np.abs(np.subtract(card[k]["mismatch"],
+                                        cpu[k]["mismatch"])).max())
+    ab = lambda k: sum(abs(card[p][k] - cpu[p][k]) for p in ("ref", "repo"))
+    dm = max(d["horizon_check"], d["horizon_check_ref"])
+    ny = len(card["horizon_check"]["mismatch"])
+    return d, {"F_vns": ab("F_vns"), "gamma": ab("gamma"),
+               "envelope": 2.3 * dm, "total": 2.3 * ny * dm}
+
+
+def demo_on_card(name):
+    """One fixed-tuning demo on the card, timed by the port's rate_of (one
+    run, no warm-up: the demo builds its own problem, so a run is its own
+    set-up too): ((y, u), sims/s, seconds)."""
+    from mpc_tuning_tpu_torch.cases import demos
+    from mpc_tuning_tpu_torch.utils.profiling import rate_of
+
+    outs = []
+
+    def run():
+        outs.append(getattr(demos, name)(device="cuda")[2])
+        return outs[-1]
+
+    rate, dt = rate_of(run, reps=1, warmup=False)
+    return outs[-1], rate, dt
+
+
+CLI_REPORT = "chiprun_out/cli_report_torch.npz"
+
+
+def cli_on_card():
+    """The CLI's Wood-Berry tune on the card (CLI_ARGS, float32) with its
+    report, then --resume from its state: (first payload, resumed payload,
+    the report's figure count, how it was counted, seconds of each run).
+    The report goes to CLI_REPORT, the figures' inputs unrendered (a chip
+    host need not have matplotlib); where matplotlib imports, they are
+    also rendered to HTML and its embedded figures counted."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import tempfile
+
+    from mpc_tuning_tpu_torch.cli import run_main
+    from mpc_tuning_tpu_torch.report import figure_count, render_saved
+
+    os.makedirs(os.path.dirname(CLI_REPORT), exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = CLI_ARGS + ["--checkpoint-dir", tmp]
+        secs = []
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            first = run_main(argv + ["--report", CLI_REPORT])
+            secs.append(time.perf_counter() - t0)
+            again = run_main(argv + ["--resume"])
+            secs.append(time.perf_counter() - t0 - secs[0])
+        figures = figure_count(CLI_REPORT)
+        how = "figure sets in the saved inputs (no matplotlib on this host)"
+        if importlib.util.find_spec("matplotlib") is not None:
+            figures = figure_count(render_saved(CLI_REPORT, f"{tmp}/rep.html"))
+            how = "figures embedded in the rendered HTML"
+    return first, again, figures, how, secs
+
+
+def phase_front_end(pool):
+    """3i. The front end on the card at its normal entry points, its CPU
+    holds in ``pool``'s workers:
+      * the batch-major scan engines 'pdip', 'pdip_ws', 'pdip_dense',
+        'admm' on Wood-Berry (B = FRONT_B, nit FRONT_NIT, float64), each
+        held step by step against the plain loop on the CPU following the
+        card's U at F64_SIM_GATE (the free CPU run's distance printed);
+      * ``cross_eval_all`` at the cases' full sizes (its rows written to
+        CROSS_EVAL_JSON): every row has the repo point and the three
+        claims of tests/test_cross_eval.py hold; the CROSS_EVAL_HELD rows
+        against the same on the CPU (F_vns and gamma at CROSS_EVAL_REL
+        relative, the mismatch at HORIZON_GATE);
+      * the demos ``shell3x3_demo()`` (nit 500) and ``vandevusse_demo()``
+        (nit 60) against the CPU at F64_SIM_GATE (NMPC in scaled units),
+        with their sims/s by ``utils/profiling.rate_of``;
+      * the CLI: ``run_main`` with CLI_ARGS and a report (CLI_REPORT),
+        then --resume: the same N and Nu, a report with 3 figures.
+    Returns the launch counts of the card's runs and the pending holds."""
+    import contextlib
+    import io
+    import os
+
+    from mpc_tuning_tpu_torch.cases import woodberry
+    from mpc_tuning_tpu_torch.cases.cross_eval import cross_eval_all
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.sim.mpc_loop import BATCH_MAJOR_ENGINES
+    from mpc_tuning_tpu_torch.tuning.api import build_problem
+
+    t0 = time.perf_counter()
+    pending = {name: pool.apply_async(demo_cpu, (name,))
+               for name in ("vandevusse_demo", "shell3x3_demo")}
+    pending.update({name: pool.apply_async(cross_eval_cpu, (name,))
+                    for name in CROSS_EVAL_HELD})
+    total = dict.fromkeys(K.launch_counts(), 0)
+    parts = {}
+
+    def count(part):
+        c = K.launch_counts()
+        parts[part] = {k: v for k, v in c.items() if v}
+        for k, v in c.items():
+            total[k] += v
+        K.reset_launches()
+
+    problem, _ = build_problem(woodberry.make_case(), device="cuda")
+    args = front_engine_args(problem)
+    engines = {}
+    K.reset_launches()
+    for engine in BATCH_MAJOR_ENGINES:
+        t1 = time.perf_counter()
+        Y, U = problem.loop.closed_batch(*args, FRONT_NIT, torch.float64,
+                                         FRONT_ITERS[engine], engine=engine,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        count(engine)
+        engines[engine] = (Y.cpu(), U.cpu(), ms)
+    pending["engines"] = pool.apply_async(
+        front_engines_cpu, ([(e, v[1]) for e, v in engines.items()],))
+
+    os.makedirs(os.path.dirname(CROSS_EVAL_JSON), exist_ok=True)
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = cross_eval_all(out_json=CROSS_EVAL_JSON, device="cuda")
+    cross_s = time.perf_counter() - t1
+    count("cross_eval")
+
+    demos = {}
+    for name in ("shell3x3_demo", "vandevusse_demo"):
+        demos[name] = demo_on_card(name)
+        count(name)
+    cli = cli_on_card()
+    count("cli")
+    return total, (engines, rows, cross_s, demos, cli, parts, pending,
+                   time.perf_counter() - t0)
+
+
+def finish_front_end(held):
+    """3i's holds, once its CPU runs are in: one line each for the scan
+    engines, the cross-evaluation, the demos and the CLI; fails on any."""
+    from mpc_tuning_tpu_torch.cases import vandevusse
+
+    engines, rows, cross_s, demos, cli, parts, pending, card_s = held
+    t0 = time.perf_counter()
+    got = {k: p.get() for k, p in pending.items()}
+    wait_s = time.perf_counter() - t0
+    bad = []
+
+    texts = []
+    for (engine, (Y, U, ms)), (fol, free, cpu_s) in zip(engines.items(),
+                                                        got["engines"]):
+        e = (maxabs(Y, fol[0]), maxabs(U, fol[1]))
+        texts.append(
+            f"{engine} ({FRONT_ITERS[engine]} it.) {ms:.1f} ms a loop, "
+            f"launches {parts[engine]}: followed Y {e[0]:.3e} U {e[1]:.3e}; "
+            f"free Y {maxabs(Y, free[0]):.3e} U {maxabs(U, free[1]):.3e} "
+            f"(cpu {cpu_s:.1f} s)")
+        if not (max(e) <= F64_SIM_GATE and torch.isfinite(U).all()):
+            bad.append(f"scan engine {engine}: {texts[-1]}")
+        if (engine != "admm") != (parts[engine].get("spd_factor", 0) > 0):
+            bad.append(f"scan engine {engine} launches {parts[engine]}")
+    print(f"[3i scan engines] Wood-Berry B={FRONT_B} nit={FRONT_NIT} f64 on "
+          f"the card vs the plain loop on the CPU following its U (limit "
+          f"{F64_SIM_GATE:g}) | " + " | ".join(texts), flush=True)
+
+    texts = []
+    for row in rows:
+        fails, margins = cross_eval_claims(row)
+        bad += fails
+        text = (f"{row['case']}: F_vns repo {row['repo']['F_vns']:.10g} ref "
+                f"{row['ref']['F_vns']:.10g}, gamma repo "
+                f"{row['repo']['gamma']:.6g} ref {row['ref']['gamma']:.6g}"
+                if "repo" in row else f"{row['case']}: no repo point")
+        if "horizon_check" in row:
+            text += (f", mismatch repo {row['horizon_check']['mismatch']} "
+                     f"ref {row['horizon_check_ref']['mismatch']}")
+        text += " | margins " + " ".join(f"{k} {m:.4g}" for k, m in margins)
+        if row["case"] in CROSS_EVAL_HELD:
+            cpu, cpu_s = got[row["case"]]
+            d, claim_d = cross_eval_diffs(row, cpu)
+            text += " | card vs cpu " + " ".join(
+                f"{k} {v:.3e}" for k, v in d.items()) + f" (cpu {cpu_s:.1f} s)"
+            small = [f"{k} margin {m:.4g} vs card-cpu {claim_d[k]:.3e}"
+                     for k, m in margins if abs(m) <= claim_d[k]]
+            if small:
+                text += " | margins below the card-vs-cpu difference: " + \
+                    ", ".join(small)
+            if max(d[k] for k in d if "." in k) > CROSS_EVAL_REL or max(
+                    d["horizon_check"], d["horizon_check_ref"]) > HORIZON_GATE:
+                bad.append(f"cross-eval {row['case']} card vs cpu: {d}")
+        texts.append(text)
+    print(f"[3i cross-eval] cross_eval_all f64 on the card, all four cases "
+          f"at full size, {cross_s:.1f} s, rows in {CROSS_EVAL_JSON}, "
+          f"launches {parts['cross_eval']} | " + " | ".join(texts),
+          flush=True)
+
+    spec = vandevusse.make_case().spec
+    texts = []
+    for name, ((y, u), rate, dt) in demos.items():
+        (yc, uc), cpu_s = got[name]
+        if name == "vandevusse_demo":
+            sfy, sfu = np.asarray(spec.sf_y), np.asarray(spec.sf_u)
+            e = (float(np.abs((y - yc) / sfy).max()),
+                 float(np.abs((u - uc) / sfu).max()))
+        else:
+            e = (float(np.abs(y - yc).max()), float(np.abs(u - uc).max()))
+        texts.append(f"{name} nit {len(y)}: {rate:.4f} sims/s ({dt:.2f} s a "
+                     f"sim), launches {parts[name]}; card vs cpu Y {e[0]:.3e} "
+                     f"U {e[1]:.3e} (cpu {cpu_s:.1f} s)")
+        if not (max(e) <= F64_SIM_GATE and np.isfinite(u).all()):
+            bad.append(f"demo {texts[-1]}")
+    print(f"[3i demos] f64 on the card against the CPU (limit "
+          f"{F64_SIM_GATE:g}; Van de Vusse in scaled units) | "
+          + " | ".join(texts), flush=True)
+
+    first, again, figures, how, secs = cli
+    same = (first["N"] == again["N"] and first["Nu"] == again["Nu"])
+    print(f"[3i cli] run_main {' '.join(CLI_ARGS)} (float32 on the card, "
+          f"{secs[0]:.1f} s with the report {CLI_REPORT}): N {first['N']} Nu "
+          f"{first['Nu']} Fvns {first['Fvns']:.6g}; --resume ({secs[1]:.1f} "
+          f"s): N {again['N']} Nu {again['Nu']} Fvns {again['Fvns']:.6g}; "
+          f"report: {figures} {how}; launches {parts['cli']} | phase_s="
+          f"{card_s:.1f} on the card, waited {wait_s:.1f} s for the CPU",
+          flush=True)
+    if not (same and figures == 3 and first["N"] > max(first["Nu"])
+            and np.isfinite(first["Fvns"])):
+        bad.append(f"cli: {first} / {again} / figures {figures}")
+    if bad:
+        fail("front end: " + " | ".join(bad))
+
+
 def phase_dtc_nmpc_throughput(dtc, enmpc):
     """4, the DTC-GPC and explicit NMPC paths: DTC-GPC sims/s at bench.py's
     shape (B = DTC_B, nit DTC_NIT; CUDA events, mean of 3 after a warm-up)
@@ -2514,8 +2859,11 @@ def main():
     dtc = phase_dtc_path()
     enmpc = phase_explicit_nmpc(pool)
     paths.append(enmpc[0])
+    front_launches, front_held = phase_front_end(pool)
+    paths.append(front_launches)
     finish_horizon_checks(horizon_held)
     finish_nmpc_hold(nmpc_held)
+    finish_front_end(front_held)
     close_pool(pool)
     rec = phase_throughput(problem, band_problem)
     rec.update(phase_step_throughput(problem, tune_shapes))

@@ -702,7 +702,7 @@ def _sim_post(t, lc, k, x_hat, x_pl, u_s, ny, u_follow):
     return u_out, u_s, xhp, x_pl
 
 
-def _u_rows(u_prev, m_max, mc):
+def u_rows(u_prev, m_max, mc):
     """u_prev tiled over the 4 m_max nu move/input rows, zero below."""
     nu, B = u_prev.shape
     pad = torch.zeros((mc - 4 * m_max * nu, B), dtype=u_prev.dtype,
@@ -746,7 +746,7 @@ def pdip_step(tables, lane_consts, Hp_t, dims, G, iters, qp):
 
     def solve(k, err, free, u_prev, warm):
         f = cmask * (-2.0 * (t["ThT"] @ err))
-        h = lc["hbase"] + lc["su"] * _u_rows(u_prev, m_max, mc)
+        h = lc["hbase"] + lc["su"] * u_rows(u_prev, m_max, mc)
         z, lam, _ = qp(Hp_t, f, h, rmask, cmask, warm, G, iters)
         return z[:nu], (z, lam)
 
@@ -768,7 +768,7 @@ def admm_step(tables, lane_consts, Minv_t, dims, G, iters, sigma, over_relax,
 
     def solve(k, err, free, u_prev, warm):
         fs = -2.0 * (t["ThT"] @ err) * Dinv
-        hs = (lc["hbase"] + lc["su"] * _u_rows(u_prev, m_max, mc)) * ev
+        hs = (lc["hbase"] + lc["su"] * u_rows(u_prev, m_max, mc)) * ev
         warm = qp(Minv_t, fs, hs, lc["arow"], lc["acol"], lc["par"], warm, G,
                   iters, sigma, over_relax)
         return (warm[0] * Dinv)[:nu], warm

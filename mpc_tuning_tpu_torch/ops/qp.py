@@ -23,6 +23,11 @@ the JAX package's ``ops/qp.py``.
 * ``admm_precompute`` — per-candidate equilibration and the inverse
   Minv = (Hs + sigma I + rho Gs'Gs)^{-1} that the whole-sim ADMM kernel
   reuses at every step.
+* ``solve_qp_admm`` — the batch-major warm equilibrated ADMM over
+  ``admm_precompute``'s output (the per-step engine 'admm'): batched
+  matrix products only, no factor.
+* ``qp_kkt_residuals`` — stationarity, primal and complementarity
+  residuals of a (batch of) QP solution(s), a diagnostic.
 
 Same algorithm and constants as the JAX package (fraction to the boundary
 0.995, sigma = (mu_aff/mu)^3, ridge 1e-9 / 1e-6 and dual cap 1e13 / 1e7 at
@@ -36,9 +41,9 @@ import torch
 from mpc_tuning_tpu_torch.ops.kernels import (factor_lanes, solve_lanes,
                                               spd_factor, spd_factor_solve)
 
-__all__ = ["solve_qp", "solve_qp_masked", "pdip_lanes", "admm_precompute", "WS_EPS",
-           "pdip_constants", "seed_slack", "split_margins",
-           "split_stage2"]
+__all__ = ["solve_qp", "solve_qp_masked", "pdip_lanes", "admm_precompute",
+           "solve_qp_admm", "qp_kkt_residuals", "WS_EPS", "pdip_constants",
+           "seed_slack", "split_margins", "split_stage2"]
 
 # warm-start re-centering: slacks/duals are floored at WS_EPS so a stale
 # active set cannot start the Newton iteration nearly singular
@@ -410,3 +415,41 @@ def admm_precompute(H, G, sigma: float = 1e-6, cmask=None):
     M = Hs + sigma * eye + rho[:, None, None] * GtG
     Minv = torch.linalg.inv(M)
     return {"Minv": Minv, "rho": rho, "Dinv": Dinv, "e": e, "Hs": Hs, "Gs": Gs}
+
+
+def solve_qp_admm(pre, f, h, state, iters: int, sigma: float = 1e-6,
+                  over_relax: float = 1.6):
+    """Fixed-iteration equilibrated ADMM for a batch of QPs min 1/2 z'Hz +
+    f'z, Gz <= h (the JAX package's ``solve_qp_admm`` under ``vmap``).
+
+    ``pre`` is ``admm_precompute``'s dict (each entry batched), f (B, n),
+    h (B, mc); ``state`` = (x (B, n), zc (B, mc), y (B, mc)) is the warm
+    start in SCALED coordinates, carried across closed-loop steps
+    (successive MPC QPs differ only in f and h).  Returns (z (B, n)
+    unscaled, new state).  Each product is a batched matrix-vector product
+    (torch.bmm) against the candidate's own Minv and Gs."""
+    Minv, Dinv, e, Gs = pre["Minv"], pre["Dinv"], pre["e"], pre["Gs"]
+    rho = pre["rho"][:, None]
+    Gst = Gs.transpose(1, 2)
+    fs = f * Dinv
+    hs = h * e
+    x, zc, y = state
+    mv = lambda A, v: torch.bmm(A, v[:, :, None])[:, :, 0]
+    for _ in range(iters):
+        x = mv(Minv, sigma * x - fs + mv(Gst, rho * zc - y))
+        Gx_r = over_relax * mv(Gs, x) + (1.0 - over_relax) * zc
+        zc = torch.minimum(Gx_r + y / rho, hs)
+        y = y + rho * (Gx_r - zc)
+    return x * Dinv, (x, zc, y)
+
+
+def qp_kkt_residuals(H, f, G, h, z, lam, s):
+    """Diagnostics: (stationarity, primal, complementarity) residual norms
+    of QP solutions, H (..., n, n), f / z (..., n), G (..., m, n), h / lam
+    / s (..., m), each over any leading batch axes."""
+    mv = lambda A, v: (A @ v[..., None])[..., 0]
+    r_d = mv(H, z) + f + mv(G.transpose(-1, -2), lam)
+    r_p = torch.clamp_min(mv(G, z) - h, 0.0)
+    comp = (lam * s).abs()
+    return (torch.linalg.vector_norm(r_d, dim=-1),
+            torch.linalg.vector_norm(r_p, dim=-1), comp.amax(dim=-1))

@@ -12,16 +12,28 @@ the JAX package's ``sim/mpc_loop.py``).
                  slack seeding, a BAND_LP_ITERS stage-0 slack LP, then a
                  BAND_S2_ITERS slack-frozen stage-2 PDIP (the JAX package's
                  '+lp20+split12'; ops/kernels.closed_sim_band);
-  or by one of three per-step engines (the JAX package's scan engines), a
-  Python loop over steps (ops/kernels.step_loop) with one QP launch per
-  step, the same algorithms as the whole-sim engines:
+  or by one of seven per-step engines (the JAX package's scan engines), a
+  Python loop over steps (ops/kernels.step_loop) with one QP solve per
+  step:
     'pdip_ws_fused' — the warm PDIP, all iterations in one launch
                       (ops/kernels.pdip_fused);
     'pdip_ws_lanes' — the warm PDIP as torch ops around the lane-major
                       factor and solve kernels (ops/qp.pdip_lanes with
                       ops/kernels.factor_lanes / solve_lanes);
     'admm_fused'    — the warm ADMM, all iterations in one launch
-                      (ops/kernels.admm_fused).
+                      (ops/kernels.admm_fused);
+  and, batch-major (the candidate first, as the JAX package's engines run
+  under ``vmap``; BATCH_MAJOR_ENGINES):
+    'pdip'          — a cold masked PDIP every step (ops/qp.solve_qp_masked:
+                      torch ops around the batch-major factor and solve
+                      kernels, ops/kernels.spd_factor / spd_factor_solve);
+    'pdip_ws'       — the same PDIP warm-started from the previous step's
+                      best iterate (z, lam);
+    'pdip_dense'    — a cold dense PDIP on each candidate's own G
+                      (ops/qp.solve_qp, the same two kernels);
+    'admm'          — the warm equilibrated ADMM (ops/qp.solve_qp_admm,
+                      batched matrix products against each candidate's
+                      precomputed inverse), its state carried across steps.
   Tracking cases run every engine but 'band_sim', band cases only
   'band_sim' and only at float64; any other pairing raises.
 * open loop = solve the QP once from rest with the final setpoint and play
@@ -45,7 +57,8 @@ from mpc_tuning_tpu_torch.ops.kernels import (admm_fused, admm_step,
                                               closed_sim_admm, closed_sim_band,
                                               closed_sim_pdip, g_shared,
                                               pdip_fused, pdip_step,
-                                              require_device, step_loop)
+                                              require_device, step_loop,
+                                              u_rows)
 from mpc_tuning_tpu_torch.ops.mpc_qp import (
     MPCController,
     assemble_candidate,
@@ -53,15 +66,21 @@ from mpc_tuning_tpu_torch.ops.mpc_qp import (
     pin_precision,
     qp_step_data,
 )
-from mpc_tuning_tpu_torch.ops.qp import pdip_lanes, solve_qp_masked, split_stage2
+from mpc_tuning_tpu_torch.ops.qp import (pdip_lanes, solve_qp, solve_qp_admm,
+                                         solve_qp_masked, split_stage2)
 
-__all__ = ["MPCLoop", "horizon_caps", "ENGINES", "STEP_ENGINES", "sim_inputs",
-           "run_engine", "step_engine", "BAND_LP_ITERS", "BAND_S2_ITERS",
+__all__ = ["MPCLoop", "horizon_caps", "ENGINES", "STEP_ENGINES",
+           "BATCH_MAJOR_ENGINES", "ADMM_ENGINES", "sim_inputs", "run_engine",
+           "step_engine", "BAND_LP_ITERS", "BAND_S2_ITERS",
            "require_band_dtype"]
 
-STEP_ENGINES = ("pdip_ws_fused", "pdip_ws_lanes", "admm_fused")
+BATCH_MAJOR_ENGINES = ("pdip", "pdip_ws", "pdip_dense", "admm")
+STEP_ENGINES = ("pdip_ws_fused", "pdip_ws_lanes",
+                "admm_fused") + BATCH_MAJOR_ENGINES
 ENGINES = ("admm_sim", "pdip_sim", "band_sim") + STEP_ENGINES
-# warm ADMM constants of 'admm_sim' and 'admm_fused' (the JAX package's)
+# the engines whose iteration count is ADMM's (TuningProblem.admm_iters)
+ADMM_ENGINES = ("admm_sim", "admm_fused", "admm")
+# warm ADMM constants of the ADMM engines (the JAX package's)
 ADMM_SIGMA, ADMM_OVER_RELAX = 1e-6, 1.6
 
 # iteration counts of the band engine's two stages (JAX '+lp20+split12')
@@ -290,8 +309,11 @@ def sim_inputs(engine, c, r_b, v, N_b, Nu_b, delta_b, lam_b, p_max, m_max,
     setpoints of ``engine`` (the table-building half of the JAX wrappers
     _closed_sim_fused_body, closed_loop_batch_sim_pdip and
     closed_loop_batch_sim_band, without the TPU tile padding); the ADMM
-    engines share one set, the PDIP engines another.  Returns (tables,
-    lane_consts, Minv_t or Hp_t (n, n, B), r_l (nit, ny, B), dims)."""
+    engines share one set, the PDIP engines another.  The batch-major
+    engines (BATCH_MAJOR_ENGINES) also take the candidates' own QP data,
+    ``assemble_candidate``'s batch-major dict, as lane_consts["cand"].
+    Returns (tables, lane_consts, Minv_t or Hp_t (n, n, B), r_l (nit, ny,
+    B), dims)."""
     dtype, dev = r_b.dtype, r_b.device
     B, nit = r_b.shape[:2]
     n = m_max * nu + 1
@@ -363,7 +385,9 @@ def sim_inputs(engine, c, r_b, v, N_b, Nu_b, delta_b, lam_b, p_max, m_max,
     r_l = (r_b / c["sf_y"][None, None, :]).permute(1, 2, 0).contiguous()
     dims = dict(ny=ny, nu=nu, n=n, mc=c["G0"].shape[0], m_max=m_max)
 
-    if engine in ("admm_sim", "admm_fused"):
+    if engine in BATCH_MAJOR_ENGINES:
+        lc["cand"] = cand
+    if engine in ADMM_ENGINES:
         pre = cand["admm"]
         Dinv_m = pre["Dinv"] * cand["cmask_z"]  # masked-variable fs/du scale
         lc.update(arow=lanes(pre["e"] * cand["rmask"]), acol=lanes(Dinv_m),
@@ -382,10 +406,14 @@ def run_engine(engine, tables, lane_consts, Hm, r_l, dims, qp_iters):
       'admm_sim' / 'admm_fused' — `qp_iters` warm equilibrated ADMM
                    iterations per step (sigma ADMM_SIGMA, over-relaxation
                    ADMM_OVER_RELAX) against Minv_t;
-      'pdip_sim' / 'pdip_ws_fused' / 'pdip_ws_lanes' — a warm-started
-                   masked PDIP of `qp_iters` iterations per step against
-                   Hp_t; the best iterate (z, lam) is the next step's warm
-                   pair;
+      'pdip_sim' / 'pdip_ws_fused' / 'pdip_ws_lanes' / 'pdip_ws' — a
+                   warm-started masked PDIP of `qp_iters` iterations per
+                   step against Hp_t; the best iterate (z, lam) is the next
+                   step's warm pair;
+      'pdip' / 'pdip_dense' — a cold PDIP of `qp_iters` iterations per
+                   step (masked, or on each candidate's dense G);
+      'admm'     — `qp_iters` warm ADMM iterations per step (batch-major,
+                   ``batch_major_step``);
       'band_sim' — the eps-split band solve per step (BAND_LP_ITERS,
                    BAND_S2_ITERS; `qp_iters` unused); the stage-0 LP's
                    (z, lam) is the next step's warm pair.
@@ -414,11 +442,58 @@ def _pdip_ws_lanes(Hp, f, h, rmask, cmask, warm, G, iters):
     return pdip_lanes(Hp, f, G["G0"], G["T2T"], rmask, cmask, h, iters, warm)
 
 
+def batch_major_step(engine, tables, lane_consts, dims, iters):
+    """The per-step solve of the batch-major engines (BATCH_MAJOR_ENGINES)
+    for ``step_loop``: the step's f and h as the lane-major engines form
+    them, transposed to the candidate-first layout, then the engine's QP
+    on the candidates' own data (lane_consts["cand"]):
+      'pdip'       — ``solve_qp_masked``, cold;
+      'pdip_ws'    — ``solve_qp_masked`` warm-started from the previous
+                     step's best (z, lam), from (0, 1);
+      'pdip_dense' — ``solve_qp`` on the dense G, cold;
+      'admm'       — ``solve_qp_admm`` carrying its scaled (x, zc, y), from
+                     zeros.
+    Returns (solve, warm)."""
+    t, lc = tables, lane_consts
+    cand = lc["cand"]
+    nu, mc, m_max = dims["nu"], dims["mc"], dims["m_max"]
+    H, rmask, cmask = cand["H"], cand["rmask"], cand["cmask_z"]
+    G0 = t["G0"]
+    T2 = t["T2T"].T if "T2T" in t else None  # the PDIP engines' tables
+    B, n = cmask.shape
+    kw = dict(dtype=H.dtype, device=H.device)
+
+    def solve(k, err, free, u_prev, warm):
+        f = ((-2.0 * (t["ThT"] @ err)).T * cmask).contiguous()
+        h = (lc["hbase"] + lc["su"] * u_rows(u_prev, m_max, mc)).T
+        h = h.contiguous()
+        if engine == "admm":
+            z, warm = solve_qp_admm(cand["admm"], f, h, warm, iters,
+                                    ADMM_SIGMA, ADMM_OVER_RELAX)
+        elif engine == "pdip_dense":
+            z = solve_qp(H, f, cand["G"], h, iters)[0]
+        else:
+            init = None if engine == "pdip" else (warm[0], warm[1], None)
+            z, lam, _ = solve_qp_masked(H, f, G0, T2, rmask, cmask, h,
+                                        iters, init)
+            warm = (z, lam)
+        return z[:, :nu].T, warm
+
+    if engine == "admm":
+        return solve, (torch.zeros((B, n), **kw), torch.zeros((B, mc), **kw),
+                       torch.zeros((B, mc), **kw))
+    return solve, (torch.zeros((B, n), **kw), torch.ones((B, mc), **kw))
+
+
 def step_engine(engine, tables, lane_consts, Hm, r_l, dims, iters):
     """The per-step engine ``engine`` (one of STEP_ENGINES): the closed
     loop of ``ops/kernels.step_loop`` with one QP solve per step through
     the engine's kernels.  The shared constraint matrix's CSR is built
     once here, not per step.  Returns (Y (nit, ny, B), U (nit, nu, B))."""
+    if engine in BATCH_MAJOR_ENGINES:
+        solve, warm = batch_major_step(engine, tables, lane_consts, dims,
+                                       iters)
+        return step_loop(tables, lane_consts, r_l, dims, solve, warm)
     G = g_shared(tables["G0"], tables.get("T2T"))
     if engine == "admm_fused":
         solve, warm = admm_step(tables, lane_consts, Hm, dims, G, iters,

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from mpc_tuning_tpu_torch.ops.kernels import require_device
-from mpc_tuning_tpu_torch.sim.mpc_loop import (ENGINES, MPCLoop, horizon_caps,
+from mpc_tuning_tpu_torch.sim.mpc_loop import (ADMM_ENGINES, ENGINES, MPCLoop,
+                                               horizon_caps,
                                                require_band_dtype)
 from mpc_tuning_tpu_torch.sim.nmpc_loop import NMPCLoop
 
@@ -55,7 +56,8 @@ def resolve_qp_method(method: str, stage: str = "gam", f64: bool = False,
       * float64 (the decision-grade path): both stages -> 'pdip_sim'.
     The per-step engines ('pdip_ws_fused', 'pdip_ws_lanes', 'admm_fused':
     the JAX package's engines under a candidate mesh, and its float64
-    decision-grade 'pdip_ws_lanes') run only when named."""
+    decision-grade 'pdip_ws_lanes'; the batch-major 'pdip', 'pdip_ws',
+    'pdip_dense' and 'admm') run only when named."""
     if method != "auto":
         if method not in ENGINES:
             raise ValueError(f"unknown engine {method!r}; use 'auto' or one "
@@ -138,8 +140,7 @@ class TuningProblem:
         engine = resolve_qp_method(raw, stage=stage,
                                    f64=self.dtype == torch.float64,
                                    band=self.loop.ctl.spec.has_y_constraints)
-        iters = (self.admm_iters if engine in ("admm_sim", "admm_fused")
-                 else self.qp_iters)
+        iters = self.admm_iters if engine in ADMM_ENGINES else self.qp_iters
         Y, U = self.loop.closed_batch(
             np.asarray(r_b, dtype=np.float64), self.v, N_b, Nu_b, delta_b,
             lam_b, self.nit, self.dtype, iters, engine=engine,

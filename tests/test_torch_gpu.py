@@ -999,6 +999,65 @@ def test_spd_solve_refuses_above_the_envelope(cuda):
         assert K.launch_counts() == before
 
 
+# --------------------------------------- the batch-major scan engines
+
+
+def _scan_batch(B=37, nit=40, seed=3):
+    """A Shell3x3 problem on the card and B seeded candidates at its (32, 4)
+    bucket, as closed_batch's arguments (a batch index picks lanes)."""
+    problem, _ = build_problem(shell3x3.make_case(nit=nit), device="cuda")
+    rng = np.random.default_rng(seed)
+    cand = (rng.integers(5, 33, size=B), rng.integers(1, 5, size=B),
+            rng.uniform(0.2, 2.0, (B, 3)), rng.uniform(0.01, 0.5, (B, 3)))
+    r_b = np.broadcast_to(problem.r[:nit], (B, nit, 3))
+
+    def run(engine, idx):
+        iters = 40 if engine == "admm" else 15
+        return problem.loop.closed_batch(
+            r_b[idx], problem.v, *(x[idx] for x in cand), nit, F64, iters,
+            engine=engine, device="cuda", caps=(32, 4))
+
+    return run
+
+
+@pytest.mark.parametrize("engine", mpc_loop.BATCH_MAJOR_ENGINES)
+def test_scan_engine_lanes_do_not_depend_on_the_slot(cuda, engine):
+    """'pdip', 'pdip_ws', 'pdip_dense' and 'admm' on the card (float64,
+    nit 40, B = 37): a lane's Y and U are the same bits wherever a
+    permutation of the batch puts it; the PDIP engines launch spd_factor
+    once and spd_factor_solve twice per iteration, 'admm' no kernel."""
+    run = _scan_batch()
+    K.reset_launches()
+    Y, U = run(engine, np.arange(37))
+    counts = K.launch_counts()
+    pdip = engine != "admm"
+    assert counts.pop("spd_factor") == (40 * 15 if pdip else 0)
+    assert counts.pop("spd_factor_solve") == (2 * 40 * 15 if pdip else 0)
+    assert set(counts.values()) == {0}
+    assert Y.device.type == "cuda" and torch.isfinite(U).all()
+    perm = np.random.default_rng(4).permutation(37)
+    Yp, Up = run(engine, perm)
+    assert torch.equal(Yp, Y[perm]) and torch.equal(Up, U[perm])
+
+
+@pytest.mark.parametrize("engine", mpc_loop.BATCH_MAJOR_ENGINES)
+def test_scan_engine_batch_size_moves_a_lane_by_rounding(cuda, engine):
+    """The same lanes in batches of 1, 2 and 13 against the batch of 37,
+    at F64 1e-9 (the card-vs-plain gate of float64 loops).  Not bit for
+    bit: torch's products round a lane by the batch's width (a width-1
+    product takes cuBLAS's matrix-vector path; the batched products of
+    'pdip_dense' and 'admm' follow the batch count), by 1e-16 to 3e-13 in
+    U on an NVIDIA H100 (PERF.md §6); the whole-sim kernels and the
+    lane-major engines at widths >= 2 read the same bits."""
+    run = _scan_batch()
+    idx = np.arange(37)
+    Y, U = run(engine, idx)
+    for lo, hi in ((5, 6), (5, 7), (5, 18)):
+        Ys, Us = run(engine, idx[lo:hi])
+        torch.testing.assert_close(Ys, Y[lo:hi], rtol=0, atol=1e-9)
+        torch.testing.assert_close(Us, U[lo:hi], rtol=0, atol=1e-9)
+
+
 # ------------------------------------------------------------ DTC-GPC
 
 

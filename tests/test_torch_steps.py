@@ -171,7 +171,7 @@ def test_band_case_refuses_step_engines(engine):
 
 
 @pytest.mark.parametrize("name", ["pdip_ws_fused@128", "pdip_ws_fused/subst",
-                                  "pdip_ws", "admm"])
+                                  "hybrid", "pdip+lp20"])
 def test_unported_engine_names_raise(wb, name):
     _, pt, args = wb
     r_b = np.broadcast_to(pt.r[:NIT], (B, NIT, 2))
