@@ -107,11 +107,12 @@ def run(nit: int = NIT, checkpoint_dir: str | None = "checkpoints",
         **tuner_kwargs):
     """MPCTuning-equivalent for the nonlinear case (VanDeVusse_NMPC.m:204)
     followed by the final closed loop (VanDeVusse_NMPC.m:244).  ``mesh``
-    (candidate sharding) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError("candidate sharding (mesh) is not ported")
+    (``parallel.sweep.candidate_mesh``): the tune's candidate batches are
+    sharded over its devices (``TuningProblem.mesh``); the final closed
+    loop runs on ``device``."""
     case = make_case(nit=nit)
     problem = build_problem(case, dtype, device)
+    problem.mesh = mesh
     best, delta, lam, Fva, Fvf, history = hybrid_tune(
         problem, case.nbp, case.nbc, X0_WEIGHTS, verbose=verbose,
         **tuner_kwargs)

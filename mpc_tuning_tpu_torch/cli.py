@@ -2,6 +2,7 @@
 
   mpc-tuning-run-torch <case> [--nit N] [--nbp B] [--nbc B]
                        [--budget small|full] [--cpu] [--report OUT]
+                       [--mesh auto|N]
       run the hybrid tuner on a benchmark case and print the result JSON
       (cases: woodberry, shell3x3, shell7x5, vandevusse)
 
@@ -18,7 +19,7 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["run_main", "card_dtype"]
+__all__ = ["run_main", "card_dtype", "mesh_from_arg"]
 
 CASES = ("woodberry", "shell3x3", "shell7x5", "vandevusse")
 
@@ -28,6 +29,28 @@ def card_dtype(case: str):
     accelerator rule) where the case's entry point accepts it, float64 for
     the band case Shell7x5, whose loops run at float64 only."""
     return torch.float64 if case == "shell7x5" else torch.float32
+
+
+def mesh_from_arg(arg: str, device: str):
+    """``--mesh``: 'auto' shards over every visible card (one shard on the
+    CPU), an integer N into N shards, the j-th on card j mod the card
+    count (on the CPU all N on the CPU)."""
+    from mpc_tuning_tpu_torch.parallel.sweep import candidate_mesh
+
+    if arg == "auto":
+        n = torch.cuda.device_count() if device == "cuda" else 1
+    else:
+        n = int(arg)
+    if n < 1:
+        raise ValueError(f"--mesh {arg!r}: 'auto' or a positive shard count")
+    if device == "cpu":
+        return candidate_mesh([torch.device("cpu")] * n)
+    cards = torch.cuda.device_count()
+    if cards == 0:
+        raise RuntimeError("--mesh on the card: torch.cuda.is_available() is "
+                           "False; pass --cpu")
+    return candidate_mesh([torch.device("cuda", j % cards)
+                           for j in range(n)])
 
 
 def run_main(argv=None):
@@ -60,11 +83,11 @@ def run_main(argv=None):
                          "need matplotlib, .npz keeps the figures' inputs "
                          "to render elsewhere (report.render_saved)")
     ap.add_argument("--mesh", default=None, metavar="auto|N",
-                    help="candidate sharding over devices: not ported, "
-                         "raises")
+                    help="shard every candidate evaluation: 'auto' = over "
+                         "every visible card, an integer = into N shards "
+                         "over the cards in turn (with --cpu, N shards on "
+                         "the CPU); tuning/api.mpc_tuning mesh=")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("candidate sharding (--mesh) is not ported")
     # a linear case's run takes no derivative: inference mode drops
     # autograd's per-op bookkeeping (the eager PDIP on the CPU ran 1.7x
     # faster).  The NMPC case's steady state differentiates its rhs by
@@ -81,6 +104,10 @@ def _run(args) -> dict:
 
     device = "cpu" if args.cpu else "cuda"
     dtype = torch.float64 if args.cpu else card_dtype(args.case)
+    mesh = None
+    if args.mesh:
+        mesh = mesh_from_arg(args.mesh, device)
+        print(f"# candidate mesh: {mesh.describe()}", flush=True)
     budget = (dict(gam_popsize=8, gam_generations=5, max_alternations=2)
               if args.budget == "small"
               else dict(gam_popsize=16, gam_generations=20, max_alternations=6))
@@ -104,7 +131,7 @@ def _run(args) -> dict:
 
         case, res, (y, u) = vandevusse.run(
             checkpoint_dir=args.checkpoint_dir, dtype=dtype, device=device,
-            **budget, state_path=state_path, resume=args.resume,
+            mesh=mesh, **budget, state_path=state_path, resume=args.resume,
             **({"nit": args.nit} if args.nit else {}),
         )
         out = dict(case=args.case, **{k: (v.tolist() if isinstance(v, np.ndarray) else v)
@@ -134,7 +161,7 @@ def _run(args) -> dict:
         res = mpc_tuning(case, dtype=dtype,
                          checkpoint_dir=args.checkpoint_dir,
                          state_path=state_path, resume=args.resume,
-                         device=device, **tkw)
+                         device=device, mesh=mesh, **tkw)
         out = dict(case=args.case, N=res.N, Nu=res.Nu.tolist(),
                    delta=res.delta.tolist(), lam=res.lam.tolist(),
                    Fvns=res.Fvns, Fgam=res.Fgam, checkpoint=res.checkpoint)

@@ -4,8 +4,9 @@ version (the counterpart of ``mpc_tuning_tpu/ops/pallas_kernels.py``).
 Every kernel's public function here is a wrapper:
   * for tensors on the CPU it runs the plain version (the CPU tests use it);
   * for CUDA tensors it checks dtype, shape and contiguity, launches the
-    CUDA kernel (ops/csrc/, built by ops/_build.py) on the current stream,
-    or raises.  There is no fallback.
+    CUDA kernel (ops/csrc/, built by ops/_build.py) on the current stream
+    of the tensors' card, with that card made current, or raises.  There
+    is no fallback.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``; only a
 launch adds to it.
 
@@ -101,6 +102,14 @@ def _stream(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _device_of(t):
+    """The launch's device made current: the CUDA side sets its
+    shared-memory attributes on, and launches on, the current device, so a
+    launch on tensors of another card than the current one runs under
+    theirs."""
+    return torch.cuda.device(t.device)
+
+
 # ------------------------------------------------------------ spd_factor
 #
 # Replaces _factor_batched_impl / _factor_kernel
@@ -153,9 +162,10 @@ def spd_factor(M):
     _require(M, (B, n, n), dtype, "M")
     factor_envelope(n, dtype)
     L = torch.empty_like(M)
-    _build.check(_build.library().mpc_spd_factor(
-        int(dtype == torch.float64), 0, M.data_ptr(), L.data_ptr(), B, n,
-        _stream(M)), "spd_factor")
+    with _device_of(M):
+        _build.check(_build.library().mpc_spd_factor(
+            int(dtype == torch.float64), 0, M.data_ptr(), L.data_ptr(), B, n,
+            _stream(M)), "spd_factor")
     spd_factor.launches += 1
     return L
 
@@ -204,9 +214,10 @@ def spd_factor_solve(L, rhs):
     dtype, B, n = _solve_args(L, rhs)
     factor_solve_envelope(n, dtype)
     x = torch.empty_like(rhs)
-    _build.check(_build.library().mpc_spd_factor_solve(
-        int(dtype == torch.float64), 0, L.data_ptr(), rhs.data_ptr(),
-        x.data_ptr(), B, n, _stream(L)), "spd_factor_solve")
+    with _device_of(L):
+        _build.check(_build.library().mpc_spd_factor_solve(
+            int(dtype == torch.float64), 0, L.data_ptr(), rhs.data_ptr(),
+            x.data_ptr(), B, n, _stream(L)), "spd_factor_solve")
     spd_factor_solve.launches += 1
     return x
 
@@ -221,9 +232,11 @@ def spd_factor_solve_one_thread(L, rhs):
     on no path of the port."""
     dtype, B, n = _solve_args(L, rhs)
     x = torch.empty_like(rhs)
-    _build.check(_build.reference_library().mpc_spd_factor_solve_one_thread(
-        int(dtype == torch.float64), L.data_ptr(), rhs.data_ptr(),
-        x.data_ptr(), B, n, _stream(L)), "spd_factor_solve_one_thread")
+    with _device_of(L):
+        lib = _build.reference_library()
+        _build.check(lib.mpc_spd_factor_solve_one_thread(
+            int(dtype == torch.float64), L.data_ptr(), rhs.data_ptr(),
+            x.data_ptr(), B, n, _stream(L)), "spd_factor_solve_one_thread")
     return x
 
 
@@ -270,9 +283,10 @@ def spd_solve(M, rhs):
     dtype, B, n = _spd_solve_args(M, rhs)
     spd_solve_envelope(n, dtype)
     x = torch.empty_like(rhs)
-    _build.check(_build.library().mpc_spd_solve(
-        int(dtype == torch.float64), M.data_ptr(), rhs.data_ptr(),
-        x.data_ptr(), B, n, _stream(M)), "spd_solve")
+    with _device_of(M):
+        _build.check(_build.library().mpc_spd_solve(
+            int(dtype == torch.float64), M.data_ptr(), rhs.data_ptr(),
+            x.data_ptr(), B, n, _stream(M)), "spd_solve")
     spd_solve.launches += 1
     return x
 
@@ -288,10 +302,11 @@ def spd_solve_one_thread(M, rhs):
     dtype, B, n = _spd_solve_args(M, rhs)
     x = torch.empty_like(rhs)
     work = torch.empty((n * n * B,), dtype=dtype, device=M.device)
-    _build.check(_build.reference_library().mpc_spd_solve_one_thread(
-        int(dtype == torch.float64), M.data_ptr(), rhs.data_ptr(),
-        x.data_ptr(), work.data_ptr(), B, n, _stream(M)),
-        "spd_solve_one_thread")
+    with _device_of(M):
+        _build.check(_build.reference_library().mpc_spd_solve_one_thread(
+            int(dtype == torch.float64), M.data_ptr(), rhs.data_ptr(),
+            x.data_ptr(), work.data_ptr(), B, n, _stream(M)),
+            "spd_solve_one_thread")
     return x
 
 
@@ -323,9 +338,10 @@ def factor_lanes(M):
     _require(M, (n, n, B), dtype, "M")
     factor_envelope(n, dtype)
     L = torch.empty_like(M)
-    _build.check(_build.library().mpc_spd_factor(
-        int(dtype == torch.float64), 1, M.data_ptr(), L.data_ptr(), B, n,
-        _stream(M)), "factor_lanes")
+    with _device_of(M):
+        _build.check(_build.library().mpc_spd_factor(
+            int(dtype == torch.float64), 1, M.data_ptr(), L.data_ptr(), B, n,
+            _stream(M)), "factor_lanes")
     factor_lanes.launches += 1
     return L
 
@@ -360,9 +376,10 @@ def solve_lanes(L, rhs):
     L, rhs, dtype, n, B = _solve_lanes_args(L, rhs)
     factor_solve_envelope(n, dtype, "solve_lanes")
     x = torch.empty_like(rhs)
-    _build.check(_build.library().mpc_spd_factor_solve(
-        int(dtype == torch.float64), 1, L.data_ptr(), rhs.data_ptr(),
-        x.data_ptr(), B, n, _stream(L)), "solve_lanes")
+    with _device_of(L):
+        _build.check(_build.library().mpc_spd_factor_solve(
+            int(dtype == torch.float64), 1, L.data_ptr(), rhs.data_ptr(),
+            x.data_ptr(), B, n, _stream(L)), "solve_lanes")
     solve_lanes.launches += 1
     return x
 
@@ -377,9 +394,11 @@ def solve_lanes_one_thread(L, rhs):
     path of the port."""
     L, rhs, dtype, n, B = _solve_lanes_args(L, rhs)
     x = torch.empty_like(rhs)
-    _build.check(_build.reference_library().mpc_solve_lanes_one_thread(
-        int(dtype == torch.float64), L.data_ptr(), rhs.data_ptr(),
-        x.data_ptr(), B, n, _stream(L)), "solve_lanes_one_thread")
+    with _device_of(L):
+        lib = _build.reference_library()
+        _build.check(lib.mpc_solve_lanes_one_thread(
+            int(dtype == torch.float64), L.data_ptr(), rhs.data_ptr(),
+            x.data_ptr(), B, n, _stream(L)), "solve_lanes_one_thread")
     return x
 
 
@@ -433,10 +452,11 @@ def _launch_qp(fn, ptr_count, names, bufs, dims, scal, dtype, what):
         raise RuntimeError(f"{what} argument layout mismatch")
     ptrs = (ctypes.c_void_p * len(names))(
         *[bufs[k].data_ptr() if bufs[k].numel() else None for k in names])
-    _build.check(fn(int(dtype == torch.float64), ptrs,
-                    (ctypes.c_int * len(dims))(*dims),
-                    (ctypes.c_double * len(scal))(*scal),
-                    _stream(bufs[names[-1]])), what)
+    with _device_of(bufs[names[-1]]):
+        _build.check(fn(int(dtype == torch.float64), ptrs,
+                        (ctypes.c_int * len(dims))(*dims),
+                        (ctypes.c_double * len(scal))(*scal),
+                        _stream(bufs[names[-1]])), what)
 
 
 def _require_g(G, dtype, mc, n, device, keys=_QP_CSR):
@@ -902,9 +922,10 @@ def _launch_sim(pdip: bool, tables, lc, Hm, r_l, nit, iters, dims, scal,
         *[bufs[k].data_ptr() if k in bufs and bufs[k].numel() else None
           for k in _SIM_PTRS])
     scal_c = (ctypes.c_double * 3)(*scal)
-    _build.check(lib.mpc_closed_sim(int(pdip), int(dtype == torch.float64),
-                                    ptrs, dims_c, scal_c, _stream(r_l)),
-                 "closed_sim_pdip" if pdip else "closed_sim_admm")
+    with _device_of(r_l):
+        _build.check(lib.mpc_closed_sim(int(pdip), int(dtype == torch.float64),
+                                        ptrs, dims_c, scal_c, _stream(r_l)),
+                     "closed_sim_pdip" if pdip else "closed_sim_admm")
     return Y, U
 
 
@@ -1137,8 +1158,9 @@ def launch_band(lib, tables, lane_consts, Hp_t, r_l, nit, lp_iters, s2_iters,
     ridge, w_cap = pdip_constants(dtype)
     m_rel, m_abs = split_margins(dtype)
     scal_c = (ctypes.c_double * 5)(WS_EPS, ridge, w_cap, m_rel, m_abs)
-    _build.check(lib.mpc_closed_sim_band(ptrs, dims_c, scal_c, _stream(r_l)),
-                 "closed_sim_band")
+    with _device_of(r_l):
+        _build.check(lib.mpc_closed_sim_band(ptrs, dims_c, scal_c,
+                                             _stream(r_l)), "closed_sim_band")
     return Y, U, E
 
 
@@ -1221,9 +1243,10 @@ def nmpc_rollout(model, x, u_prev, du, cmask, p, hold=None, jac=False,
         for t in (x, u_prev, du, cmask, hold, Y, J)])
     dims = (ctypes.c_int * 9)(B, p, m, model.substeps, int(jac), ny,
                               *(out + [0] * (3 - ny)))
-    _build.check(_build.library().mpc_nmpc_rollout(
-        int(dtype == torch.float64), ptrs, dims, ctypes.c_double(model.Ts),
-        _stream(x)), "nmpc_rollout")
+    with _device_of(x):
+        _build.check(_build.library().mpc_nmpc_rollout(
+            int(dtype == torch.float64), ptrs, dims, ctypes.c_double(model.Ts),
+            _stream(x)), "nmpc_rollout")
     nmpc_rollout.launches += 1
     return Y, J
 

@@ -43,7 +43,8 @@ from mpc_tuning_tpu_torch.ops.kernels import (factor_lanes, solve_lanes,
 
 __all__ = ["solve_qp", "solve_qp_masked", "pdip_lanes", "admm_precompute",
            "solve_qp_admm", "qp_kkt_residuals", "WS_EPS", "pdip_constants",
-           "seed_slack", "split_margins", "split_stage2"]
+           "seed_slack", "split_margins", "split_stage2", "CARD_LANES",
+           "lane_mm", "lane_baddbmm"]
 
 # warm-start re-centering: slacks/duals are floored at WS_EPS so a stale
 # active set cannot start the Newton iteration nearly singular
@@ -108,6 +109,55 @@ def lane_sum(x, batch_major=False):
     return groups.sum(1).reshape(1, -1)[:, :B]
 
 
+# On the card cuBLAS picks a product's algorithm, and so its rounding, by
+# the product's width (the lanes, or the batch count of a batched product).
+# The eager loops of a sharded path (the open legs, the NMPC loop) run their
+# batch padded to a multiple of CARD_LANES lanes (sim/mpc_loop.pad_lanes)
+# and their products in chunks of CARD_LANES lanes, so a lane reads the same
+# bits whatever shard holds it and wherever the shard puts it.
+CARD_LANES = 64
+
+
+def _chunks(n):
+    return [slice(i, i + CARD_LANES) for i in range(0, n, CARD_LANES)]
+
+
+def lane_mm(A, X):
+    """A @ X for a lane-major X (k, B): X made contiguous (on a transposed
+    batch-major X the CPU's product rounds a lane by the batch's width, up
+    to 3) and, on the card, in chunks of CARD_LANES columns."""
+    X = X.contiguous()
+    if X.device.type == "cpu" or X.shape[1] <= CARD_LANES:
+        return A @ X
+    return torch.cat([A @ X[:, s] for s in _chunks(X.shape[1])], dim=1)
+
+
+def lane_baddbmm(x, A, C):
+    """x + A @ C batched over the leading (candidate) axis, or A @ C for x
+    None; on the card in chunks of CARD_LANES candidates."""
+    if A.device.type == "cpu" or A.shape[0] <= CARD_LANES:
+        return torch.bmm(A, C) if x is None else torch.baddbmm(x, A, C)
+    return torch.cat([lane_baddbmm(None if x is None else x[s], A[s], C[s])
+                      for s in _chunks(A.shape[0])])
+
+
+def _row_sum(x, ones):
+    """(B, m, 1) summed over its m rows: on the card as the batched product
+    ``ones`` (B, 1, m) @ x, since torch's sum over a lane's rows rounds it
+    by its address (``scripts/slot_trace.py --case vandevusse``)."""
+    if x.device.type == "cpu":
+        return x.sum(1, keepdim=True)
+    return lane_baddbmm(None, ones, x)
+
+
+def _row_norm(x):
+    """The 2-norm of each (m, 1) of a (B, m, 1) batch; on the card the
+    square root of the batched product x'x, as ``_row_sum``."""
+    if x.device.type == "cpu":
+        return torch.linalg.vector_norm(x, dim=1, keepdim=True)
+    return torch.sqrt(lane_baddbmm(None, x.transpose(1, 2), x))
+
+
 def _max_step(v, dv):
     """Fraction-to-the-boundary step per lane (rows on axis 0); NaN
     propagates (as jnp.min does)."""
@@ -126,21 +176,25 @@ def solve_qp(H, f, G, h, iters: int = 30, init=None):
 
     Eager PyTorch with every vector a (B, k, 1) column and every
     matrix-vector product adding its vector term in the same batched call
-    (``torch.baddbmm``): ~80 ops per iteration.  Sums run in another order
-    than the JAX package's (rounding only)."""
+    (``torch.baddbmm``): ~80 ops per iteration.  On the card the products
+    run in chunks of CARD_LANES candidates and the sums over a candidate's
+    rows as batched products too (``_row_sum``): a lane's bits follow
+    neither its slot nor, in a batch padded to CARD_LANES lanes, the
+    batch's width.  Sums run in another order than the JAX package's
+    (rounding only)."""
     B, n = f.shape
     m = h.shape[1]
     kw = dict(dtype=f.dtype, device=f.device)
     Gt = G.transpose(1, 2)
     f, h = f[:, :, None], h[:, :, None]
+    ones = torch.ones((B, 1, m), **kw)
 
     def residuals(z, lam, s):
-        r_d = torch.baddbmm(torch.baddbmm(f, H, z), Gt, lam)
-        r_p = torch.baddbmm(s - h, G, z)
+        r_d = lane_baddbmm(lane_baddbmm(f, H, z), Gt, lam)
+        r_p = lane_baddbmm(s - h, G, z)
         ls = lam * s
-        gap = ls.sum(1, keepdim=True)
-        merit = (torch.linalg.vector_norm(r_d, dim=1, keepdim=True)
-                 + torch.linalg.vector_norm(r_p, dim=1, keepdim=True) + gap)
+        gap = _row_sum(ls, ones)
+        merit = _row_norm(r_d) + _row_norm(r_p) + gap
         return r_d, r_p, ls, gap, merit
 
     def solve(L, rhs):
@@ -148,11 +202,11 @@ def solve_qp(H, f, G, h, iters: int = 30, init=None):
 
     if init is None:
         z = torch.zeros_like(f)
-        s = torch.clamp_min(h - torch.bmm(G, z), 1.0)
+        s = torch.clamp_min(h - lane_baddbmm(None, G, z), 1.0)
         lam = torch.ones_like(h)
     else:
         z = init[0][:, :, None]
-        s = torch.clamp_min(h - torch.bmm(G, z), WS_EPS)
+        s = torch.clamp_min(h - lane_baddbmm(None, G, z), WS_EPS)
         lam = torch.clamp_min(init[1][:, :, None], WS_EPS)
 
     ridge, w_cap = pdip_constants(f.dtype)
@@ -181,21 +235,21 @@ def solve_qp(H, f, G, h, iters: int = 30, init=None):
         mb = torch.where(take, mnew, mb)
 
         w = torch.minimum(lam / s, w_cap)
-        L = spd_factor(torch.baddbmm(H_ridge, Gt, G * w))
+        L = spd_factor(lane_baddbmm(H_ridge, Gt, G * w))
         neg_rd = -r_d
 
-        dz_aff = solve(L, torch.baddbmm(neg_rd, Gt, lam - w * r_p))
-        ds_aff = -torch.baddbmm(r_p, G, dz_aff)
+        dz_aff = solve(L, lane_baddbmm(neg_rd, Gt, lam - w * r_p))
+        ds_aff = -lane_baddbmm(r_p, G, dz_aff)
         dlam_aff = -(ls + lam * ds_aff) / s
         a_aff = max_step(s, ds_aff, lam, dlam_aff)
-        mu_aff = ((lam + a_aff * dlam_aff) * (s + a_aff * ds_aff)).sum(
-            1, keepdim=True) / m
+        mu_aff = _row_sum((lam + a_aff * dlam_aff) * (s + a_aff * ds_aff),
+                          ones) / m
         sig_r = mu_aff / (mu + 1e-30)
         sigma = sig_r * sig_r * sig_r
 
         r_cent = ls - sigma * mu + dlam_aff * ds_aff
-        dz = solve(L, torch.baddbmm(neg_rd, Gt, r_cent / s - w * r_p))
-        ds = -torch.baddbmm(r_p, G, dz)
+        dz = solve(L, lane_baddbmm(neg_rd, Gt, r_cent / s - w * r_p))
+        ds = -lane_baddbmm(r_p, G, dz)
         dlam = -(r_cent + lam * ds) / s
         a = max_step(s, ds, lam, dlam)
         z, lam, s = z + a * dz, lam + a * dlam, s + a * ds
@@ -257,12 +311,15 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
     n, B = f.shape
     kw = dict(dtype=f.dtype, device=f.device)
     lsum = lambda x: lane_sum(x, batch_major)
+    # the open legs' products as lane_mm takes them (they run sharded); the
+    # step loops' (the per-step engine, the plain versions) as they come
+    mm = lane_mm if batch_major else torch.matmul
 
     def Gmat(z):
-        return rmask * (G0 @ (cmask * z))
+        return rmask * mm(G0, cmask * z)
 
     def GTmat(y):
-        return cmask * (G0.T @ (rmask * y))
+        return cmask * mm(G0.T, rmask * y)
 
     def residuals(z, lam, s):
         r_d = torch.einsum("ijb,jb->ib", Hp, z) + f + GTmat(lam)
@@ -302,7 +359,7 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
         mb = torch.where(take, mnew, mb)
 
         w = torch.minimum(lam / s, w_cap) * rmask
-        M = Hp + (T2T @ w).reshape(n, n, B) * cc + ridge_eye
+        M = Hp + mm(T2T, w).reshape(n, n, B) * cc + ridge_eye
         L = factor(M)
 
         dz_aff = solve(L, -r_d + GTmat(lam - w * r_p))
@@ -333,7 +390,7 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
 def _slack_violation(z, G0, rmask, cmask, h):
     """(1, B): each lane's largest soft-row violation G z - h per unit of
     its ECR slack coefficient (NaN propagates, as jnp.max does)."""
-    viol = torch.clamp_min(rmask * (G0 @ (cmask * z)) - h, 0.0)
+    viol = torch.clamp_min(rmask * lane_mm(G0, cmask * z) - h, 0.0)
     V = torch.clamp_min(-G0[:, -1:], 0.0)
     ratio = torch.where(V > 1e-12, viol / torch.clamp_min(V, 1e-12), 0.0)
     return ratio.amax(0, keepdim=True)

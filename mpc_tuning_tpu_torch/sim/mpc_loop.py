@@ -66,13 +66,14 @@ from mpc_tuning_tpu_torch.ops.mpc_qp import (
     pin_precision,
     qp_step_data,
 )
-from mpc_tuning_tpu_torch.ops.qp import (pdip_lanes, solve_qp, solve_qp_admm,
-                                         solve_qp_masked, split_stage2)
+from mpc_tuning_tpu_torch.ops.qp import (CARD_LANES, pdip_lanes, solve_qp,
+                                         solve_qp_admm, solve_qp_masked,
+                                         split_stage2)
 
 __all__ = ["MPCLoop", "horizon_caps", "ENGINES", "STEP_ENGINES",
            "BATCH_MAJOR_ENGINES", "ADMM_ENGINES", "sim_inputs", "run_engine",
            "step_engine", "BAND_LP_ITERS", "BAND_S2_ITERS",
-           "require_band_dtype"]
+           "require_band_dtype", "pad_lanes", "card_lanes"]
 
 BATCH_MAJOR_ENGINES = ("pdip", "pdip_ws", "pdip_dense", "admm")
 STEP_ENGINES = ("pdip_ws_fused", "pdip_ws_lanes",
@@ -103,6 +104,31 @@ def require_band_dtype(dtype):
         raise ValueError(f"band (y-constrained) cases run at float64 only, "
                          f"got {dtype}: float32 band loops leave the hard "
                          "input bounds")
+
+
+def pad_lanes(run, lanes, *batched):
+    """``run(*batched)`` -> a tuple of (B, ...) tensors, run on the batch
+    padded by repeating its last candidate to two lanes at least and to a
+    multiple of ``lanes``; returns each output's first B.  A lane's bits
+    must not depend on the batch's width (a candidate mesh cuts a batch
+    into shards of any width): the BLAS's matrix-vector path, which a
+    product of width 1 takes on the CPU and on the card, rounds otherwise
+    than its matrix-matrix one, and on the card cuBLAS picks its algorithm
+    by the width, so the eager loops run there at a multiple of
+    ``ops/qp.CARD_LANES`` lanes (``card_lanes``)."""
+    B = len(batched[0])
+    total = max(2, -(-B // lanes) * lanes)
+    if total == B:
+        return run(*batched)
+    out = run(*[np.concatenate([x, np.repeat(x[-1:], total - B, axis=0)])
+                for x in map(np.asarray, batched)])
+    return tuple(o[:B] for o in out)
+
+
+def card_lanes(device) -> int:
+    """The lane multiple of an eager loop's batch on ``device``
+    (``pad_lanes``): CARD_LANES on the card, 1 on the CPU."""
+    return CARD_LANES if torch.device(device).type == "cuda" else 1
 
 
 def horizon_caps(p_max, m_max, N_b, Nu_b):
@@ -183,7 +209,7 @@ class MPCLoop:
             caps = horizon_caps(s.p_max, s.m_max, N_b, Nu_b)
         loop = self.capped(*caps)
         c = loop.arrays(dtype, device)
-        as_long = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.long,
+        as_long = lambda x: torch.as_tensor(np.array(x), dtype=torch.long,
                                             device=device)
         as_f = lambda x: torch.as_tensor(np.array(x, dtype=np.float64),
                                          dtype=dtype, device=device)
@@ -217,23 +243,32 @@ class MPCLoop:
         N_b / Nu_b (B,), delta_b (B, ny), lam_b (B, nu).  ``qp_iters`` is
         the engine's iteration count (ADMM or PDIP; 'band_sim' runs its
         fixed BAND_LP_ITERS + BAND_S2_ITERS).  Returns (Y (B, nit, ny),
-        U (B, nit, nu)) tensors on ``device``."""
-        inputs = self.sim_inputs(r_b, v, N_b, Nu_b, delta_b, lam_b, nit,
-                                 dtype, engine, device, caps)
-        return run_engine(engine, *inputs, qp_iters)
+        U (B, nit, nu)) tensors on ``device``; a lone candidate runs as
+        two lanes (``pad_lanes``)."""
+        return pad_lanes(
+            lambda *b: run_engine(engine, *self.sim_inputs(
+                b[0], v, *b[1:], nit, dtype, engine, device, caps), qp_iters),
+            1, r_b, N_b, Nu_b, delta_b, lam_b)
 
     def open_batch(self, rfin_b, v, N_b, Nu_b, delta_b, lam_b, nit, dtype,
                    qp_iters, device="cuda", caps=None):
         """Open-loop playback of a candidate batch: rfin_b (B, ny) final
-        setpoints.  Returns (Y (B, nit, ny), U (B, nit, nu)) tensors."""
+        setpoints.  Returns (Y (B, nit, ny), U (B, nit, nu)) tensors; the
+        batch runs padded (``pad_lanes``: two lanes at least, on the card a
+        multiple of CARD_LANES)."""
         v = np.asarray(v)
-        loop, c, N_t, Nu_t, (r_t, vf_t, v_t, d_t, l_t) = self._batch(
-            N_b, Nu_b, caps, dtype, device, rfin_b, v[nit - 1], v[:nit],
-            delta_b, lam_b)
-        d = loop.dims
-        return open_loop_batch(c, r_t, vf_t, v_t, N_t, Nu_t, d_t, l_t,
-                               d["p_max"], d["m_max"], d["ny"], d["nu"],
-                               d["rho"], qp_iters, d["with_y"])
+
+        def run(rfin_b, N_b, Nu_b, delta_b, lam_b):
+            loop, c, N_t, Nu_t, (r_t, vf_t, v_t, d_t, l_t) = self._batch(
+                N_b, Nu_b, caps, dtype, device, rfin_b, v[nit - 1], v[:nit],
+                delta_b, lam_b)
+            d = loop.dims
+            return open_loop_batch(c, r_t, vf_t, v_t, N_t, Nu_t, d_t, l_t,
+                                   d["p_max"], d["m_max"], d["ny"], d["nu"],
+                                   d["rho"], qp_iters, d["with_y"])
+
+        return pad_lanes(run, card_lanes(device), rfin_b, N_b, Nu_b,
+                         delta_b, lam_b)
 
     # -------------------------------------------------------------- API
     def simulate(self, r, v, nit, N, Nu, delta, lam, dtype=torch.float64,
@@ -293,14 +328,17 @@ def open_loop_batch(c, r_final, v_final, v_traj, N, Nu, delta, lam,
     idx = torch.clamp(torch.arange(nit, device=dev), 0, m_max - 1)
     uopt = u_seq[:, idx]                                   # (B, nit, nu)
 
+    # the playback lane-major, the model's matrices on the left: a product
+    # with the batch as the BLAS's rows rounds a lane by the batch's width
     A_m, B_m, C_m = c["A_pl_model"], c["B_pl_model"], c["C_pl_model"]
-    x = torch.zeros((B, A_m.shape[0]), dtype=dtype, device=dev)
-    ys = torch.empty((B, nit, ny), dtype=dtype, device=dev)
+    x = torch.zeros((A_m.shape[0], B), dtype=dtype, device=dev)
+    ys = torch.empty((nit, ny, B), dtype=dtype, device=dev)
+    u_l = uopt.permute(1, 2, 0).contiguous()               # (nit, nu, B)
     for k in range(nit):
-        ys[:, k] = x @ C_m.T
-        uv = torch.cat([uopt[:, k], v_traj[k].expand(B, nd)], dim=1)
-        x = x @ A_m.T + uv @ B_m.T
-    return ys, uopt
+        ys[k] = C_m @ x
+        uv = torch.cat([u_l[k], v_traj[k][:, None].expand(nd, B)], dim=0)
+        x = A_m @ x + B_m @ uv
+    return ys.permute(2, 0, 1), uopt
 
 
 def sim_inputs(engine, c, r_b, v, N_b, Nu_b, delta_b, lam_b, p_max, m_max,

@@ -32,8 +32,9 @@ import torch
 from mpc_tuning_tpu_torch.models.ode import rollout_inputs
 from mpc_tuning_tpu_torch.ops.kernels import nmpc_rollout, require_device
 from mpc_tuning_tpu_torch.ops.mpc_qp import pin_precision
-from mpc_tuning_tpu_torch.ops.qp import solve_qp
-from mpc_tuning_tpu_torch.sim.mpc_loop import horizon_caps
+from mpc_tuning_tpu_torch.ops.qp import lane_baddbmm, lane_mm, solve_qp
+from mpc_tuning_tpu_torch.sim.mpc_loop import (card_lanes, horizon_caps,
+                                               pad_lanes)
 
 __all__ = ["NMPCSpec", "NMPCLoop", "nmpc_closed_core", "nmpc_open_core"]
 
@@ -108,17 +109,15 @@ class NMPCLoop:
                 "have 0 columns); thread them through the model rhs instead"
             )
 
-    def _batch(self, v, N_b, Nu_b, caps, dtype, device, mesh, *vals):
+    def _batch(self, v, N_b, Nu_b, caps, dtype, device, *vals):
         """Capped loop, its constants and the batch as device tensors."""
         self._check_no_md(v)
-        if mesh is not None:
-            raise NotImplementedError("candidate sharding (mesh) is not ported")
         require_device(device)
         pin_precision()
         if caps is None:
             caps = horizon_caps(self.spec.p_max, self.spec.m_max, N_b, Nu_b)
         loop = self.capped(*caps)
-        as_long = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.long,
+        as_long = lambda x: torch.as_tensor(np.array(x), dtype=torch.long,
                                             device=device)
         as_f = lambda x: torch.as_tensor(np.array(x, dtype=np.float64),
                                          dtype=dtype, device=device)
@@ -127,24 +126,35 @@ class NMPCLoop:
 
     # ------------------------------------------------------------- API
     def closed_batch(self, r_b, v, N_b, Nu_b, delta_b, lam_b, nit,
-                     dtype=torch.float64, mesh=None, caps=None,
-                     device="cuda"):
+                     dtype=torch.float64, caps=None, device="cuda"):
         """Closed loops of a candidate batch at the batch's capacity bucket:
         r_b (B, nit, ny), N_b / Nu_b (B,), delta_b (B, ny), lam_b (B, nu).
-        Returns (Y (B, nit, ny), U (B, nit, nu)) tensors on ``device``."""
-        spec, c, N, Nu, (r, d, l) = self._batch(
-            v, N_b, Nu_b, caps, dtype, device, mesh, np.asarray(r_b)[:, :nit],
-            delta_b, lam_b)
-        return nmpc_closed_core(spec, c, r, N, Nu, d, l)
+        Returns (Y (B, nit, ny), U (B, nit, nu)) tensors on ``device``; the
+        batch runs padded (``sim/mpc_loop.pad_lanes``: two lanes at least,
+        on the card a multiple of ``ops/qp.CARD_LANES``).  A candidate mesh
+        shards the batch one level up (``TuningProblem.mesh``)."""
+        def loops(r_b, N_b, Nu_b, delta_b, lam_b):
+            spec, c, N, Nu, (r, d, l) = self._batch(
+                v, N_b, Nu_b, caps, dtype, device, np.asarray(r_b)[:, :nit],
+                delta_b, lam_b)
+            return nmpc_closed_core(spec, c, r, N, Nu, d, l)
+
+        return pad_lanes(loops, card_lanes(device), r_b, N_b, Nu_b, delta_b,
+                         lam_b)
 
     def open_batch(self, rfin_b, v, N_b, Nu_b, delta_b, lam_b, nit,
-                   dtype=torch.float64, mesh=None, caps=None, device="cuda"):
+                   dtype=torch.float64, caps=None, device="cuda"):
         """One solve at (x0, u0) with the final setpoints rfin_b (B, ny),
         its moves (held) played through the model.  Returns (Y (B, nit,
-        ny), U (B, nit, nu)) tensors on ``device``."""
-        spec, c, N, Nu, (r, d, l) = self._batch(
-            v, N_b, Nu_b, caps, dtype, device, mesh, rfin_b, delta_b, lam_b)
-        return nmpc_open_core(spec, c, r, N, Nu, d, l, nit)
+        ny), U (B, nit, nu)) tensors on ``device``; the batch runs padded
+        as ``closed_batch``'s."""
+        def loops(rfin_b, N_b, Nu_b, delta_b, lam_b):
+            spec, c, N, Nu, (r, d, l) = self._batch(
+                v, N_b, Nu_b, caps, dtype, device, rfin_b, delta_b, lam_b)
+            return nmpc_open_core(spec, c, r, N, Nu, d, l, nit)
+
+        return pad_lanes(loops, card_lanes(device), rfin_b, N_b, Nu_b,
+                         delta_b, lam_b)
 
     def simulate(self, r, v, nit, N, Nu, delta, lam, dtype=torch.float64,
                  device="cuda"):
@@ -203,10 +213,13 @@ def _nmpc_control(spec, c, x, u_prev, rk, N, Nu, delta, lam):
         Yf, J = nmpc_rollout(spec, x, u_prev, du, col_mask, p, jac=True)
         e = Yf - rk_t
         JQ = J * q[:, :, None]
-        H[:, :-1, :-1] = 2.0 * (torch.bmm(J.transpose(1, 2), JQ) + r_diag)
-        f = torch.cat([2.0 * (torch.bmm(JQ.transpose(1, 2), e[:, :, None])[:, :, 0]
-                              + r_w * du), zero1], 1)
-        u_seq = (du * cm) @ c["Tcum"].T + u_tile
+        # batched products in chunks of CARD_LANES on the card, the shared
+        # Tcum product lane-major (ops/qp.lane_baddbmm, lane_mm)
+        H[:, :-1, :-1] = 2.0 * (lane_baddbmm(None, J.transpose(1, 2), JQ)
+                                + r_diag)
+        JQe = lane_baddbmm(None, JQ.transpose(1, 2), e[:, :, None])
+        f = torch.cat([2.0 * (JQe[:, :, 0] + r_w * du), zero1], 1)
+        u_seq = lane_mm(c["Tcum"], (du * cm).T).T + u_tile
         G = torch.cat([G_u, torch.cat([J, neg1], 2) * en_hi[:, :, None],
                        torch.cat([-J, neg1], 2) * en_lo[:, :, None], last], 1)
         h = torch.cat([

@@ -106,10 +106,9 @@ def build_problem(case: LinearCase, dtype=torch.float64, qp_iters: int = 30,
 
     ``device`` is where every candidate evaluation runs: the card by
     default (a host without one raises), "cpu" for the plain versions.
-    ``mesh`` (candidate sharding over devices) is not ported."""
+    ``mesh`` (``parallel.sweep.candidate_mesh``): shard every candidate
+    batch over its devices instead (``TuningProblem.mesh``)."""
     require_device(device)
-    if mesh is not None:
-        raise NotImplementedError("candidate sharding (mesh) is not ported")
     if L is None or R is None:
         L, R, Ru, Rv, S, cond_before = _condition_case(case)
     else:
@@ -154,7 +153,7 @@ def build_problem(case: LinearCase, dtype=torch.float64, qp_iters: int = 30,
         w=np.asarray(case.w, dtype=np.float64),
         band_mask=np.asarray(case.ov_weight0) == 0.0,
         dmin=dmin, nbp=case.nbp, nbc=case.nbc,
-        dtype=dtype, device=device, qp_iters=qp_iters,
+        dtype=dtype, device=device, qp_iters=qp_iters, mesh=mesh,
     )
     return problem, (L, R, Ru, Rv, S, cond_before)
 
@@ -476,7 +475,10 @@ def mpc_tuning(
     from the file, reproducing the uninterrupted result exactly.  When
     ``state_path`` is None but a checkpoint_dir is given, the state goes to
     <checkpoint_dir>/<case>_tuning_state.json (the same schema as the JAX
-    package's).  ``mesh`` is not ported and raises."""
+    package's).  ``mesh`` (``parallel.sweep.candidate_mesh``): every
+    candidate batch of the alternation, the final polish and the joint
+    polish is sharded over its devices, each shard on the engine the
+    unsharded batch runs."""
     pin_precision()
     problem, (L, R, Ru, Rv, S, cond_before) = build_problem(
         case, dtype, qp_iters, L=L, R=R, device=device, mesh=mesh)

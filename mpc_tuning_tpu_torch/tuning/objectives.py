@@ -17,7 +17,8 @@ non-square systems.
 
 Every candidate (and every selector) is one lane of a batched closed-loop
 simulation — the whole neighborhood/population evaluates in one device
-call.
+call, or, under a candidate mesh (``TuningProblem.mesh``), in one call a
+shard (``parallel/sweep.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from mpc_tuning_tpu_torch.ops.kernels import require_device
+from mpc_tuning_tpu_torch.parallel.sweep import CandidateMesh, map_shards
 from mpc_tuning_tpu_torch.sim.mpc_loop import (ADMM_ENGINES, ENGINES, MPCLoop,
                                                horizon_caps,
                                                require_band_dtype)
@@ -75,7 +77,11 @@ def resolve_qp_method(method: str, stage: str = "gam", f64: bool = False,
 class TuningProblem:
     """Everything the tuner needs about one case (conditioned units).
     ``loop`` is an MPCLoop (linear cases) or an NMPCLoop (nonlinear cases:
-    one engine, the qp_method fields unused)."""
+    one engine, the qp_method fields unused).  ``mesh`` (a
+    ``parallel.sweep.CandidateMesh``): when set, every batch is padded to
+    a multiple of its size, each shard evaluated on its device by the
+    engine the batch would run unsharded, at the batch's capacity bucket,
+    and the outputs gathered; ``device`` is then unused by evaluations."""
 
     loop: MPCLoop | NMPCLoop
     r: np.ndarray  # (nit, ny) case setpoints (conditioned)
@@ -97,6 +103,7 @@ class TuningProblem:
     qp_method: str = "auto"
     vns_qp_method: str = "auto"
     admm_iters: int = 40  # warm ADMM iterations when an ADMM engine runs
+    mesh: CandidateMesh | None = None
 
     def __post_init__(self):
         require_device(self.device)
@@ -128,24 +135,42 @@ class TuningProblem:
         s = self.loop.spec if self._nmpc else self.loop.ctl.spec
         return horizon_caps(s.p_max, s.m_max, N_b, Nu_b)
 
+    def _run(self, evaluate, *batched):
+        """``evaluate(device, *batched) -> (Y, U)`` on the whole batch on
+        ``device``, or on each shard of ``mesh``; returns NumPy (Y, U),
+        C-contiguous either way (NumPy's sums round by the layout).  The
+        callers fix the capacity bucket from the whole batch on the host
+        before sharding: every shard runs at it."""
+        if self.mesh is None:
+            Y, U = evaluate(self.device, *batched)
+        else:
+            Y, U = map_shards(self.mesh, evaluate, *batched)
+        return Y.cpu().contiguous().numpy(), U.cpu().contiguous().numpy()
+
+    def engine(self, stage="gam"):
+        """The closed-loop engine of ``stage`` (``resolve_qp_method``);
+        a mesh does not change it."""
+        raw = self.vns_qp_method if stage == "vns" else self.qp_method
+        return resolve_qp_method(raw, stage=stage,
+                                 f64=self.dtype == torch.float64,
+                                 band=self.loop.ctl.spec.has_y_constraints)
+
     def closed_batch(self, r_b, N_b, Nu_b, delta_b, lam_b, stage="gam"):
         """Batched closed loops; returns NumPy (Y, U) in ``dtype``."""
+        caps = self._caps(N_b, Nu_b)
+        batched = (np.asarray(r_b, dtype=np.float64), N_b, Nu_b, delta_b,
+                   lam_b)
         if self._nmpc:
-            Y, U = self.loop.closed_batch(
-                np.asarray(r_b, dtype=np.float64), self.v, N_b, Nu_b,
-                delta_b, lam_b, self.nit, self.dtype,
-                caps=self._caps(N_b, Nu_b), device=self.device)
-            return Y.cpu().numpy(), U.cpu().numpy()
-        raw = self.vns_qp_method if stage == "vns" else self.qp_method
-        engine = resolve_qp_method(raw, stage=stage,
-                                   f64=self.dtype == torch.float64,
-                                   band=self.loop.ctl.spec.has_y_constraints)
+            return self._run(
+                lambda dev, r, N, Nu, d, l: self.loop.closed_batch(
+                    r, self.v, N, Nu, d, l, self.nit, self.dtype, caps=caps,
+                    device=dev), *batched)
+        engine = self.engine(stage)
         iters = self.admm_iters if engine in ADMM_ENGINES else self.qp_iters
-        Y, U = self.loop.closed_batch(
-            np.asarray(r_b, dtype=np.float64), self.v, N_b, Nu_b, delta_b,
-            lam_b, self.nit, self.dtype, iters, engine=engine,
-            device=self.device, caps=self._caps(N_b, Nu_b))
-        return Y.cpu().numpy(), U.cpu().numpy()
+        return self._run(
+            lambda dev, r, N, Nu, d, l: self.loop.closed_batch(
+                r, self.v, N, Nu, d, l, self.nit, self.dtype, iters,
+                engine=engine, device=dev, caps=caps), *batched)
 
     def open_batch(self, rfin_b, N_b, Nu_b, delta_b, lam_b):
         """Batched open-loop playbacks; returns NumPy (Y, U) in ``dtype``.
@@ -153,13 +178,14 @@ class TuningProblem:
         the slack-frozen stage 2 at ``qp_iters``), as the JAX package's
         qp_split / qp_lp flags do: MPCLoop.open_batch reads it off the
         case, so the open leg never runs the stalling joint solve."""
-        args = (np.asarray(rfin_b, dtype=np.float64), self.v, N_b, Nu_b,
-                delta_b, lam_b, self.nit, self.dtype)
-        if not self._nmpc:
-            args += (self.qp_iters,)
-        Y, U = self.loop.open_batch(*args, device=self.device,
-                                    caps=self._caps(N_b, Nu_b))
-        return Y.cpu().numpy(), U.cpu().numpy()
+        caps = self._caps(N_b, Nu_b)
+        extra = () if self._nmpc else (self.qp_iters,)
+        return self._run(
+            lambda dev, r, N, Nu, d, l: self.loop.open_batch(
+                r, self.v, N, Nu, d, l, self.nit, self.dtype, *extra,
+                device=dev, caps=caps),
+            np.asarray(rfin_b, dtype=np.float64), N_b, Nu_b, delta_b,
+            lam_b)
 
 
 def _apply_band(delta: np.ndarray, band_mask: np.ndarray) -> np.ndarray:

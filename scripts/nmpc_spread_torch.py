@@ -132,7 +132,7 @@ def main():
                 rng.uniform(0.05, 0.5, (args.B, 2)))
     B = len(N)
     batch = lambda dev: problem.loop._batch(
-        problem.v, N, Nu, (p_cap, m_cap), torch.float64, dev, None, *vals)
+        problem.v, N, Nu, (p_cap, m_cap), torch.float64, dev, *vals)
     spec, c, Nt, Nut, (r, d, l) = batch("cpu")
     steps = [k for k in windows(args.windows) if 1 <= k < nit]
     head = (f"VdV NMPC f64, B={B} caps=({p_cap},{m_cap}) nit={nit} "

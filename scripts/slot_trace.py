@@ -1,21 +1,27 @@
 """Find the first operation that makes a lane's result depend on where a
-batch puts it: score one float32 Shell3x3 VNS batch in which several slots
-hold the same candidate, and compare those lanes bit for bit after every
-operation.
+batch puts it: score one VNS batch in which several slots hold the same
+candidate, and compare those lanes bit for bit after every operation; then
+score the same batches cut into shards (``TuningProblem.mesh``) and compare
+them with the whole batch bit for bit.
 
-    PYTHONPATH=. python scripts/slot_trace.py [--device cpu] [--nit NIT] \\
-        [--tune] [--out FILE]
+    PYTHONPATH=. python scripts/slot_trace.py [--case CASE] [--device cpu] \\
+        [--nit NIT] [--tune] [--only BATCH] [--shards 2,3] [--out FILE]
 
-The batch is the VNS neighbourhood of an incumbent (``chip_smoke.
-vns_neighbours``: the distinct (N, max Nu) pairs) with the incumbent's own
-(N, max Nu) inserted at the first, a middle, two neighbouring and the last
-slot, scored by ``tuning/objectives.vns_objective_batch`` with VNS through
-'admm_fused' at 40 iterations, as ``chip_smoke.py`` phase 3c sets it.
-With ``--tune`` the incumbent and its weights are phase 3c's tune result
-at this ``--nit`` (default chip_smoke.S3_NIT; about 12 s on the card),
+``--case``: shell3x3 (default: float32, VNS through 'admm_fused' at 40
+iterations and GAM through 'pdip_ws_fused', as ``chip_smoke.py`` phase 3c
+sets it), woodberry (float32, the engines ``resolve_qp_method`` picks:
+'pdip_sim' / 'admm_sim'), shell7x5 (float64, 'band_sim'; one lane a
+candidate: the non-square protocol) or vandevusse (float64, the NMPC
+loop).  The batch is the VNS neighbourhood of an incumbent (the distinct
+(N, max Nu) pairs) with the incumbent's own (N, max Nu) inserted at the
+first, a middle, two neighbouring and the last slot, scored by
+``tuning/objectives.vns_objective_batch``.  With ``--tune`` the incumbent
+and its weights are phase 3c's tune budget's result on the case at this
+``--nit`` (default the case's own; about 12 s on the card for Shell3x3),
 and every objective call of the tune in which one (N, max Nu) read two F
-is listed and the first traced again; without, (8, [7, 3, 2]) at the
-case's initial weights.
+is listed and the first traced again; without, (8, [7, 3, 2][:nu]) at the
+case's initial weights.  Shell3x3 also scores two batches in the smaller
+buckets (32, 8) and (16, 4).
 
 Every PyTorch operation of the call runs under a dispatch mode that, for
 each tensor with an axis as long as the batch's lane count, checks that
@@ -43,13 +49,17 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _disable_current_modes)
 from torch.utils._pytree import tree_flatten
 
-import chip_smoke as cs
-from mpc_tuning_tpu_torch.cases import shell3x3
+from mpc_tuning_tpu_torch.cases import shell3x3, shell7x5, vandevusse, \
+    woodberry
 from mpc_tuning_tpu_torch.ops import qp
-from mpc_tuning_tpu_torch.sim import mpc_loop
+from mpc_tuning_tpu_torch.parallel.sweep import candidate_mesh
+from mpc_tuning_tpu_torch.sim import mpc_loop, nmpc_loop
 from mpc_tuning_tpu_torch.sim.mpc_loop import horizon_caps
 from mpc_tuning_tpu_torch.tuning import api, vns
-from mpc_tuning_tpu_torch.tuning.objectives import vns_objective_batch
+from mpc_tuning_tpu_torch.tuning.objectives import (gam_sse_batch,
+                                                    vns_objective_batch)
+
+CASES = ("shell3x3", "woodberry", "shell7x5", "vandevusse")
 
 MAX_REPORTS = 4  # culprit operations reported per stage
 # allocations: their output holds no values yet
@@ -182,7 +192,7 @@ def staged(trace, stage, fn):
     return call
 
 
-def tuned(problem, case):
+def tuned(problem, case, x0):
     """Phase 3c's tune on ``problem``, every VNS objective call recorded:
     (incumbent bits dict, delta, lam, calls), each call a dict of its
     candidates' (N, max Nu), weights and F."""
@@ -204,7 +214,6 @@ def tuned(problem, case):
     for m in mods:
         m.vns_objective_batch = record
     try:
-        x0 = np.concatenate([case.ov_weight0, case.mvrate_weight0])
         best, delta, lam, _, _, _ = api.hybrid_tune(
             problem, case.nbp, case.nbc, x0, gam_popsize=8,
             gam_generations=3, max_alternations=1, seed=0, verbose=False,
@@ -229,13 +238,14 @@ def parted(calls):
     return out
 
 
-def batches(best):
+def batches(best, buckets=True):
     """The incumbent's VNS neighbourhoods as ``vns_search`` scores them
     (every candidate of order 1, then of order 2, duplicates and invalid
     horizons included: (N, max Nu) per candidate), the order-1
     neighbourhood's distinct pairs with the incumbent's own inserted at
-    the first, a middle, two neighbouring and the last slot, and two
-    batches in the smaller buckets (32, 8) and (16, 4) (n = 25 and 13)."""
+    the first, a middle, two neighbouring and the last slot, and with
+    ``buckets`` two Shell3x3 batches in the smaller buckets (32, 8) and
+    (16, 4) (n = 25 and 13)."""
     own = (vns.bits_to_int(best["Xv1"]),
            max(vns.bits_to_int(r) for r in best["Xv2"]))
     out = {}
@@ -249,6 +259,8 @@ def batches(best):
     for at in (len(pairs), mid + 1, mid, 0):
         pairs.insert(at, own)
     out["distinct + incumbent"] = pairs
+    if not buckets:
+        return out, own
     out["bucket (32, 8)"] = [(20, 6), (32, 8), (9, 3), (20, 6), (20, 6),
                              (17, 5), (12, 8), (20, 6), (31, 2), (20, 6)]
     out["bucket (16, 4)"] = [(12, 3), (16, 4), (12, 3), (12, 3), (9, 2),
@@ -268,36 +280,110 @@ def torch_sum_witness(device, rows=181, lanes=57):
             qp.lane_sum(x)[0].cpu().tolist())))
 
 
+def make_problem(name, nit, device):
+    """(case, problem) of ``--case``, engines and precision as the module
+    note says."""
+    if name == "vandevusse":
+        case = vandevusse.make_case(**({"nit": nit} if nit else {}))
+        return case, vandevusse.build_problem(case, torch.float64, device)
+    mod = {"shell3x3": shell3x3, "woodberry": woodberry,
+           "shell7x5": shell7x5}[name]
+    case = mod.make_case(**({"nit": nit} if nit else {}))
+    band = name == "shell7x5"
+    problem, _ = api.build_problem(
+        case, dtype=torch.float64 if band else torch.float32,
+        qp_iters=60 if band else 15, device=device)
+    if name == "shell3x3":
+        problem.qp_method, problem.vns_qp_method = ("pdip_ws_fused",
+                                                    "admm_fused")
+    problem.admm_iters = 40
+    return case, problem
+
+
+def shard_check(problem, name, pairs, delta, lam, shards):
+    """The batch's VNS objective (both legs) and a GAM batch at the
+    incumbent's horizons scored whole and over ``shards`` shards on the
+    problem's device: do the legs, F and the GAM SSE keep their bits?"""
+    N_b, Nu_b = (np.array(x) for x in zip(*pairs))
+    X = np.random.default_rng(0).uniform(
+        0.05, 2.0, size=(5, problem.my + problem.nu))
+    legs = {}
+
+    def keep(fn, k):
+        def call(*a, **kw):
+            out = fn(problem, *a, **kw)
+            legs.setdefault(k, out)  # the VNS objective's call, not GAM's
+            return out
+        return call
+
+    def score():
+        legs.clear()
+        for k in ("closed_batch", "open_batch"):
+            setattr(problem, k, keep(getattr(type(problem), k), k))
+        try:
+            F = vns_objective_batch(problem, N_b, Nu_b, delta, lam)
+            S = gam_sse_batch(problem, int(N_b[0]), int(Nu_b[0]), X)
+        finally:
+            for k in ("closed_batch", "open_batch"):
+                delattr(problem, k)
+        return F, S, dict(legs)
+
+    F0, S0, legs0 = score()
+    lines = []
+    for k in shards:
+        problem.mesh = candidate_mesh([problem.device] * k)
+        try:
+            F1, S1, legs1 = score()
+        finally:
+            problem.mesh = None
+        row = dict(batch=name, shards=k, lanes=len(legs0["closed_batch"][0]),
+                   F_equal=bool(np.array_equal(F1, F0)),
+                   F_max_abs=float(np.max(np.abs(F1 - F0))),
+                   gam_equal=bool(np.array_equal(S1, S0)),
+                   gam_max_abs=float(np.max(np.abs(S1 - S0))))
+        for leg in legs0:
+            for i, nm in enumerate("YU"):
+                a, b = legs0[leg][i], legs1[leg][i]
+                row[f"{leg} {nm}"] = float(np.max(np.abs(a - b)))
+        lines.append(row)
+        print(json.dumps(row), flush=True)
+    return lines
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--case", choices=CASES, default="shell3x3")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--nit", type=int, default=cs.S3_NIT)
+    ap.add_argument("--nit", type=int, default=None)
     ap.add_argument("--tune", action="store_true")
+    ap.add_argument("--only", default=None,
+                    help="trace only the batch of this name (e.g. "
+                         "'distinct + incumbent')")
+    ap.add_argument("--shards", default="2,3",
+                    help="shard counts of the shard check ('' skips it)")
     ap.add_argument("--out", type=pathlib.Path)
     args = ap.parse_args()
     if args.device == "cuda":
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip(), flush=True)
-    case = shell3x3.make_case(nit=args.nit)
-    problem, _ = api.build_problem(case, dtype=torch.float32, qp_iters=15,
-                                   device=args.device)
-    problem.qp_method, problem.vns_qp_method = "pdip_ws_fused", "admm_fused"
-    problem.admm_iters = 40
+    case, problem = make_problem(args.case, args.nit, args.device)
+    x0 = (vandevusse.X0_WEIGHTS if args.case == "vandevusse" else
+          np.concatenate([case.ov_weight0, case.mvrate_weight0]))
     calls = []
     if args.tune:
-        best, delta, lam, calls = tuned(problem, case)
+        best, delta, lam, calls = tuned(problem, case, x0)
     else:
         best = dict(Xv1=vns.int_to_bits(8, case.nbp),
                     Xv2=np.stack([vns.int_to_bits(v, case.nbc)
-                                  for v in (7, 3, 2)]))
-        delta, lam = case.ov_weight0, case.mvrate_weight0
-    lines = [dict(delta=delta.tolist(), lam=lam.tolist(), nit=args.nit,
-                  device=args.device,
+                                  for v in (7, 3, 2)[:problem.nu]]))
+        delta, lam = np.asarray(x0[:problem.my]), np.asarray(x0[problem.my:])
+    lines = [dict(case=args.case, delta=delta.tolist(), lam=lam.tolist(),
+                  nit=problem.nit, device=args.device,
                   witness=[torch_sum_witness(args.device, r, b)
                            for r, b in ((181, 57), (181, 117), (97, 30))])]
     print(json.dumps(lines[0]), flush=True)
-    todo, own = batches(best)
+    todo, own = batches(best, buckets=args.case == "shell3x3")
     if args.tune:
         split = parted(calls)
         lines.append(dict(tune_calls=len(calls), candidates=sum(
@@ -310,7 +396,12 @@ def main():
                                  np.asarray(c["delta"]),
                                  np.asarray(c["lam"]))
     for name, pairs in todo.items():
-        lines += trace_batch(problem, name, pairs, own, delta, lam)
+        if args.only in (None, name):
+            lines += trace_batch(problem, name, pairs, own, delta, lam)
+    shards = [int(k) for k in args.shards.split(",") if k]
+    if shards:
+        lines += shard_check(problem, "distinct + incumbent",
+                             todo["distinct + incumbent"], delta, lam, shards)
     if args.out:
         args.out.write_text(json.dumps(lines, indent=1))
 
@@ -318,11 +409,13 @@ def main():
 def trace_batch(problem, name, pairs, own, delta, lam):
     """Score the batch ``pairs`` ((N, max Nu) per candidate) under the
     trace; returns (and prints) its lines."""
-    my = problem.my
-    d = problem.loop.dims
-    p_cap, m_cap = horizon_caps(d["p_max"], d["m_max"], *zip(*pairs))
-    nm = m_cap * my
-    dims = {nm, nm + 1, 4 * nm + 1, p_cap * my, p_cap, m_cap, problem.nit}
+    my = problem.my if problem.square else 1  # lanes a candidate
+    s = problem.loop.spec if not problem.linear else problem.loop.ctl.spec
+    p_cap, m_cap = horizon_caps(s.p_max, s.m_max, *zip(*pairs))
+    nm = m_cap * problem.nu
+    py = p_cap * problem.my
+    dims = {nm, nm + 1, 4 * nm + 1, py, 2 * py, 4 * nm + 2 * py + 1, p_cap,
+            m_cap, problem.nit}
     while len(pairs) * my in dims:  # the lane axis must be the only one
         pairs = pairs + pairs[:1]
     N_b, Nu_b = (np.array(x) for x in zip(*pairs))
@@ -341,8 +434,15 @@ def trace_batch(problem, name, pairs, own, delta, lam):
         saved.append((mod, attr, getattr(mod, attr)))
         setattr(mod, attr, new)
 
-    for k in ("admm_fused", "pdip_fused"):
+    for k in ("admm_fused", "pdip_fused", "closed_sim_admm",
+              "closed_sim_pdip", "closed_sim_band"):
         patch(mpc_loop, k, trace.kernel(k, getattr(mpc_loop, k)))
+    patch(nmpc_loop, "nmpc_rollout",
+          trace.kernel("nmpc_rollout", nmpc_loop.nmpc_rollout))
+    patch(nmpc_loop, "nmpc_closed_core",
+          staged(trace, "closed loop", nmpc_loop.nmpc_closed_core))
+    patch(nmpc_loop, "nmpc_open_core",
+          staged(trace, "open leg", nmpc_loop.nmpc_open_core))
     for k in ("spd_factor", "spd_factor_solve", "factor_lanes",
               "solve_lanes"):
         patch(qp, k, trace.kernel(k, getattr(qp, k)))

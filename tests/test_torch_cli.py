@@ -60,9 +60,12 @@ def test_cli_matches_jax_and_reports(tmp_path, capsys):
 
 
 def test_cli_mesh_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        run_torch(ARGS + ["--checkpoint-dir", str(tmp_path), "--cpu",
-                          "--mesh", "1"])
+    """--mesh takes 'auto' or a positive shard count (a sharded tune:
+    tests/test_torch_parallel.py); anything else raises before a tune."""
+    for bad in ("0", "two"):
+        with pytest.raises(ValueError):
+            run_torch(ARGS + ["--checkpoint-dir", str(tmp_path), "--cpu",
+                              "--mesh", bad])
 
 
 def test_cli_needs_the_card_without_cpu(tmp_path):

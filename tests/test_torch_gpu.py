@@ -1163,7 +1163,7 @@ def test_nmpc_closed_batch_follows_plain(cuda):
     for k in ("spd_factor", "spd_factor_solve", "nmpc_rollout"):
         assert after[k] > before[k], k
     spec, c, N, Nu, (r, d, l) = problem.loop._batch(
-        problem.v, args[2], args[3], (8, 2), F64, "cpu", None, args[0],
+        problem.v, args[2], args[3], (8, 2), F64, "cpu", args[0],
         args[4], args[5])
     Yp, Up = nmpc_closed_core(spec, c, r, N, Nu, d, l, u_follow=U.cpu())
     # in the controller's scaled units (U up to 150 in raw units)
@@ -1171,3 +1171,152 @@ def test_nmpc_closed_batch_follows_plain(cuda):
                                atol=1e-9)
     torch.testing.assert_close(U.cpu() / c["sf_u"], Up / c["sf_u"], rtol=0,
                                atol=1e-9)
+
+
+# ------------------------------------------------- candidate sharding
+
+
+def _on(x, dev):
+    """x's tensors (nested in dicts, tuples and lists) copied to dev."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _on(v, dev) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_on(v, dev) for v in x)
+    return x
+
+
+def _two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+
+
+def _kernel_call(name):
+    """(fn, args) launching kernel ``name`` at a small shape, on cuda:0."""
+    if name in ("spd_factor", "spd_factor_solve", "spd_solve",
+                "factor_lanes", "solve_lanes"):
+        M, rhs = _spd_batch("cuda", 37, 17)
+        L = K.spd_factor_plain(M)
+        return {"spd_factor": (K.spd_factor, (M,)),
+                "spd_factor_solve": (K.spd_factor_solve, (L, rhs)),
+                "spd_solve": (K.spd_solve, (M, rhs)),
+                "factor_lanes": (K.factor_lanes,
+                                 (M.permute(1, 2, 0).contiguous(),)),
+                "solve_lanes": (K.solve_lanes,
+                                (L.permute(1, 2, 0).contiguous(),
+                                 rhs.T.contiguous()))}[name]
+    if name in ("pdip_fused", "admm_fused"):
+        engine = "pdip_ws_fused" if name == "pdip_fused" else "admm_fused"
+        return getattr(K, name), _step_qp(engine, F64, take=5, B=8)
+    if name == "closed_sim_band":
+        return K.closed_sim_band, _band_inputs("cuda", (32, 4), B=2, nit=8)
+    if name == "nmpc_rollout":
+        spec, x, up, du, cm, _ = _vdv_rollout_args((16, 2), B=8)
+        return (lambda *a: K.nmpc_rollout(spec, *a, 16, jac=True),
+                (x, up, du, cm))
+    engine = "admm_sim" if name == "closed_sim_admm" else "pdip_sim"
+    t, lc, Hm, r_l, dims = _inputs(engine, B=8, nit=12, caps=(32, 4))
+    if engine == "admm_sim":
+        fn = lambda *a: K.closed_sim_admm(*a, 12, 5, mpc_loop.ADMM_SIGMA,
+                                          mpc_loop.ADMM_OVER_RELAX, dims)
+    else:
+        fn = lambda *a: K.closed_sim_pdip(*a, 12, 5, dims)
+    return fn, (t, lc, Hm, r_l)
+
+
+@pytest.mark.parametrize("name", [f.__name__ for f in K._WRAPPERS])
+def test_launch_on_the_second_card(name):
+    """A launch on tensors of cuda:1 while cuda:0 is current runs on
+    cuda:1 (the wrapper makes the tensors' card current) and returns the
+    bits of the same launch on cuda:0."""
+    _two_cards()
+    fn, args = _kernel_call(name)
+    ref = fn(*args)
+    before = getattr(K, name).launches
+    with torch.cuda.device(0):
+        out = fn(*_on(args, "cuda:1"))
+    assert getattr(K, name).launches == before + 1
+    torch.cuda.synchronize(1)
+    tensors = lambda o: [t for t in (o if isinstance(o, tuple) else (o,))
+                         if t is not None]
+    for a, b in zip(tensors(out), tensors(ref)):
+        assert a.device == torch.device("cuda", 1)
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def _shard_problem(case):
+    """A small problem of ``case`` on the card at the dtype its tune takes:
+    Wood-Berry float32 ('pdip_sim' / 'admm_sim'), Shell7x5 float64
+    ('band_sim'), Van de Vusse float64 (the NMPC loop)."""
+    if case == "vandevusse":
+        c = vandevusse.make_case(nit=10)
+        return vandevusse.build_problem(c, F64, "cuda")
+    if case == "shell7x5":
+        return build_problem(shell7x5.make_case(nit=30), dtype=F64,
+                             qp_iters=60, device="cuda")[0]
+    return build_problem(woodberry.make_case(nit=60), dtype=torch.float32,
+                         qp_iters=15, device="cuda")[0]
+
+
+@pytest.mark.parametrize("cards", [1, 2])
+@pytest.mark.parametrize("case", ["woodberry", "shell7x5", "vandevusse"])
+def test_sharded_objectives_match_whole_on_the_card(cuda, case, cards):
+    """A GAM batch and a VNS neighbourhood scored over two shards (both on
+    cuda:0, or on cuda:0 and cuda:1) read the whole batch's bits: both
+    legs, F and the SSE; the shards launch the engine the whole batch
+    does."""
+    from mpc_tuning_tpu_torch.parallel.sweep import candidate_mesh
+    from mpc_tuning_tpu_torch.tuning.objectives import (gam_sse_batch,
+                                                        vns_objective_batch)
+
+    if cards == 2:
+        _two_cards()
+    problem = _shard_problem(case)
+    mesh = candidate_mesh(["cuda:0", "cuda:0" if cards == 1 else "cuda:1"])
+    rng = np.random.default_rng(3)
+    X = rng.uniform(0.05, 2.0, size=(5, problem.my + problem.nu))
+    # up to the widest bucket: Shell7x5's (127, 15) open leg has 1959 rows
+    # (a product of width 1959 that cuBLAS splits by the lanes' count)
+    spec = problem.loop.spec if case == "vandevusse" else \
+        problem.loop.ctl.spec
+    N_b = np.minimum([8, spec.p_max, 7, 30, 10, 6, spec.p_max], spec.p_max)
+    Nu_b = np.minimum([2, 3, 2, spec.m_max, 2, 2, 5], spec.m_max)
+    delta, lam = rng.uniform(0.2, 2.0, problem.my), rng.uniform(
+        0.05, 0.5, problem.nu)
+    legs = {}
+
+    def score():
+        for k in ("closed_batch", "open_batch"):
+            fn = getattr(type(problem), k)
+
+            def keep(*a, _fn=fn, _k=k, **kw):
+                out = _fn(problem, *a, **kw)
+                legs.setdefault(_k, []).append(out)
+                return out
+            setattr(problem, k, keep)
+        try:
+            K.reset_launches()
+            out = (gam_sse_batch(problem, 8, 2, X),
+                   vns_objective_batch(problem, N_b, Nu_b, delta, lam))
+            return out, K.launch_counts()
+        finally:
+            for k in ("closed_batch", "open_batch"):
+                delattr(problem, k)
+
+    (S0, F0), n0 = score()
+    whole = {k: list(v) for k, v in legs.items()}
+    legs.clear()
+    problem.mesh = mesh
+    (S1, F1), n1 = score()
+    problem.mesh = None
+    assert np.array_equal(S1, S0) and np.array_equal(F1, F0)
+    for k, calls in whole.items():
+        for (Y0, U0), (Y1, U1) in zip(calls, legs[k]):
+            assert np.array_equal(Y1, Y0) and np.array_equal(U1, U0), k
+    used = {k for k, v in n0.items() if v}
+    assert used == {k for k, v in n1.items() if v}, (n0, n1)
+    assert all(n1[k] >= n0[k] for k in used), (n0, n1)
+    back = slice(None, None, -1)  # the same candidates in the other slots
+    F2 = vns_objective_batch(problem, N_b[back], Nu_b[back], delta, lam)
+    assert np.array_equal(F2[back], F0)

@@ -264,7 +264,7 @@ def test_closed_loop_follows_given_inputs(loops):
     another U, its Y is that U's trajectory."""
     _, lt, b, r = loops
     spec, c, N, Nu, (r_t, d, l) = lt._batch(
-        None, b["N_b"], b["Nu_b"], None, torch.float64, "cpu", None,
+        None, b["N_b"], b["Nu_b"], None, torch.float64, "cpu",
         np.broadcast_to(r, (B, NIT, 2)), b["delta_b"], b["lam_b"])
     Y, U = nmpc_closed_core(spec, c, r_t, N, Nu, d, l)
     Yf, Uf = nmpc_closed_core(spec, c, r_t, N, Nu, d, l, u_follow=U)
@@ -283,7 +283,7 @@ def test_closed_loop_solves_only_the_given_steps(loops):
     Y is unchanged.  Without u_follow it raises."""
     _, lt, b, r = loops
     spec, c, N, Nu, (r_t, d, l) = lt._batch(
-        None, b["N_b"], b["Nu_b"], None, torch.float64, "cpu", None,
+        None, b["N_b"], b["Nu_b"], None, torch.float64, "cpu",
         np.broadcast_to(r, (B, NIT, 2)), b["delta_b"], b["lam_b"])
     U2 = nmpc_closed_core(spec, c, r_t, N, Nu, d, l)[1] + 0.5
     Y, U = nmpc_closed_core(spec, c, r_t, N, Nu, d, l, u_follow=U2)
@@ -298,11 +298,14 @@ def test_closed_loop_solves_only_the_given_steps(loops):
 
 
 def test_measured_disturbance_and_mesh_raise(loops):
+    """A measured disturbance raises; ``NMPCLoop`` takes no ``mesh``: a
+    candidate mesh shards the batch in ``TuningProblem`` (the sharded
+    batch equals the whole one, tests/test_torch_parallel.py)."""
     _, lt, b, r = loops
     args = (np.broadcast_to(r, (B, NIT, 2)), np.zeros((NIT, 1)), b["N_b"],
             b["Nu_b"], b["delta_b"], b["lam_b"], NIT)
     with pytest.raises(ValueError, match="measured disturbances"):
         lt.closed_batch(*args, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         lt.closed_batch(*((args[0], None) + args[2:]), mesh=object(),
                         device="cpu")
