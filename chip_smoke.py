@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py            # needs one card; about 19 minutes
+    python3 chip_smoke.py            # needs one card; about 15 minutes
 
 Phases, each printing one line (with its wall time):
  1. environment: the card (nvidia-smi name and power limit), torch and CUDA
@@ -39,11 +39,13 @@ Phases, each printing one line (with its wall time):
        two correct runs differ by; the warp-per-lane admm_fused also bit
        for bit against the one-thread design it replaced (B = 1024, 37);
     2d the NMPC slice's kernels in float64 and float32: spd_solve at n = 5,
-       17, 31; nmpc_rollout (Y and its Jacobian J, the plant step, the held
-       playback) on 256 seeded Van de Vusse states at caps (31,15) and
-       (16,2), float32 at ROLLOUT_F32_LIMITS, fixed from what two correct
-       runs differ by; one float64 NMPC closed-loop batch on the card step
-       by step against the plain loop on the CPU;
+       17, 31; nmpc_rollout with each of its steppers, RK4 and TR-BDF2 (Y
+       and its Jacobian J, the plant step, the held playback) on 256
+       seeded Van de Vusse states at caps (31,15) and (16,2), float32 at
+       ROLLOUT_F32_LIMITS / ROLLOUT_TRBDF2_F32_LIMITS, fixed from what two
+       correct runs differ by; one float64 NMPC closed-loop batch for each
+       integrator (B = 32, nit 10, caps (16,4)) on the card, held step by
+       step against the plain loop on the CPU (in a worker);
  3. the first main path: a seeded Wood-Berry hybrid tune in float32 on the
     card through ``mpc_tuning``, with every kernel's launch count, the
     tune's last batch of each whole-sim kernel against the plain version,
@@ -51,11 +53,13 @@ Phases, each printing one line (with its wall time):
     float64 plain version on the CPU;
  3b. the band main path: a seeded Shell7x5 hybrid tune in float64 on the
     card (the full case: nit 200, nbp/nbc 7/4), launch counts, its last
-    band batch against the plain version at 2b's live gate, a validity
-    check of the result
-    and of ``shell7x5.final_simulation`` on the card;
+    band batch against the plain version at 2b's live gate (the plain
+    band loops, host-bound, in their own process on the card beside
+    3k-3i: band_hold_card; the line prints after 3i), a validity check of
+    the result and of ``shell7x5.final_simulation`` on the card;
  3c. the per-step engines' path: a seeded Shell3x3 hybrid tune in float32
-    on the card (the full case: nit 500, nbp/nbc 7/4; S3_NIT) through
+    on the card (the case cut to its first 250 steps, nbp/nbc 7/4;
+    S3_NIT) through
     ``hybrid_tune`` with GAM 'pdip_ws_fused' and VNS 'admm_fused' (no
     joint weight polish), ``shell3x3.final_simulation`` on the card at
     float64 inside the input bounds, the tuned incumbent's VNS
@@ -64,12 +68,20 @@ Phases, each printing one line (with its wall time):
     of each engine against the plain step loop, as it ran (float32) and
     on its inputs cast to float64;
  3d. the NMPC path: a seeded Van de Vusse hybrid tune in float64 on the
-    card (the full case: nit 60, nbp/nbc 5/4, substeps 10, SQP 4, QP 25;
-    no joint weight polish), launch counts, its last closed-loop batch
-    against the plain loop on the CPU (Y over every step, U over the
-    windows NMPC_HOLD_WINDOWS), and the tuned controller's
-    closed loop inside the input bounds with Cb ending at its setpoint,
-    printed beside the reference's own tuning;
+    card (the full case: nit 60, nbp/nbc 5/4, substeps 10, SQP 4, QP 25,
+    RK4; no joint weight polish), launch counts, its last closed-loop
+    batch against the plain loop on the CPU (Y over every step, U over
+    the windows NMPC_HOLD_WINDOWS) at F64_SIM_GATE, and the tuned
+    controller's closed loop inside the input bounds with Cb ending at its
+    setpoint, printed beside the reference's own tuning;
+ 3k. the stiff NMPC path: 3d's tune and checks with the case's
+    integrator set to TR-BDF2 (make_case(integrator="tr_bdf2"), the
+    reference's ode15s case), its last batch held at
+    NMPC_TRBDF2_HOLD_GATE; printed beside 3d's RK4 result.  Both tunes
+    and their final closed loops run each in its own process on the card
+    (start_card_process) beside phases 2-3b, their lines print after 3b;
+    so their walls are taken on a card and host that 2-3b share (each
+    tune's wall alone: scripts/ab_tune_walls.py ROOT --nmpc);
  3e. spd_solve's own path, its public entry point (no tune calls it),
     and its refusal above the envelope (n = 65);
  3f. the open-vs-closed horizon check (cases/verify_horizons) of the
@@ -79,19 +91,23 @@ Phases, each printing one line (with its wall time):
  3g. the DTC-GPC Wood-Berry closed loop (bench.py's shapes cut to B = 256, nit
     400) at float64 and float32: lanes bit-identical, the replay oracle,
     float32 against float64, the tracking checks;
- 3h. the explicit NMPC Van de Vusse demo (nit 100, three lanes) against
-    the same loop on the CPU and the staircase checks;
+ 3h. the explicit NMPC Van de Vusse demo (nit 100, three lanes; in its
+    own process on the card beside 3j-3f) against the same loop on the
+    CPU and the staircase checks;
  3i. the front end: the batch-major scan engines 'pdip', 'pdip_ws',
     'pdip_dense' and 'admm' on Wood-Berry (B = 8, nit 60, f64) step by
     step against the plain loop on the CPU following their U; the
-    cross-evaluation (cases/cross_eval.cross_eval_all) at the cases' full
+    cross-evaluation (cases/cross_eval.cross_eval_all, in its own process
+    on the card beside 3j-3h) at the cases' full
     sizes with the claims of tests/test_cross_eval.py, its Shell3x3 rows
     against the CPU's; the fixed-tuning demos (cases/demos) against the
     CPU with their sims/s (utils/profiling.rate_of); the CLI (cli.run_main)
     on a small Wood-Berry tune with its report, then --resume.
-    The CPU runs that hold 3d, 3f, 3h and 3i run in spawned worker processes
-    (cpu_pool, started after phase 1) beside the card's phases; their
-    lines print once collected, after 3i;
+    The CPU runs that hold 2d's closed loops, 3d, 3k, 3f, 3h and 3i run
+    in spawned worker processes (cpu_pool, started after phase 1; 3i's
+    demos and cross-evaluation rows, which need nothing from the card,
+    after 2b) beside the card's phases; their lines print once
+    collected, after 3i;
  3j. candidate sharding (parallel/): (a) phase 3's Wood-Berry tune, its
     budget and seed, on two shards of the card
     (``candidate_mesh(["cuda:0", "cuda:0"])``): phase 3's N, Nu, delta and
@@ -119,7 +135,9 @@ Phases, each printing one line (with its wall time):
     and by device time (torch.profiler).  spd_solve beside its one-thread
     design at float32 B=1024 n=17 and float64 B=1024 n=31; DTC-GPC sims/s
     and the explicit NMPC loop's seconds; parallel/report.card_rows (the
-    bench shape's sims/s at B = 1024-8192, a record).
+    bench shape's sims/s at B = 1024-8192, a record).  nmpc_rollout at
+    float64 B = 256 (31, 15) with J with each stepper, a row each under
+    'shapes' with its launches on the main path (RK4's at the top level).
 Then one JSON line with the per-kernel record, the card's line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero before that line.
@@ -228,6 +246,15 @@ PLAIN = {"closed_sim_admm": "closed_sim_admm_plain",
 # digits, as phase 2d printed them on an NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md §6: witnesses Y 2.190e-07, J 7.964e-07).
 ROLLOUT_F32_LIMITS = dict(y=4.4e-07, j=1.6e-06)
+# The same for its TR-BDF2 stepper, measured the same way, as phase 2d
+# printed them on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6:
+# witnesses Y 4.380e-07, J 1.509e-06).
+ROLLOUT_TRBDF2_F32_LIMITS = dict(y=8.8e-07, j=3.1e-06)
+ROLLOUT_F32 = {"rk4": ROLLOUT_F32_LIMITS, "tr_bdf2": ROLLOUT_TRBDF2_F32_LIMITS}
+# Both TR-BDF2 witnesses peaked at (16, 2); phase 2d measures them there
+# only (the plain TR-BDF2 rollout with J at (31, 15) takes ~10 s a run on
+# the card) and holds (31, 15) at the frozen limits.
+TRBDF2_WITNESS_CAPS = (16, 2)
 # the reference's own tuning of the Van de Vusse case (BASELINE.md:23):
 # printed beside phase 3d's result, not a gate (the budgets differ)
 VDV_REFERENCE = dict(N=3, Nu=[2, 2], delta=[0.0930, 0.1133],
@@ -240,11 +267,19 @@ CB_SETPOINT, CB_TOL = 1.0, 0.1  # phase 3d: Cb ends within 0.1 of 1.0
 # (step 40).  A solved step at p = 31 costs ~3 s on the CPU: all 60 took
 # 161.5 s (PERF.md).
 NMPC_HOLD_WINDOWS = ((1, 12), (38, 47))
+# phase 3k's hold of its last batch, in the controller's scaled units:
+# twice what two correct plain loops whose followed U is one ulp apart
+# differ by at the window steps, 1.775e-09 at steps 38-47, rounded up to
+# two digits (scripts/nmpc_spread_torch.py --integrator tr_bdf2 --vns-last
+# 31 2 0.412407 0.162317 0.08433 0.656057: the tune's result on an NVIDIA
+# H100 80GB HBM3 at 700 W, the loops on the CPU; PERF.md §6)
+NMPC_TRBDF2_HOLD_GATE = 3.6e-9
 
 
-POOLS = []  # worker pools still open, terminated by fail
+POOLS = []  # worker pools and processes still open, terminated by fail
 PROCS = []  # background process groups (phase 3j's ranks), killed by fail
-CPU_WORKERS = 4  # the CPU runs of 3c (three), 3d (two), 3f, 3h, 3i (five)
+CPU_WORKERS = 4  # the CPU runs of 2d (two), 3k (two), 3c (three), 3d
+                 # (two), 3f, 3h, 3i (five)
 
 
 def fail(msg: str):
@@ -828,9 +863,10 @@ def band_cert_hold(kernel, band_problem, tight=()):
 
 STEP_TAKE = 85  # the Shell3x3 step whose QPs phase 2c solves (after the
                 # setpoint change at step 80)
-# phase 3c's depth: the case's 500 steps (the setpoint changes at steps 9,
-# 79 and 199, the return to rest at 399)
-S3_NIT = 500
+# phase 3c's depth: the first 250 of the case's 500 steps (the setpoint
+# changes at steps 9, 79 and 199; the return to rest at 399 is cut), cut
+# from 500 to make room for phase 3k
+S3_NIT = 250
 
 
 def to_cpu(x, fn=lambda t: t.cpu()):
@@ -1106,13 +1142,11 @@ def phase_main_path():
 
 def phase_band_main_path():
     """3b. The seeded Shell7x5 band tune on the card at float64; returns
-    the launch counts and the tune's result."""
+    the launch counts, the tune's result and its last batch's pending hold
+    (for finish_band_hold)."""
     from mpc_tuning_tpu_torch.cases import shell7x5
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.sim import mpc_loop
-    from mpc_tuning_tpu_torch.tools.band_spread import (band_gate,
-                                                        band_lane_errors,
-                                                        band_witness)
     from mpc_tuning_tpu_torch.tuning.api import mpc_tuning
 
     case = shell7x5.make_case()
@@ -1150,35 +1184,14 @@ def phase_band_main_path():
         fail(f"invalid band tuning result N={res.N} Nu={Nu} "
              f"delta={res.delta} lam={lam}")
 
-    # the tune's last band batch, held at the live witness along its U
-    args, kwargs, out_k = last["closed_sim_band"]
-    dims = kwargs["dims"]
-    caps = (args[0]["SxF"].shape[0] // dims["ny"], dims["m_max"])
-    t1 = time.perf_counter()
-    out_p = K.closed_sim_band_plain(*args, **kwargs, u_follow=out_k[1])
-    ok, held, over = band_gate(band_lane_errors(out_k, out_p),
-                               band_witness(args, kwargs, out_k[1], out_p),
-                               caps)
-    held = (f"B={out_k[0].shape[2]} caps={caps}: {held} (plain runs "
-            f"{time.perf_counter() - t1:.1f} s)")
-    if over is None:
-        fail(f"band main path's last batch {held}: above its gate")
-    if over:  # the lanes over the live limits, decided by the certificate
-        import os
-
-        from mpc_tuning_tpu_torch.ops import band_cert as bc
-
-        N_b, Nu_b, d_b, l_b = last["candidates"]
-        U, E = out_k[1].cpu().numpy(), out_k[2].cpu().numpy()
-        with bc.certify_pool(min(8, os.cpu_count() or 1)) as pool:
-            rel = {b: bc.hold_relative(
-                res.problem, N_b[b], Nu_b[b], d_b[b], l_b[b], U[:, :, b],
-                E[:, b], caps=(int(N_b[b]), int(Nu_b[b])), pool=pool,
-                device="cuda") for b in over}
-        held += " | certificate relative to the plain chain: " + "; ".join(
-            f"lane {b}: {relative_text(h)}" for b, h in rel.items())
-        if not all(h["ok"] for h in rel.values()):
-            fail(f"band main path's last batch {held}: off its certificate")
+    # the tune's last band batch, held at the live witness along its U:
+    # its plain band loops (host-bound) run in a process of their own on
+    # the card beside 3k-3i (band_hold_card), held by finish_band_hold
+    args, kwargs, out_k = to_cpu(last["closed_sim_band"])
+    caps = (args[0]["SxF"].shape[0] // kwargs["dims"]["ny"],
+            kwargs["dims"]["m_max"])
+    job = start_card_process(band_hold_card, args, kwargs, out_k)
+    held = (job, res, last["candidates"], out_k, caps)
 
     t1 = time.perf_counter()
     y, u = shell7x5.final_simulation(case, res)
@@ -1192,11 +1205,62 @@ def phase_band_main_path():
           f"delta={np.asarray(res.delta).tolist()} "
           f"lam={np.round(lam, 6).tolist()} Fvns={res.Fvns:.6g} "
           f"Fgam={res.Fgam:.6g} wall_s={wall:.2f} launches={launches} | "
-          f"last band batch vs plain: {held} | final_simulation "
+          f"last band batch vs plain: in its own process on the card, "
+          f"below after 3i | final_simulation "
           f"(card, f64, {sim_s:.2f} s): max|u| {umax:.6f} |y1| end "
           f"{abs(y[-1, 0]):.6f} |y2| end {abs(y[-1, 1]):.6f} | "
           f"phase_s={time.perf_counter() - t0:.1f}", flush=True)
-    return launches, res
+    return launches, res, held
+
+
+def band_hold_card(args, kwargs, out_k):
+    """3b's last band batch on the card in its own process
+    (start_card_process): the plain loop following the kernel's U and the
+    witness of two correct runs along it (tools/band_spread); returns
+    (the kernel's per-lane errors, the witness, the plain runs' seconds)
+    on the CPU."""
+    from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.tools.band_spread import (band_lane_errors,
+                                                        band_witness)
+
+    args, kwargs, out_k = to_cpu((args, kwargs, out_k), lambda t: t.cuda())
+    t0 = time.perf_counter()
+    out_p = K.closed_sim_band_plain(*args, **kwargs, u_follow=out_k[1])
+    errs = band_lane_errors(out_k, out_p)
+    witness = band_witness(args, kwargs, out_k[1], out_p)
+    return to_cpu(errs), to_cpu(witness), time.perf_counter() - t0
+
+
+def finish_band_hold(held):
+    """3b's last band batch (band_hold_card) at the live witness; the
+    lanes over it go to the certificate relative to the plain chain."""
+    import os
+
+    from mpc_tuning_tpu_torch.ops import band_cert as bc
+    from mpc_tuning_tpu_torch.tools.band_spread import band_gate
+
+    job, res, candidates, out_k, caps = held
+    (errs, witness, plain_s), proc_s, waited = collect_card_process(
+        job, "3b's last band batch")
+    ok, text, over = band_gate(errs, witness, caps)
+    text = (f"B={out_k[0].shape[2]} caps={caps}: {text} (plain runs on the "
+            f"card {plain_s:.1f} s in their own process, waited "
+            f"{waited:.1f} s for it)")
+    if over is None:
+        fail(f"band main path's last batch {text}: above its gate")
+    if over:  # the lanes over the live limits, decided by the certificate
+        N_b, Nu_b, d_b, l_b = candidates
+        U, E = out_k[1].numpy(), out_k[2].numpy()
+        with bc.certify_pool(min(8, os.cpu_count() or 1)) as pool:
+            rel = {b: bc.hold_relative(
+                res.problem, N_b[b], Nu_b[b], d_b[b], l_b[b], U[:, :, b],
+                E[:, b], caps=(int(N_b[b]), int(Nu_b[b])), pool=pool,
+                device="cuda") for b in over}
+        text += " | certificate relative to the plain chain: " + "; ".join(
+            f"lane {b}: {relative_text(h)}" for b, h in rel.items())
+        if not all(h["ok"] for h in rel.values()):
+            fail(f"band main path's last batch {text}: off its certificate")
+    print(f"[3b band path, last batch] vs plain: {text}", flush=True)
 
 
 # ------------------------------------------------- 3j candidate sharding
@@ -1916,22 +1980,14 @@ def nmpc_errors(spec, Y, U, Yp, Up):
             maxabs(U, Up))
 
 
-def follow_nmpc_plain(problem, args, caps, U):
-    """The plain NMPC loop on the CPU on the same batch, stepping the plant
-    on U; returns its (Y, U)."""
-    from mpc_tuning_tpu_torch.sim.nmpc_loop import nmpc_closed_core
-
-    spec, c, N, Nu, (r, d, l) = problem.loop._batch(
-        args[1], args[2], args[3], caps, torch.float64, "cpu",
-        np.asarray(args[0])[:, :args[6]], args[4], args[5])
-    return nmpc_closed_core(spec, c, r, N, Nu, d, l, u_follow=U.cpu())
-
-
-def phase_nmpc_kernels(vdv_problem):
+def phase_nmpc_kernels(problems, pool):
     """2d. The NMPC slice's kernels vs their plain versions on the card:
-    spd_solve; nmpc_rollout (Y and J, the plant step, the held playback);
-    one NMPC closed-loop batch on the card step by step against the plain
-    loop on the CPU.  Returns {name: max_abs_err (f64)}."""
+    spd_solve; nmpc_rollout with each integrator (Y and J, the plant step,
+    the held playback); one NMPC closed-loop batch for each integrator on
+    the card, its plain loop on the CPU following the card's U started in
+    ``pool`` (finish_nmpc_closed collects it).  ``problems``: {integrator:
+    the Van de Vusse problem on the card}.  Returns ({name: max_abs_err
+    (f64)}, the pending closed-loop holds)."""
     from mpc_tuning_tpu_torch.models import ode
     from mpc_tuning_tpu_torch.ops import kernels as K
 
@@ -1954,95 +2010,133 @@ def phase_nmpc_kernels(vdv_problem):
             if ex > (F64_SPD_GATE if f64 else F32_SPD_GATE):
                 bad.append(rows[-1])
 
-    spec = vdv_problem.loop.spec
-    for caps in ((31, 15), (16, 2)):
-        for dtype in (torch.float64, torch.float32):
-            f64 = dtype == torch.float64
-            tag = "f64" if f64 else "f32"
-            cspec, x, up, du, cm, Nu = vdv_rollout_args(spec, caps, 256, dtype,
-                                                        caps[0])
-            args = (cspec, x, up, du, cm, caps[0])
-            Yk, Jk = K.nmpc_rollout(*args, jac=True)
-            Yp, Jp = ode.nmpc_rollout_plain(*args, jac=True)
-            torch.cuda.synchronize()
-            if not (torch.isfinite(Yk).all() and torch.isfinite(Jk).all()):
-                fail(f"nmpc_rollout {caps} {tag}: non-finite output")
-            ey, ej = rel(Yk, Yp), rel(Jk, Jp)
-            head = f"nmpc_rollout{caps}:{tag}=Y {ey:.3e} J {ej:.3e}"
-            if f64:
-                # the plant step (m = 0) and the open leg's held playback
-                none = torch.zeros((256, 0), dtype=dtype, device="cuda")
-                step = (cspec, x, up, none, none, 1)
-                es = rel(K.nmpc_rollout(*step, outputs=range(3))[0],
-                         ode.nmpc_rollout_plain(*step, outputs=range(3))[0])
-                hold = torch.tensor(np.maximum(Nu - 1, 0), dtype=torch.int32,
-                                    device="cuda")
-                play = (cspec, x, up, du, cm, 59)
-                eh = rel(K.nmpc_rollout(*play, hold=hold)[0],
-                         ode.nmpc_rollout_plain(*play, hold=hold)[0])
-                err64["nmpc_rollout"] = max(
-                    err64.get("nmpc_rollout", 0.0), maxabs(Yk, Yp),
-                    maxabs(Jk, Jp))
-                rows.append(head + f" plant step {es:.3e} playback {eh:.3e}")
-                if max(ey, ej, es, eh) > 1e-10:
+    for integrator, problem in problems.items():
+        spec = problem.loop.spec
+        for caps in ((31, 15), (16, 2)):
+            for dtype in (torch.float64, torch.float32):
+                f64 = dtype == torch.float64
+                tag = "f64" if f64 else "f32"
+                cspec, x, up, du, cm, Nu = vdv_rollout_args(
+                    spec, caps, 256, dtype, caps[0])
+                args = (cspec, x, up, du, cm, caps[0])
+                Yk, Jk = K.nmpc_rollout(*args, jac=True)
+                Yp, Jp = ode.nmpc_rollout_plain(*args, jac=True)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(Yk).all() and torch.isfinite(Jk).all()):
+                    fail(f"nmpc_rollout {integrator} {caps} {tag}: non-finite "
+                         "output")
+                ey, ej = rel(Yk, Yp), rel(Jk, Jp)
+                head = (f"nmpc_rollout[{integrator}]{caps}:{tag}=Y {ey:.3e} "
+                        f"J {ej:.3e}")
+                if f64:
+                    # the plant step (m = 0) and the open leg's held playback
+                    none = torch.zeros((256, 0), dtype=dtype, device="cuda")
+                    step = (cspec, x, up, none, none, 1)
+                    es = rel(K.nmpc_rollout(*step, outputs=range(3))[0],
+                             ode.nmpc_rollout_plain(*step,
+                                                    outputs=range(3))[0])
+                    hold = torch.tensor(np.maximum(Nu - 1, 0),
+                                        dtype=torch.int32, device="cuda")
+                    play = (cspec, x, up, du, cm, 59)
+                    eh = rel(K.nmpc_rollout(*play, hold=hold)[0],
+                             ode.nmpc_rollout_plain(*play, hold=hold)[0])
+                    err64["nmpc_rollout"] = max(
+                        err64.get("nmpc_rollout", 0.0), maxabs(Yk, Yp),
+                        maxabs(Jk, Jp))
+                    rows.append(head + f" plant step {es:.3e} playback "
+                                f"{eh:.3e}")
+                    if max(ey, ej, es, eh) > 1e-10:
+                        bad.append(rows[-1])
+                    continue
+                lim = ROLLOUT_F32[integrator]
+                if integrator == "tr_bdf2" and caps != TRBDF2_WITNESS_CAPS:
+                    rows.append(head + f" (limits Y {lim['y']:g} J "
+                                f"{lim['j']:g}; witnesses at "
+                                f"{TRBDF2_WITNESS_CAPS})")
+                    if ey > lim["y"] or ej > lim["j"]:
+                        bad.append(rows[-1])
+                    continue
+                # two correct float32 runs: the plain version on the CPU,
+                # and with the states one ulp up against one ulp down
+                Yc, Jc = ode.nmpc_rollout_plain(*to_cpu(args), jac=True)
+                inf = torch.tensor(float("inf"), dtype=dtype, device="cuda")
+                (Yu, Ju), (Yd, Jd) = (ode.nmpc_rollout_plain(
+                    cspec, torch.nextafter(x, s * inf), *args[2:], jac=True)
+                    for s in (1, -1))
+                rows.append(head + f" (limits Y {lim['y']:g} J {lim['j']:g}; "
+                            f"witnesses cpu Y {rel(Yp.cpu(), Yc):.3e} J "
+                            f"{rel(Jp.cpu(), Jc):.3e}, ulp Y "
+                            f"{rel(Yu, Yd):.3e} J {rel(Ju, Jd):.3e})")
+                if ey > lim["y"] or ej > lim["j"]:
                     bad.append(rows[-1])
-                continue
-            # two correct float32 runs: the plain version on the CPU, and
-            # with the states one ulp up against one ulp down
-            Yc, Jc = ode.nmpc_rollout_plain(*to_cpu(args), jac=True)
-            inf = torch.tensor(float("inf"), dtype=dtype, device="cuda")
-            (Yu, Ju), (Yd, Jd) = (ode.nmpc_rollout_plain(
-                cspec, torch.nextafter(x, s * inf), *args[2:], jac=True)
-                for s in (1, -1))
-            wy = max(rel(Yp.cpu(), Yc), rel(Yu, Yd))
-            wj = max(rel(Jp.cpu(), Jc), rel(Ju, Jd))
-            lim = ROLLOUT_F32_LIMITS
-            rows.append(head + f" (limits Y {lim['y']:g} J {lim['j']:g}; "
-                        f"witnesses cpu Y {rel(Yp.cpu(), Yc):.3e} J "
-                        f"{rel(Jp.cpu(), Jc):.3e}, ulp Y {rel(Yu, Yd):.3e} J "
-                        f"{rel(Ju, Jd):.3e})")
-            if ey > lim["y"] or ej > lim["j"]:
-                bad.append(rows[-1])
 
-    # one closed-loop batch on the card, held step by step against the plain
-    # loop on the CPU following the card's U
+    # one closed-loop batch for each integrator on the card, held step by
+    # step against the plain loop on the CPU following the card's U (in a
+    # worker; finish_nmpc_closed collects it)
     caps, nit, Bc = (16, 4), 10, 32
-    args = vdv_batch(vdv_problem, Bc, nit, caps, 5)
-    Y, U = vdv_problem.loop.closed_batch(*args, caps=caps, device="cuda")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    Yp, Up = follow_nmpc_plain(vdv_problem, args, caps, U)
-    cpu_s = time.perf_counter() - t1
-    ey, eu, ry, ru = nmpc_errors(spec, Y, U, Yp, Up)
-    rows.append(f"closed loop B={Bc} nit={nit} caps={caps} f64, plain on the "
-                f"CPU following the card's U ({cpu_s:.1f} s): scaled Y "
-                f"{ey:.3e} U {eu:.3e} (raw {ry:.3e}, {ru:.3e})")
-    if not (torch.isfinite(Y).all() and max(ey, eu) <= F64_SIM_GATE):
-        bad.append(rows[-1])
+    pending = {}
+    for integrator, problem in problems.items():
+        args = vdv_batch(problem, Bc, nit, caps, 5)
+        t1 = time.perf_counter()
+        Y, U = problem.loop.closed_batch(*args, caps=caps, device="cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        spec, c, N, Nu, (r, d, l) = problem.loop._batch(
+            args[1], args[2], args[3], caps, torch.float64, "cpu",
+            np.asarray(args[0])[:, :nit], args[4], args[5])
+        pending[integrator] = (pool.apply_async(nmpc_follow_cpu, (
+            spec, c, r, N, Nu, d, l, U.cpu(), range(1, nit))), Y.cpu(),
+            U.cpu(), card_s)
     print(f"[2d nmpc kernels] gates: spd_solve f64 {F64_SPD_GATE:g}, f32 "
           f"{F32_SPD_GATE:g} relative; nmpc_rollout f64 1e-10 relative, f32 "
-          f"ROLLOUT_F32_LIMITS; closed loop f64 {F64_SIM_GATE:g} in the "
-          f"controller's scaled units | "
-          + " | ".join(rows) + f" | wall_s={time.perf_counter() - t0:.1f}",
-          flush=True)
+          f"ROLLOUT_F32_LIMITS (rk4) and ROLLOUT_TRBDF2_F32_LIMITS (tr_bdf2) "
+          f"| " + " | ".join(rows)
+          + f" | closed loops: on the CPU in a worker, below after 3i | "
+          f"wall_s={time.perf_counter() - t0:.1f}", flush=True)
     if bad:
         fail("NMPC kernel rows above their gates: " + " | ".join(bad))
-    return err64
+    return err64, (problems, Bc, nit, caps, pending)
 
 
-def phase_nmpc_path(pool):
-    """3d. The seeded Van de Vusse NMPC tune on the card at float64 (the
-    case's full width: nit 60, nbp/nbc 5/4, substeps 10, SQP 4, QP 25),
-    its last closed-loop batch step by step against the plain loop on the
-    CPU (started in ``pool``'s workers, collected by finish_nmpc_hold),
-    and the final simulation at the tuned controller; returns the launch
-    counts and the pending hold."""
+def finish_nmpc_closed(held):
+    """2d's closed-loop batches against the plain loop on the CPU
+    following the card's U (phase_nmpc_kernels started it in a worker):
+    Y and U at every step at F64_SIM_GATE in the controller's scaled
+    units."""
+    problems, Bc, nit, caps, pending = held
+    rows, bad = [], []
+    t0 = time.perf_counter()
+    for integrator, (job, Y, U, card_s) in pending.items():
+        Yp, Up, cpu_s = job.get()
+        ey, eu, ry, ru = nmpc_errors(problems[integrator].loop.spec, Y, U,
+                                     Yp, Up)
+        rows.append(f"{integrator} B={Bc} nit={nit} caps={caps} f64 (card "
+                    f"{card_s:.1f} s, plain on the CPU following the card's "
+                    f"U {cpu_s:.1f} s in a worker): scaled Y {ey:.3e} U "
+                    f"{eu:.3e} (raw {ry:.3e}, {ru:.3e})")
+        if not (torch.isfinite(Y).all() and max(ey, eu) <= F64_SIM_GATE):
+            bad.append(rows[-1])
+    print(f"[2d nmpc closed loops] gate {F64_SIM_GATE:g} in the controller's "
+          f"scaled units | " + " | ".join(rows) + f" | waited "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if bad:
+        fail("NMPC closed loops above the gate: " + " | ".join(bad))
+
+
+def nmpc_tune(integrator):
+    """The seeded Van de Vusse NMPC tune on the card at float64 with
+    ``integrator`` (the case's full width: nit 60, nbp/nbc 5/4, substeps
+    10, SQP 4, QP 25; popsize 8, 3 generations, 1 alternation, no joint
+    weight polish), then the tuned controller's closed loop on the card.
+    Returns a dict of CPU values: the result, the tune's wall and launch
+    counts, the last closed-loop batch's arguments and (Y, U), and the
+    final simulation's (y, u)."""
     from mpc_tuning_tpu_torch.cases import vandevusse
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.sim import nmpc_loop
     from mpc_tuning_tpu_torch.tuning.api import hybrid_tune
 
-    case = vandevusse.make_case()
+    case = vandevusse.make_case(integrator=integrator)
     problem = vandevusse.build_problem(case, device="cuda")
     last = {}
     core = nmpc_loop.nmpc_closed_core
@@ -2069,11 +2163,96 @@ def phase_nmpc_path(pool):
     wall = time.perf_counter() - t0
     launches = K.launch_counts()
     N, Nu = int(best["N"]), np.asarray(best["Nu"])
+    t1 = time.perf_counter()
+    y, u = problem.loop.simulate(case.r, problem.v, case.nit, N,
+                                 int(Nu.max()), delta, lam, device="cuda")
+    sim_s = time.perf_counter() - t1
+    spec, c, r, Nb, Nub, d, l = last["args"]
+    return dict(integrator=integrator, N=N, Nu=Nu,
+                delta=np.asarray(delta), lam=np.asarray(lam), Fvns=Fvns,
+                Fgam=Fgam, wall=wall, launches=launches, y=y, u=u,
+                sim_s=sim_s, nit=case.nit, nbp=case.nbp, nbc=case.nbc,
+                last=(spec, to_cpu(c), r.cpu(), Nb.cpu(), Nub.cpu(), d.cpu(),
+                      l.cpu()),
+                out=tuple(x.cpu() for x in last["out"]))
+
+
+def card_process_main(queue, fn, args):
+    """``fn(*args)`` in a spawned process on the card; puts its result,
+    pickled (tensors by value: the process ends before the parent reads
+    them), or the traceback of its failure, on ``queue``."""
+    import pickle
+
+    try:
+        queue.put(pickle.dumps(fn(*args)))
+    except BaseException:
+        import traceback
+
+        queue.put(traceback.format_exc())
+
+
+def start_card_process(fn, *args):
+    """Run ``fn(*args)`` (a function of this module) in its own process on
+    the card, so its host-bound eager loops run beside the main process's
+    phases; returns the job for collect_card_process."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=card_process_main, args=(queue, fn, args),
+                       daemon=True)
+    proc.start()
+    POOLS.append(proc)
+    return proc, queue, time.perf_counter()
+
+
+def collect_card_process(job, what, timeout=900):
+    """The result of a start_card_process job, with the seconds from its
+    start and the seconds waited for it here; fails if it failed."""
+    import pickle
+    import queue as queues
+
+    proc, q, t0 = job
+    t1 = time.perf_counter()
+    try:
+        res = q.get(timeout=timeout)
+    except queues.Empty:
+        fail(f"{what}: its process returned nothing in {timeout} s")
+    proc.join()
+    POOLS.remove(proc)
+    if isinstance(res, str):
+        fail(f"{what}: its process failed:\n{res}")
+    now = time.perf_counter()
+    return pickle.loads(res), now - t0, now - t1
+
+
+def collect_tune(job, tag):
+    """A Van de Vusse tune's dict (``nmpc_tune`` in its own process), with
+    its process's seconds."""
+    res, res["process_s"], res["waited_s"] = collect_card_process(
+        job, f"{tag}'s tune")
+    return res
+
+
+def phase_nmpc_path(tag, res, pool, gate, beside):
+    """3d / 3k. Checks a Van de Vusse tune's dict (``nmpc_tune``): a valid
+    result, the NMPC path's kernels launched, the tuned controller's
+    closed loop inside the input bounds with Cb ending within CB_TOL of
+    its setpoint; prints it beside the reference's tuning and beside
+    ``beside``, the other integrator's tune (not gates); starts its last
+    batch's plain loop on the CPU in ``pool``'s workers, one window each
+    (held at ``gate`` by finish_nmpc_hold).  Returns the launch counts and
+    the pending hold."""
+    from mpc_tuning_tpu_torch.cases import vandevusse
+
+    N, Nu, delta, lam = res["N"], res["Nu"], res["delta"], res["lam"]
+    launches = res["launches"]
     weights = np.concatenate([delta, lam])
     bad = []
     if not (N > Nu.max() and (Nu >= 2).all() and np.isfinite(weights).all()
-            and (weights > 0).all() and np.isfinite([Fvns, Fgam]).all()):
-        fail(f"invalid Van de Vusse tuning result N={N} Nu={Nu} "
+            and (weights > 0).all()
+            and np.isfinite([res["Fvns"], res["Fgam"]]).all()):
+        fail(f"{tag}: invalid Van de Vusse tuning result N={N} Nu={Nu} "
              f"weights={weights}")
     path = ("spd_factor", "spd_factor_solve", "nmpc_rollout")
     if min(launches[k] for k in path) <= 0:
@@ -2081,27 +2260,23 @@ def phase_nmpc_path(pool):
                    f"{launches}")
 
     # the tune's last closed-loop batch, step by step against the plain
-    # loop on the CPU following its U (launches made here do not count): Y
-    # at every step, U at the window steps (elsewhere the plain loop solves
-    # nothing and returns the card's U).  The plain loop (~70 s of one CPU
-    # core) runs in two workers, one window each (a window's solves need
-    # only the plant stepped on the card's U), while the card goes on with
-    # phases 3e-3h; finish_nmpc_hold collects them.
-    spec, c, r, Nb, Nub, d, l = last["args"]
-    Y, U = last["out"]
+    # loop on the CPU following its U (launches made there do not count):
+    # Y at every step, U at the window steps (elsewhere the plain loop
+    # solves nothing and returns the card's U).  The plain loop runs in two
+    # workers, one window each (a window's solves need only the plant
+    # stepped on the card's U), while the card goes on with the later
+    # phases; finish_nmpc_hold collects them.
+    spec, c, r, Nb, Nub, d, l = res["last"]
+    Y, U = res["out"]
     nit = r.shape[1]
     windows = [[k for k in range(a, b + 1) if k < nit]
                for a, b in NMPC_HOLD_WINDOWS]
     pending = [pool.apply_async(nmpc_follow_cpu, (
-        spec, to_cpu(c), r.cpu(), Nb.cpu(), Nub.cpu(), d.cpu(), l.cpu(),
-        U.cpu(), w)) for w in windows]
+        spec, c, r, Nb, Nub, d, l, U, w)) for w in windows]
 
     # the tuned controller's closed loop (the check of the verify notes):
     # u inside [LB, UB], Cb ends within CB_TOL of its setpoint
-    t2 = time.perf_counter()
-    y, u = problem.loop.simulate(case.r, problem.v, case.nit, N,
-                                 int(Nu.max()), delta, lam, device="cuda")
-    sim_s = time.perf_counter() - t2
+    y, u = res["y"], res["u"]
     excess = max(0.0, float(np.maximum(u - vandevusse.UB,
                                        vandevusse.LB - u).max()))
     cb_err = abs(float(y[-1, 0]) - CB_SETPOINT)
@@ -2110,27 +2285,36 @@ def phase_nmpc_path(pool):
         bad.append(f"final simulation: outside [LB, UB] by {excess:.3e}, "
                    f"|Cb end - {CB_SETPOINT}| {cb_err:.3e}")
     ref = VDV_REFERENCE
-    print(f"[3d nmpc path] hybrid_tune(VdV nit={case.nit} nbp/nbc="
-          f"{case.nbp}/{case.nbc} substeps={case.spec.substeps} sqp="
-          f"{case.spec.sqp_iters} qp={case.spec.qp_iters} f64 cuda popsize=8 "
-          f"gens=3 alts=1 seed=0, no joint polish) N={N} Nu={Nu.tolist()} "
-          f"delta={np.round(delta, 6).tolist()} "
-          f"lam={np.round(lam, 6).tolist()} Fvns={Fvns:.6g} Fgam={Fgam:.6g} "
-          f"wall_s={wall:.2f} launches={launches} | reference artifact "
-          f"(BASELINE.md, another budget; not a gate): N={ref['N']} "
-          f"Nu={ref['Nu']} delta={ref['delta']} lam={ref['lam']} | final "
-          f"simulation (card, f64, {sim_s:.2f} s): outside [LB, UB] by "
-          f"{excess:.3e}, Cb end {float(y[-1, 0]):.6f}, T end "
-          f"{float(y[-1, 1]):.4f} | last batch vs plain: on the CPU in a "
-          f"worker, below after 3h | phase_s={time.perf_counter() - t0:.1f}",
-          flush=True)
+    other = (f" | beside {beside['integrator']} (not a gate): "
+             f"N={beside['N']} Nu={beside['Nu'].tolist()} "
+             f"delta={np.round(beside['delta'], 6).tolist()} "
+             f"lam={np.round(beside['lam'], 6).tolist()} "
+             f"Fvns={beside['Fvns']:.6g} wall_s={beside['wall']:.2f}")
+    where = (f" | in its own process beside phases 2-3b: "
+             f"{res['process_s']:.1f} s from its start, waited "
+             f"{res['waited_s']:.1f} s for it")
+    print(f"[{tag} nmpc path, {res['integrator']}] hybrid_tune(VdV "
+          f"nit={res['nit']} nbp/nbc={res['nbp']}/{res['nbc']} substeps="
+          f"{spec.substeps} sqp={spec.sqp_iters} qp={spec.qp_iters} "
+          f"integrator={spec.integrator} f64 cuda popsize=8 gens=3 alts=1 "
+          f"seed=0, no joint polish) N={N} "
+          f"Nu={Nu.tolist()} delta={np.round(delta, 6).tolist()} "
+          f"lam={np.round(lam, 6).tolist()} Fvns={res['Fvns']:.6g} "
+          f"Fgam={res['Fgam']:.6g} wall_s={res['wall']:.2f} "
+          f"launches={launches} | reference artifact (BASELINE.md, another "
+          f"budget; not a gate): N={ref['N']} Nu={ref['Nu']} "
+          f"delta={ref['delta']} lam={ref['lam']}{other} | final "
+          f"simulation (card, f64, {res['sim_s']:.2f} s): outside [LB, UB] "
+          f"by {excess:.3e}, Cb end {float(y[-1, 0]):.6f}, T end "
+          f"{float(y[-1, 1]):.4f} | last batch vs plain: on the CPU in "
+          f"workers, below after 3i{where}", flush=True)
     if bad:
-        fail("NMPC path: " + " | ".join(bad))
-    return launches, (pending, spec, Y, U, r.shape[0], windows)
+        fail(f"{tag} NMPC path: " + " | ".join(bad))
+    return launches, (tag, gate, pending, spec, Y, U, r.shape[0], windows)
 
 
 def nmpc_follow_cpu(spec, c, r, Nb, Nub, d, l, U, steps):
-    """3d's plain loop on the CPU following the card's U, solving at
+    """The plain NMPC loop on the CPU following the card's U, solving at
     ``steps`` (run in a spawned worker); returns (Yp, Up, seconds)."""
     from mpc_tuning_tpu_torch.sim import nmpc_loop
 
@@ -2141,12 +2325,12 @@ def nmpc_follow_cpu(spec, c, r, Nb, Nub, d, l, U, steps):
 
 
 def finish_nmpc_hold(held):
-    """3d's last batch against the plain loop on the CPU (phase_nmpc_path
-    started it in a worker): Y at every step, U at the window steps, at
-    F64_SIM_GATE in the controller's scaled units."""
+    """3d's / 3k's last batch against the plain loop on the CPU
+    (phase_nmpc_path started it in workers): Y at every step, U at the
+    window steps, at the phase's gate in the controller's scaled units."""
     from mpc_tuning_tpu_torch.cases import vandevusse
 
-    pending, spec, Y, U, B, windows = held
+    tag, gate, pending, spec, Y, U, B, windows = held
     t0 = time.perf_counter()
     # Y is the plant on the card's U in both; U from the window's worker
     (Yp, Up, cpu_s), *rest = [p.get() for p in pending]
@@ -2159,17 +2343,17 @@ def finish_nmpc_hold(held):
     Uc = U.cpu().numpy()
     on = ((Uc >= vandevusse.UB - 1e-6)
           | (Uc <= vandevusse.LB + 1e-6)).any(axis=2)
-    held = (f"B={B} caps=({spec.p_max},{spec.m_max}), Y at steps "
-            f"0-{Y.shape[1] - 1}, U at steps {NMPC_HOLD_WINDOWS}: scaled Y "
-            f"{ey:.3e} U {eu:.3e} (raw {ry:.3e}, {ru:.3e}; plain on the CPU "
-            f"{cpu_s:.1f} s in two workers, waited "
+    held = (f"B={B} caps=({spec.p_max},{spec.m_max}) {spec.integrator}, Y "
+            f"at steps 0-{Y.shape[1] - 1}, U at steps {NMPC_HOLD_WINDOWS}: "
+            f"scaled Y {ey:.3e} U {eu:.3e} (raw {ry:.3e}, {ru:.3e}; plain "
+            f"on the CPU {cpu_s:.1f} s in {len(windows)} workers, waited "
             f"{time.perf_counter() - t0:.1f} s for them); an input on a bound "
             f"at {int(on[:, 1:].sum())} "
             f"(lane, step) pairs, {int(on[:, steps].sum())} of them held")
-    print(f"[3d nmpc path, last batch] {held} (gate {F64_SIM_GATE:g})",
+    print(f"[{tag} nmpc path, last batch] {held} (gate {gate:g})",
           flush=True)
-    if max(ey, eu) > F64_SIM_GATE:
-        fail(f"NMPC path: last batch {held}")
+    if max(ey, eu) > gate:
+        fail(f"{tag} NMPC path: last batch {held}")
 
 
 def phase_spd_solve_entry():
@@ -2480,42 +2664,67 @@ def explicit_nmpc_cpu(ctl, x0, u0, r, nit, inK, noise):
     return Y, U, time.perf_counter() - t0
 
 
-def phase_explicit_nmpc(pool):
-    """3h. The explicit NMPC Van de Vusse demo on the card at float64, one
-    batch of three lanes over ENMPC_NIT steps: noise-free, one given noise
-    array (seed 1) and ``vandevusse_explicit.run``'s own draw (seed 0).  The
-    first two held over ENMPC_HOLD_NIT steps against the same loop on the
-    CPU (in one of ``pool``'s workers, beside the card's run) at
-    ENMPC_GATE; the third checks the staircase (the thresholds of
-    tests/test_explicit_nmpc.py).  Returns (the launch counts, the card
-    loop's seconds, B)."""
+def explicit_nmpc_inputs():
+    """3h's controller, x0, u0, reference and noise (three lanes)."""
     from mpc_tuning_tpu_torch.cases import vandevusse_explicit as vex
     from mpc_tuning_tpu_torch.models.ode import (VDV_U0, VDV_X0,
                                                  newton_steady_state,
                                                  vandevusse_rhs)
-    from mpc_tuning_tpu_torch.ops import kernels as K
 
-    t0 = time.perf_counter()
     ctl = vex.make_controller(**ENMPC_KW)
     x0 = newton_steady_state(vandevusse_rhs, VDV_X0, VDV_U0)
-    u0 = np.asarray(VDV_U0)
     r = vex.make_reference(x0, ENMPC_NIT)
     noise = np.stack([np.zeros((ENMPC_NIT, 3)),
                       ctl.draw_noise(ENMPC_NIT, seed=1),
                       ctl.draw_noise(ENMPC_NIT, seed=0)])
-    h = ENMPC_HOLD_NIT
-    pending = pool.apply_async(explicit_nmpc_cpu, (
-        ctl, x0, u0, r, h, vex.INK, noise[:2, :h]))
+    return ctl, x0, np.asarray(VDV_U0), r, noise
+
+
+def explicit_nmpc_card():
+    """3h's loop on the card (run in its own process, start_card_process):
+    (Y, U, the loop's seconds, launch counts)."""
+    from mpc_tuning_tpu_torch.cases import vandevusse_explicit as vex
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    ctl, x0, u0, r, noise = explicit_nmpc_inputs()
     K.reset_launches()
-    t1 = time.perf_counter()
+    t0 = time.perf_counter()
     Y, U = ctl.simulate(x0, u0, r, ENMPC_NIT, inK=vex.INK, noise=noise,
                         device="cuda")
-    wall = time.perf_counter() - t1
-    launches = K.launch_counts()
+    return Y, U, time.perf_counter() - t0, K.launch_counts()
+
+
+def start_explicit_nmpc(pool):
+    """Start 3h: its loop on the card in its own process, the CPU's loop
+    in one of ``pool``'s workers; returns both jobs for
+    phase_explicit_nmpc."""
+    from mpc_tuning_tpu_torch.cases import vandevusse_explicit as vex
+
+    ctl, x0, u0, r, noise = explicit_nmpc_inputs()
+    h = ENMPC_HOLD_NIT
+    cpu = pool.apply_async(explicit_nmpc_cpu, (ctl, x0, u0, r, h, vex.INK,
+                                               noise[:2, :h]))
+    return start_card_process(explicit_nmpc_card), cpu, noise
+
+
+def phase_explicit_nmpc(jobs):
+    """3h. The explicit NMPC Van de Vusse demo on the card at float64, one
+    batch of three lanes over ENMPC_NIT steps: noise-free, one given noise
+    array (seed 1) and ``vandevusse_explicit.run``'s own draw (seed 0), in
+    its own process beside phases 3j-3f (start_explicit_nmpc).  The first
+    two held over ENMPC_HOLD_NIT steps against the same loop on the CPU
+    (in a worker) at ENMPC_GATE; the third checks the staircase (the
+    thresholds of tests/test_explicit_nmpc.py).  Returns (the launch
+    counts, the card loop's seconds, B)."""
+    t0 = time.perf_counter()
+    card, cpu, noise = jobs
+    (Y, U, wall, launches), proc_s, waited = collect_card_process(
+        card, "3h's explicit NMPC")
+    h = ENMPC_HOLD_NIT
     if min(launches[k] for k in ("spd_factor", "spd_factor_solve")) <= 0:
         fail(f"a kernel of the explicit NMPC path was never launched: "
              f"{launches}")
-    Yc, Uc, cpu_s = pending.get()
+    Yc, Uc, cpu_s = cpu.get()
     ey, eu = (float(np.abs(a[:2, :h] - b).max()) for a, b in ((Y, Yc),
                                                              (U, Uc)))
     y, u = Y[2], U[2]
@@ -2529,7 +2738,9 @@ def phase_explicit_nmpc(pool):
           and max(ey, eu) <= ENMPC_GATE)
     print(f"[3h explicit nmpc] Van de Vusse N=5 Nu=(2,2) substeps=6 sqp=4 "
           f"qp=20 f64: B=3 lanes (noise-free, given noise seed 1, run's draw "
-          f"seed 0) nit={ENMPC_NIT} on the card {wall:.2f} s, launches "
+          f"seed 0) nit={ENMPC_NIT} on the card {wall:.2f} s (in its own "
+          f"process beside 3j-3f, {proc_s:.1f} s from its start, waited "
+          f"{waited:.1f} s for it), launches "
           f"{ {k: v for k, v in launches.items() if v} }; lanes 0-1 vs the "
           f"CPU over {h} steps Y {ey:.3e} U {eu:.3e} (limit {ENMPC_GATE:g}; "
           f"cpu {cpu_s:.1f} s in a worker); staircase (lane 2): mean Cb[38:48] "
@@ -2715,14 +2926,47 @@ def cli_on_card():
     return first, again, figures, how, secs
 
 
-def phase_front_end(pool):
+def cross_eval_card():
+    """3i's cross-evaluation on the card at the cases' full sizes (run in
+    its own process, start_card_process): (rows, seconds, launch
+    counts)."""
+    import contextlib
+    import io
+    import os
+
+    from mpc_tuning_tpu_torch.cases.cross_eval import cross_eval_all
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    os.makedirs(os.path.dirname(CROSS_EVAL_JSON), exist_ok=True)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = cross_eval_all(out_json=CROSS_EVAL_JSON, device="cuda")
+    torch.cuda.synchronize()
+    return rows, time.perf_counter() - t0, K.launch_counts()
+
+
+def start_front_end_cpu(pool):
+    """3i's CPU runs that need nothing from the card (the demos and the
+    CROSS_EVAL_HELD rows on the CPU), started in ``pool``'s workers early,
+    while the pool is idle; returns them pending."""
+    pending = {name: pool.apply_async(demo_cpu, (name,))
+               for name in ("vandevusse_demo", "shell3x3_demo")}
+    pending.update({name: pool.apply_async(cross_eval_cpu, (name,))
+                    for name in CROSS_EVAL_HELD})
+    return pending
+
+
+def phase_front_end(pool, cross_job, pending):
     """3i. The front end on the card at its normal entry points, its CPU
-    holds in ``pool``'s workers:
+    holds in ``pool``'s workers (``pending``: those start_front_end_cpu
+    started early; the scan engines' started here):
       * the batch-major scan engines 'pdip', 'pdip_ws', 'pdip_dense',
         'admm' on Wood-Berry (B = FRONT_B, nit FRONT_NIT, float64), each
         held step by step against the plain loop on the CPU following the
         card's U at F64_SIM_GATE (the free CPU run's distance printed);
-      * ``cross_eval_all`` at the cases' full sizes (its rows written to
+      * ``cross_eval_all`` at the cases' full sizes, run in its own
+        process (``cross_job``, cross_eval_card; its rows written to
         CROSS_EVAL_JSON): every row has the repo point and the three
         claims of tests/test_cross_eval.py hold; the CROSS_EVAL_HELD rows
         against the same on the CPU (F_vns and gamma at CROSS_EVAL_REL
@@ -2734,21 +2978,12 @@ def phase_front_end(pool):
       * the CLI: ``run_main`` with CLI_ARGS and a report (CLI_REPORT),
         then --resume: the same N and Nu, a report with 3 figures.
     Returns the launch counts of the card's runs and the pending holds."""
-    import contextlib
-    import io
-    import os
-
     from mpc_tuning_tpu_torch.cases import woodberry
-    from mpc_tuning_tpu_torch.cases.cross_eval import cross_eval_all
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.sim.mpc_loop import BATCH_MAJOR_ENGINES
     from mpc_tuning_tpu_torch.tuning.api import build_problem
 
     t0 = time.perf_counter()
-    pending = {name: pool.apply_async(demo_cpu, (name,))
-               for name in ("vandevusse_demo", "shell3x3_demo")}
-    pending.update({name: pool.apply_async(cross_eval_cpu, (name,))
-                    for name in CROSS_EVAL_HELD})
     total = dict.fromkeys(K.launch_counts(), 0)
     parts = {}
 
@@ -2775,19 +3010,17 @@ def phase_front_end(pool):
     pending["engines"] = pool.apply_async(
         front_engines_cpu, ([(e, v[1]) for e, v in engines.items()],))
 
-    os.makedirs(os.path.dirname(CROSS_EVAL_JSON), exist_ok=True)
-    t1 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        rows = cross_eval_all(out_json=CROSS_EVAL_JSON, device="cuda")
-    cross_s = time.perf_counter() - t1
-    count("cross_eval")
-
     demos = {}
     for name in ("shell3x3_demo", "vandevusse_demo"):
         demos[name] = demo_on_card(name)
         count(name)
     cli = cli_on_card()
     count("cli")
+    (rows, cross_s, counts), _, _ = collect_card_process(
+        cross_job, "3i's cross-evaluation")
+    parts["cross_eval"] = {k: v for k, v in counts.items() if v}
+    for k, v in counts.items():
+        total[k] += v
     return total, (engines, rows, cross_s, demos, cli, parts, pending,
                    time.perf_counter() - t0)
 
@@ -2919,23 +3152,41 @@ def phase_dtc_nmpc_throughput(dtc, enmpc):
                    f"nit={DTC_NIT}: {ms:.1f} ms = "
                    f"{DTC_B / (ms / 1e3):.1f} sims/s; {busy}")
     _, wall, B = enmpc
-    txt.append(f"explicit NMPC (3h) nit={ENMPC_NIT} B={B}: {wall:.2f} s a "
+    txt.append(f"explicit NMPC (3h, beside 3j-3f) nit={ENMPC_NIT} B={B}: "
+               f"{wall:.2f} s a "
                f"loop, {wall / ENMPC_NIT * 1e3:.1f} ms a step")
     print("[4 dtc / explicit nmpc throughput] " + " | ".join(txt)
           + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
 
 
-def rollout_flops(B, ncol, p, substeps):
-    """Operations the rollout needs: per candidate and RK4 step the primal
-    (4 rhs of ~35 operations and 3 exp, and the stage sums) once and the
-    tangent (4 x ~45 and the stage sums) per column."""
-    return B * p * substeps * ((4 * 38 + 36) + ncol * (4 * 45 + 36))
+def rollout_flops(B, ncol, p, substeps, integrator="rk4"):
+    """Operations the rollout needs, per candidate and substep: what a
+    candidate's tangent columns share once, and each column's own work
+    once per column (fx has one zero entry; fu du is 5 operations for
+    Van de Vusse's 3 x 2 fu).  RK4, shared: 4 rhs of ~41 operations (the
+    3 exp among them), the stage states and sum (39), fx at the 4 stage
+    states around their rates (4 x 43) and fu (4 x 3); per column, 4
+    stages of fx dx + fu du (21) and the tangent's stage states and sum
+    (39).  TR-BDF2, shared: the rhs and fx at x (84), the first guess (6),
+    6 trapezoidal and 6 BDF2 Newton iterations (144 / 150: the rhs and fx,
+    the residual, I - a fx, its 3 x 3 LU and substitutions, the update),
+    fx at the converged xg and xn (2 x 53, the rates recomputed), the two
+    LU factors of I - a fx (2 x 30) and fu at three states (9); per
+    column, fx(x) dx (13), fu du at three states (15), the two right-hand
+    sides (12 + 15) and two substitutions (2 x 15)."""
+    if integrator == "tr_bdf2":
+        shared = 84 + 6 + 6 * 144 + 6 * 150 + 2 * 53 + 2 * 30 + 9
+        return B * p * substeps * (shared + ncol * (13 + 15 + 27 + 30))
+    return B * p * substeps * ((4 * 41 + 39 + 4 * 43 + 12)
+                               + ncol * (4 * 21 + 39))
 
 
-def phase_nmpc_throughput(vdv_problem):
-    """4, the NMPC slice: spd_solve, nmpc_rollout and one NMPC closed-loop
-    evaluation (B = 256, caps (16, 2)) with its launches and its
-    host-versus-kernel split; returns {name: dict(ms, plain_ms, bound_ms,
+def phase_nmpc_throughput(vdv_problems):
+    """4, the NMPC slice: spd_solve, nmpc_rollout with each integrator (a
+    row each under 'shapes', RK4's at the top level) and one NMPC
+    closed-loop evaluation (B = 256, caps (16, 2)) with its launches and
+    its host-versus-kernel split, and the device time of a 4-step loop of
+    it with each integrator; returns {name: dict(ms, plain_ms, bound_ms,
     bound_by, library_ms)}."""
     from mpc_tuning_tpu_torch.models import ode
     from mpc_tuning_tpu_torch.ops import kernels as K
@@ -2980,20 +3231,25 @@ def phase_nmpc_throughput(vdv_problem):
             f"{sol['library_ms']:.5f}, bound {sol['bound_ms']:.5f} "
             f"({sol['bound_by']})")
 
-    spec = vdv_problem.loop.spec
-    caps = (31, 15)
-    cspec, x, up, du, cm, _ = vdv_rollout_args(spec, caps, 256, f64, 9)
-    args = (cspec, x, up, du, cm, caps[0])
-    ms, out = timed(lambda: K.nmpc_rollout(*args, jac=True), 5)
-    pm = timed(lambda: ode.nmpc_rollout_plain(*args, jac=True), 1,
-               warm=False)[0]
-    b, by = bound_ms(nbytes(x, up, du, cm, out),
-                     rollout_flops(256, 30, caps[0], cspec.substeps), f64)
-    rec["nmpc_rollout"] = dict(ms=ms, plain_ms=pm, bound_ms=b, bound_by=by,
-                               library_ms=None)
-    txt.append(f"nmpc_rollout B=256 caps={caps} substeps={cspec.substeps} "
-               f"f64 with J: kernel {ms:.3f} ms, plain {pm:.1f} ms, bound "
-               f"{b:.5f} ms ({by})")
+    caps, rows = (31, 15), []
+    for integrator, problem in vdv_problems.items():
+        cspec, x, up, du, cm, _ = vdv_rollout_args(problem.loop.spec, caps,
+                                                   256, f64, 9)
+        args = (cspec, x, up, du, cm, caps[0])
+        ms, out = timed(lambda: K.nmpc_rollout(*args, jac=True), 5)
+        pm = timed(lambda: ode.nmpc_rollout_plain(*args, jac=True), 1,
+                   warm=False)[0]
+        b, by = bound_ms(nbytes(x, up, du, cm, out),
+                         rollout_flops(256, 30, caps[0], cspec.substeps,
+                                       integrator), f64)
+        rows.append(dict(stepper=integrator, ms=ms, plain_ms=pm,
+                         bound_ms=b, bound_by=by, library_ms=None))
+        txt.append(f"nmpc_rollout[{integrator}] B=256 caps={caps} "
+                   f"substeps={cspec.substeps} f64 with J: kernel {ms:.3f} "
+                   f"ms, plain {pm:.1f} ms, bound {b:.5f} ms ({by})")
+    # one row a stepper under 'shapes'; the top-level numbers are the
+    # first stepper's, RK4, the default path's (vdv_problems' order)
+    rec["nmpc_rollout"] = dict(rows[0], shapes=rows)
 
     # one NMPC closed-loop evaluation (nit 60) through the card: its time
     # and launches; then the device time inside a 4-step loop of the same
@@ -3001,31 +3257,35 @@ def phase_nmpc_throughput(vdv_problem):
     # costs ~0.4 ms an op, minutes over the ~1e6 ops of a whole evaluation)
     from torch.profiler import ProfilerActivity, profile
 
-    loop = vdv_problem.loop
-    args = vdv_batch(vdv_problem, 256, 60, (16, 2), 11)
-    K.reset_launches()
-    t1 = time.perf_counter()
-    loop.closed_batch(*args, caps=(16, 2), device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    counts = {k: v for k, v in K.launch_counts().items() if v}
-    short = args[:6] + (4,)
-    t2 = time.perf_counter()
-    loop.closed_batch(*short, caps=(16, 2), device="cuda")
-    torch.cuda.synchronize()
-    short_s = time.perf_counter() - t2
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for integrator, problem in vdv_problems.items():
+        loop = problem.loop
+        args = vdv_batch(problem, 256, 60, (16, 2), 11)
+        head = f"NMPC closed loop[{integrator}] B=256 caps=(16,2)"
+        if integrator == "rk4":  # the whole evaluation, RK4 only
+            K.reset_launches()
+            t1 = time.perf_counter()
+            loop.closed_batch(*args, caps=(16, 2), device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            counts = {k: v for k, v in K.launch_counts().items() if v}
+            head += (f" nit=60 f64: {wall:.2f} s = {256 / wall:.1f} sims/s, "
+                     f"launches {counts};")
+        short = args[:6] + (4,)
+        t2 = time.perf_counter()
         loop.closed_batch(*short, caps=(16, 2), device="cuda")
         torch.cuda.synchronize()
-    dev_us = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-                 for e in prof.key_averages())
-    busy = (f"device time {dev_us / 1e3:.1f} ms of {short_s * 1e3:.1f} ms, "
-            f"idle share {1 - dev_us / 1e6 / short_s:.3f}" if dev_us > 0
-            else "device time not measured (the profiler showed none)")
-    txt.append(f"NMPC closed loop B=256 caps=(16,2) nit=60 f64: "
-               f"{wall:.2f} s = {256 / wall:.1f} sims/s, launches {counts}; "
-               f"a 4-step loop of it: {busy}")
+        short_s = time.perf_counter() - t2
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            loop.closed_batch(*short, caps=(16, 2), device="cuda")
+            torch.cuda.synchronize()
+        dev_us = sum(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                     for e in prof.key_averages())
+        busy = (f"device time {dev_us / 1e3:.1f} ms of {short_s * 1e3:.1f} "
+                f"ms, idle share {1 - dev_us / 1e6 / short_s:.3f}"
+                if dev_us > 0 else
+                "device time not measured (the profiler showed none)")
+        txt.append(f"{head} a 4-step loop (f64): {busy}")
     print("[4 nmpc throughput] " + " | ".join(txt)
           + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
     return rec
@@ -3034,6 +3294,10 @@ def phase_nmpc_throughput(vdv_problem):
 def main():
     t_start = time.perf_counter()
     card = phase_env()
+    # 3k's and 3d's tunes, host-bound, each in its own process on the card
+    # beside phases 2-3b
+    tune_jobs = {integrator: start_card_process(nmpc_tune, integrator)
+                 for integrator in ("tr_bdf2", "rk4")}
     pool = cpu_pool()  # started here, while the card's phases need no CPU
     from mpc_tuning_tpu_torch.cases import (shell3x3, shell7x5, vandevusse,
                                             woodberry)
@@ -3042,39 +3306,63 @@ def main():
     problem, _ = build_problem(woodberry.make_case(), device="cuda")
     band_problem, _ = build_problem(shell7x5.make_case(), device="cuda")
     s3_problem, _ = build_problem(shell3x3.make_case(), device="cuda")
-    vdv_problem = vandevusse.build_problem(vandevusse.make_case(),
-                                           device="cuda")
+    vdv_problems = {integrator: vandevusse.build_problem(
+        vandevusse.make_case(integrator=integrator), device="cuda")
+        for integrator in ("rk4", "tr_bdf2")}
+    vdv_problem = vdv_problems["rk4"]
     err64 = phase_kernels(problem)
     err64["closed_sim_band"] = phase_band_kernels(band_problem)
+    # after 2b's certificates, which take the host's cores
+    front_cpu = start_front_end_cpu(pool)
     err64.update(phase_step_kernels(s3_problem))
-    err64.update(phase_nmpc_kernels(vdv_problem))
-    (wb_launches, wb_res, wb_wall), (band_launches, band_res) = (
+    nmpc_err, nmpc_closed = phase_nmpc_kernels(vdv_problems, pool)
+    err64.update(nmpc_err)
+    (wb_launches, wb_res, wb_wall), (band_launches, band_res, band_held) = (
         phase_main_path(), phase_band_main_path())
+    stiff, rk4 = (collect_tune(tune_jobs[i], tag)
+                  for i, tag in (("tr_bdf2", "3k"), ("rk4", "3d")))
+    # 3i's cross-evaluation and 3h's loop, each in its own process beside
+    # 3j-3f
+    cross_job = start_card_process(cross_eval_card)
+    enmpc_jobs = start_explicit_nmpc(pool)
+    stiff_launches, stiff_held = phase_nmpc_path(
+        "3k", stiff, pool, NMPC_TRBDF2_HOLD_GATE, beside=rk4)
+    nmpc_launches, nmpc_held = phase_nmpc_path(
+        "3d", rk4, pool, F64_SIM_GATE, beside=stiff)
     shard_launches = phase_sharding(wb_launches, wb_res, wb_wall,
                                     band_problem, vdv_problem)
     launches, tune_shapes, s3_res = phase_step_path(pool)
-    ranks = start_ranks()  # beside the host-bound phases 3d-3i
-    nmpc_launches, nmpc_held = phase_nmpc_path(pool)
+    ranks = start_ranks()  # beside the host-bound phases 3e-3i
     paths = [wb_launches, band_launches, shard_launches, launches,
-             nmpc_launches, phase_spd_solve_entry()]
+             nmpc_launches, stiff_launches, phase_spd_solve_entry()]
     horizon_launches, horizon_held = phase_horizon_checks(
         {"WoodBerry": wb_res, "Shell7x5": band_res, "Shell3x3": s3_res}, pool)
     paths.append(horizon_launches)
     dtc = phase_dtc_path()
-    enmpc = phase_explicit_nmpc(pool)
+    enmpc = phase_explicit_nmpc(enmpc_jobs)
     paths.append(enmpc[0])
-    front_launches, front_held = phase_front_end(pool)
+    front_launches, front_held = phase_front_end(pool, cross_job, front_cpu)
     paths.append(front_launches)
+    finish_band_hold(band_held)
     finish_horizon_checks(horizon_held)
+    finish_nmpc_closed(nmpc_closed)
+    finish_nmpc_hold(stiff_held)
     finish_nmpc_hold(nmpc_held)
     finish_front_end(front_held)
     close_pool(pool)
     finish_ranks(ranks)
     rec = phase_throughput(problem, band_problem)
     rec.update(phase_step_throughput(problem, tune_shapes))
-    rec.update(phase_nmpc_throughput(vdv_problem))
+    rec.update(phase_nmpc_throughput(vdv_problems))
     phase_dtc_nmpc_throughput(dtc, enmpc)
     phase_sharding_report()
+    # each stepper's launches on the main path: TR-BDF2 runs only in 3k
+    # (every other Van de Vusse path takes make_case()'s RK4)
+    total = sum(launches["nmpc_rollout"] for launches in paths)
+    per_stepper = {"tr_bdf2": stiff_launches["nmpc_rollout"]}
+    per_stepper["rk4"] = total - per_stepper["tr_bdf2"]
+    for row in rec["nmpc_rollout"]["shapes"]:
+        row["launches"] = per_stepper[row["stepper"]]
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(launches[k] for launches in paths),

@@ -7,8 +7,9 @@ Ts = 0.05 h, nit = 60, nbp = 5, nbc = 4, pareto w = [0.7, 0.3].
 Nonlinear branch: no conditioning (MPCTuning.m:202-255), direct state
 feedback, reference trajectory from a fast diagonal Pref offset to the
 steady state.  Every candidate evaluation runs on ``device``: the card by
-default (the rollout kernel covers RK4), "cpu" for the plain versions
-(any integrator).
+default (the rollout kernel steps either integrator, RK4 or the stiff
+TR-BDF2 that stands in for the reference's ode15s), "cpu" for the plain
+versions.
 """
 
 from __future__ import annotations

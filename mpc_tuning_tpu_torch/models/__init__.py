@@ -15,4 +15,4 @@ from mpc_tuning_tpu_torch.models.lti import (  # noqa: F401
     tfm,
     tf,
 )
-from mpc_tuning_tpu_torch.models.simulate import dlsim  # noqa: F401
+from mpc_tuning_tpu_torch.models.simulate import dlsim, dlsim_torch  # noqa: F401

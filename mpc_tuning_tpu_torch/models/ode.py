@@ -25,10 +25,12 @@ import numpy as np
 import torch
 
 __all__ = ["vandevusse_rhs", "vandevusse_partials", "rhs_partials",
-           "rk4_step", "tr_bdf2_step", "integrate", "integrate_tangent",
+           "rk4_step", "tr_bdf2_step", "integrate", "integrate_rk4",
+           "integrate_tangent",
            "vandevusse_rk4_tangent", "rollout_tangent",
            "newton_steady_state", "batched_jacobian", "rollout_inputs",
-           "nmpc_rollout_plain", "nmpc_envelope", "VDV_X0", "VDV_U0",
+           "nmpc_rollout_plain", "nmpc_envelope", "NMPC_INTEGRATORS",
+           "VDV_X0", "VDV_U0",
            "VDV_PARAMS"]
 
 VDV_X0 = np.array([5.1, 1.1163, 130.0])  # [Ca, Cb, T] steady guess
@@ -117,25 +119,29 @@ def batched_jacobian(fn, x):
     return torch.stack(cols, dim=-1)
 
 
-def _newton_solve(res, x_guess, iters):
-    """Fixed-iteration Newton on res(x) = 0 with exact Jacobians."""
+def _newton_solve(res, jac, x_guess, iters):
+    """Fixed-iteration Newton on res(x) = 0, jac(x) its exact Jacobian."""
     x = x_guess
     for _ in range(iters):
-        F = res(x)
-        J = batched_jacobian(res, x)
-        x = x - torch.linalg.solve(J, F)
+        x = x - torch.linalg.solve(jac(x), res(x))
     return x
 
 
 def _tr_bdf2_stages(rhs, x, u, dt, newton_iters):
-    """The two implicit stages of one TR-BDF2 step: (xg, xn)."""
+    """The two implicit stages of one TR-BDF2 step: (xg, xn).  Each stage's
+    Newton Jacobian is I - a fx with fx from ``rhs_partials`` (written out
+    for Van de Vusse), the derivative of its residual."""
     g = _TRBDF2_GAMMA
     f0 = rhs(x, u)
+    partials = rhs_partials(rhs)
+    eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+    a = 0.5 * g * dt
 
     def res_tr(xg):
         return xg - x - 0.5 * g * dt * (f0 + rhs(xg, u))
 
-    xg = _newton_solve(res_tr, x + g * dt * f0, newton_iters)
+    xg = _newton_solve(res_tr, lambda v: eye - a * partials(v, u)[0],
+                       x + g * dt * f0, newton_iters)
 
     c1 = 1.0 / (g * (2.0 - g))
     c2 = (1.0 - g) ** 2 / (g * (2.0 - g))
@@ -144,7 +150,9 @@ def _tr_bdf2_stages(rhs, x, u, dt, newton_iters):
     def res_bdf(xn):
         return xn - c1 * xg + c2 * x - c3 * dt * rhs(xn, u)
 
-    return xg, _newton_solve(res_bdf, xg, newton_iters)
+    return xg, _newton_solve(res_bdf,
+                             lambda v: eye - c3 * dt * partials(v, u)[0],
+                             xg, newton_iters)
 
 
 def tr_bdf2_step(rhs, x, u, dt, newton_iters: int = 6):
@@ -171,6 +179,12 @@ def integrate(rhs, x0, u, Ts, substeps: int = 10, method: str = "rk4",
     for _ in range(substeps):
         x = stepper(x)
     return x
+
+
+def integrate_rk4(rhs, x0, u, Ts, substeps: int = 10):
+    """Fixed-substep RK4 over one sample interval (``integrate`` with
+    'rk4')."""
+    return integrate(rhs, x0, u, Ts, substeps, "rk4")
 
 
 def rhs_partials(rhs):
@@ -318,20 +332,23 @@ def newton_steady_state(rhs, x0, u, iters: int = 50):
     return x.numpy()
 
 
+NMPC_INTEGRATORS = ("rk4", "tr_bdf2")  # the rollout kernel's steppers
+
+
 def nmpc_envelope(model):
     """The envelope of the rollout kernel (``ops/kernels.nmpc_rollout``,
     ops/csrc/nmpc.cu), checked before a launch: the Van de Vusse rhs
-    integrated by RK4.  Raises ValueError outside it (such models run on
-    the CPU through ``nmpc_rollout_plain``)."""
+    integrated by RK4 or TR-BDF2.  Raises ValueError outside it (another
+    rhs runs on the CPU through ``nmpc_rollout_plain``)."""
     if model.rhs is not vandevusse_rhs:
         raise ValueError(f"nmpc_rollout kernel: no kernel for rhs "
                          f"{getattr(model.rhs, '__name__', model.rhs)!r} "
                          "(the kernel integrates the Van de Vusse CSTR); "
                          "run this model with device='cpu'")
-    if model.integrator != "rk4":
-        raise ValueError(f"nmpc_rollout kernel: integrator "
-                         f"{model.integrator!r} has no kernel (rk4 only); "
-                         "run it with device='cpu'")
+    if model.integrator not in NMPC_INTEGRATORS:
+        raise ValueError(f"nmpc_rollout kernel: unknown integrator "
+                         f"{model.integrator!r} (the kernel steps "
+                         f"{' or '.join(NMPC_INTEGRATORS)})")
 
 
 def rollout_inputs(u_prev, du, cmask, hold, p):

@@ -30,7 +30,8 @@ import ctypes
 
 import torch
 
-from mpc_tuning_tpu_torch.models.ode import nmpc_envelope, nmpc_rollout_plain
+from mpc_tuning_tpu_torch.models.ode import (NMPC_INTEGRATORS, nmpc_envelope,
+                                             nmpc_rollout_plain)
 from mpc_tuning_tpu_torch.ops import _build
 
 __all__ = ["spd_factor", "spd_factor_solve", "spd_solve", "factor_lanes",
@@ -693,21 +694,21 @@ def _vcols(Vt, k, ny, nxa, nxp):
             col[ny + nxa + nxp:])
 
 
-def _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny):
+def _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny, mm=torch.matmul):
     """Plant output, Kalman update, free response and weighted tracking
-    error for step k."""
+    error for step k; ``mm`` takes the shared-matrix products."""
     nxa, nxp = t["A"].shape[0], t["Apl"].shape[0]
     dv, _, _, sv = _vcols(t["Vt"], k, ny, nxa, nxp)
-    y = t["Cpl"] @ x_pl
-    innov = y / lc["sfy"] - t["C"] @ xhp - dv
-    x_hat = xhp + t["Mk"] @ innov
-    free = t["SxF"] @ x_hat + t["SstF"] @ u_prev + sv
+    y = mm(t["Cpl"], x_pl)
+    innov = y / lc["sfy"] - mm(t["C"], xhp) - dv
+    x_hat = xhp + mm(t["Mk"], innov)
+    free = mm(t["SxF"], x_hat) + mm(t["SstF"], u_prev) + sv
     p = t["SxF"].shape[0] // ny
     err = lc["q"] * (r_l[k].repeat(p, 1) - free)
     return y, x_hat, free, err
 
 
-def _sim_post(t, lc, k, x_hat, x_pl, u_s, ny, u_follow):
+def _sim_post(t, lc, k, x_hat, x_pl, u_s, ny, u_follow, mm=torch.matmul):
     """U[k] = u_s * sf_u, then the model and plant step on it (or on
     u_follow[k]); returns (U[k], the u_s stepped on, xhp, x_pl)."""
     nxa, nxp = t["A"].shape[0], t["Apl"].shape[0]
@@ -717,8 +718,8 @@ def _sim_post(t, lc, k, x_hat, x_pl, u_s, ny, u_follow):
     if u_follow is not None:
         u_pl = u_follow[k]
         u_s = u_pl / lc["sfu"]
-    xhp = t["A"] @ x_hat + t["Bu"] @ u_s + bv
-    x_pl = t["Apl"] @ x_pl + t["Bplu"] @ u_pl + bpl
+    xhp = mm(t["A"], x_hat) + mm(t["Bu"], u_s) + bv
+    x_pl = mm(t["Apl"], x_pl) + mm(t["Bplu"], u_pl) + bpl
     return u_out, u_s, xhp, x_pl
 
 
@@ -730,13 +731,15 @@ def u_rows(u_prev, m_max, mc):
     return torch.cat([u_prev.repeat(4 * m_max, 1), pad], dim=0)
 
 
-def step_loop(tables, lane_consts, r_l, dims, solve, warm, u_follow=None):
+def step_loop(tables, lane_consts, r_l, dims, solve, warm, u_follow=None,
+              mm=torch.matmul):
     """The closed loop as a Python loop over the steps of r_l: plant
     output, Kalman update, free response and tracking error, then
     ``solve(k, err, free, u_prev, warm) -> (du, warm)`` (the step's QP,
     warm-started from the previous step's state), then the input update
     and the model and plant step (on ``u_follow[k]`` when given).
-    Returns (Y (nit, ny, B), U (nit, nu, B))."""
+    ``mm(A, X)`` takes the products of the shared matrices with the
+    lane-major states.  Returns (Y (nit, ny, B), U (nit, nu, B))."""
     t, lc = tables, lane_consts
     nit, ny, B = r_l.shape
     nu = dims["nu"]
@@ -746,11 +749,12 @@ def step_loop(tables, lane_consts, r_l, dims, solve, warm, u_follow=None):
     xhp = torch.zeros((t["A"].shape[0], B), **kw)
     u_prev = torch.zeros((nu, B), **kw)
     for k in range(nit):
-        y, x_hat, free, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny)
+        y, x_hat, free, err = _sim_pre(t, lc, r_l, k, x_pl, xhp, u_prev, ny,
+                                       mm)
         Y[k] = y
         du, warm = solve(k, err, free, u_prev, warm)
         U[k], u_prev, xhp, x_pl = _sim_post(t, lc, k, x_hat, x_pl,
-                                            u_prev + du, ny, u_follow)
+                                            u_prev + du, ny, u_follow, mm)
     return Y, U
 
 
@@ -1203,9 +1207,11 @@ closed_sim_band.launches = 0
 # discrete map.  The same call is the closed loop's plant step (m = 0,
 # p = 1, every state as an output) and the open leg's playback (p = nit - 1,
 # ``hold`` the last active move).  The CUDA kernel (ops/csrc/nmpc.cu) runs
-# one thread per (candidate, tangent column).  The plain version and the
-# kernel's envelope (the models and integrator it covers) live beside the
-# models: ``models/ode.nmpc_rollout_plain`` / ``nmpc_envelope``.
+# one thread per (candidate, tangent column) and steps the model's
+# integrator, RK4 or TR-BDF2 (a template parameter, chosen by the dims slot
+# after the outputs).  The plain version and the kernel's envelope (the
+# models and integrators it covers) live beside the models:
+# ``models/ode.nmpc_rollout_plain`` / ``nmpc_envelope``.
 
 
 def nmpc_rollout(model, x, u_prev, du, cmask, p, hold=None, jac=False,
@@ -1241,8 +1247,9 @@ def nmpc_rollout(model, x, u_prev, du, cmask, p, hold=None, jac=False,
     ptrs = (ctypes.c_void_p * 7)(*[
         t.data_ptr() if t is not None and t.numel() else None
         for t in (x, u_prev, du, cmask, hold, Y, J)])
-    dims = (ctypes.c_int * 9)(B, p, m, model.substeps, int(jac), ny,
-                              *(out + [0] * (3 - ny)))
+    dims = (ctypes.c_int * 10)(B, p, m, model.substeps, int(jac), ny,
+                               *(out + [0] * (3 - ny)),
+                               NMPC_INTEGRATORS.index(model.integrator))
     with _device_of(x):
         _build.check(_build.library().mpc_nmpc_rollout(
             int(dtype == torch.float64), ptrs, dims, ctypes.c_double(model.Ts),

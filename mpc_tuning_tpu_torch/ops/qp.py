@@ -464,7 +464,7 @@ def admm_precompute(H, G, sigma: float = 1e-6, cmask=None):
     e = 1.0 / torch.clamp_min(rn, 1e-8)
     e = torch.where(rn < 1e-12, torch.ones_like(e), e)  # disabled rows keep 1
     Gs = Gs0 * e[:, :, None]
-    GtG = Gs.transpose(1, 2) @ Gs
+    GtG = lane_baddbmm(None, Gs.transpose(1, 2), Gs)
     Hn = Hs if cmask is None else Hs * cmask[:, :, None] * cmask[:, None, :]
     rho = 0.1 * (_frobenius(Hn) / (_frobenius(GtG) + 1e-12))
     rho = torch.clamp(rho, 1e-3, 1e2)
@@ -484,14 +484,15 @@ def solve_qp_admm(pre, f, h, state, iters: int, sigma: float = 1e-6,
     start in SCALED coordinates, carried across closed-loop steps
     (successive MPC QPs differ only in f and h).  Returns (z (B, n)
     unscaled, new state).  Each product is a batched matrix-vector product
-    (torch.bmm) against the candidate's own Minv and Gs."""
+    (``lane_baddbmm``: on the card in chunks of CARD_LANES candidates)
+    against the candidate's own Minv and Gs."""
     Minv, Dinv, e, Gs = pre["Minv"], pre["Dinv"], pre["e"], pre["Gs"]
     rho = pre["rho"][:, None]
     Gst = Gs.transpose(1, 2)
     fs = f * Dinv
     hs = h * e
     x, zc, y = state
-    mv = lambda A, v: torch.bmm(A, v[:, :, None])[:, :, 0]
+    mv = lambda A, v: lane_baddbmm(None, A, v[:, :, None])[:, :, 0]
     for _ in range(iters):
         x = mv(Minv, sigma * x - fs + mv(Gst, rho * zc - y))
         Gx_r = over_relax * mv(Gs, x) + (1.0 - over_relax) * zc

@@ -66,9 +66,9 @@ from mpc_tuning_tpu_torch.ops.mpc_qp import (
     pin_precision,
     qp_step_data,
 )
-from mpc_tuning_tpu_torch.ops.qp import (CARD_LANES, pdip_lanes, solve_qp,
-                                         solve_qp_admm, solve_qp_masked,
-                                         split_stage2)
+from mpc_tuning_tpu_torch.ops.qp import (CARD_LANES, lane_mm, pdip_lanes,
+                                         solve_qp, solve_qp_admm,
+                                         solve_qp_masked, split_stage2)
 
 __all__ = ["MPCLoop", "horizon_caps", "ENGINES", "STEP_ENGINES",
            "BATCH_MAJOR_ENGINES", "ADMM_ENGINES", "sim_inputs", "run_engine",
@@ -244,11 +244,14 @@ class MPCLoop:
         the engine's iteration count (ADMM or PDIP; 'band_sim' runs its
         fixed BAND_LP_ITERS + BAND_S2_ITERS).  Returns (Y (B, nit, ny),
         U (B, nit, nu)) tensors on ``device``; a lone candidate runs as
-        two lanes (``pad_lanes``)."""
+        two lanes (``pad_lanes``); the batch-major engines, which run as
+        eager torch ops, on the card a multiple of CARD_LANES lanes, as the
+        open legs."""
+        lanes = card_lanes(device) if engine in BATCH_MAJOR_ENGINES else 1
         return pad_lanes(
             lambda *b: run_engine(engine, *self.sim_inputs(
                 b[0], v, *b[1:], nit, dtype, engine, device, caps), qp_iters),
-            1, r_b, N_b, Nu_b, delta_b, lam_b)
+            lanes, r_b, N_b, Nu_b, delta_b, lam_b)
 
     def open_batch(self, rfin_b, v, N_b, Nu_b, delta_b, lam_b, nit, dtype,
                    qp_iters, device="cuda", caps=None):
@@ -502,7 +505,7 @@ def batch_major_step(engine, tables, lane_consts, dims, iters):
     kw = dict(dtype=H.dtype, device=H.device)
 
     def solve(k, err, free, u_prev, warm):
-        f = ((-2.0 * (t["ThT"] @ err)).T * cmask).contiguous()
+        f = ((-2.0 * lane_mm(t["ThT"], err)).T * cmask).contiguous()
         h = (lc["hbase"] + lc["su"] * u_rows(u_prev, m_max, mc)).T
         h = h.contiguous()
         if engine == "admm":
@@ -529,9 +532,12 @@ def step_engine(engine, tables, lane_consts, Hm, r_l, dims, iters):
     the engine's kernels.  The shared constraint matrix's CSR is built
     once here, not per step.  Returns (Y (nit, ny, B), U (nit, nu, B))."""
     if engine in BATCH_MAJOR_ENGINES:
+        # products in chunks of CARD_LANES lanes on the card (lane_mm), as
+        # their batched products (ops/qp.solve_qp, solve_qp_admm)
         solve, warm = batch_major_step(engine, tables, lane_consts, dims,
                                        iters)
-        return step_loop(tables, lane_consts, r_l, dims, solve, warm)
+        return step_loop(tables, lane_consts, r_l, dims, solve, warm,
+                         mm=lane_mm)
     G = g_shared(tables["G0"], tables.get("T2T"))
     if engine == "admm_fused":
         solve, warm = admm_step(tables, lane_consts, Hm, dims, G, iters,

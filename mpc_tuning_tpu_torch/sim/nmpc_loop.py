@@ -16,8 +16,8 @@ What runs where: the rollout, its sensitivities (the JAX package's
 version on the CPU); the SQP subproblem's factor and solves are
 ``ops/kernels.spd_factor`` / ``spd_factor_solve``; the rest is eager
 PyTorch.  On the card the rollout kernel covers the Van de Vusse rhs with
-RK4 (``models/ode.nmpc_envelope``); other models and ``tr_bdf2`` run with
-``device="cpu"``.
+either integrator, RK4 or the stiff TR-BDF2 (``models/ode.nmpc_envelope``);
+another rhs runs with ``device="cpu"``.
 
 State feedback is direct (closedloop_toolbox_nmpc.m:69): no observer.
 """

@@ -1,7 +1,8 @@
-"""Time the PyTorch port's three tunes of ``chip_smoke.py`` phases 3, 3b and
-3d for one source tree, to compare two trees on the same card.
+"""Time the PyTorch port's tunes of ``chip_smoke.py`` phases 3, 3b, 3d and
+3k for one source tree, to compare two trees on the same card, or to take
+each tune's wall alone on the card and host.
 
-    python scripts/ab_tune_walls.py ROOT [--unpadded]
+    python scripts/ab_tune_walls.py ROOT [--unpadded] [--nmpc]
 
 ROOT is a checkout of the repo (for example a ``git archive`` of the parent
 commit unpacked into a gitignored directory); its ``mpc_tuning_tpu_torch``
@@ -9,9 +10,12 @@ is imported.  It runs, as ``chip_smoke.py`` does, the Wood-Berry tune
 (float32, popsize 8, 4 generations, 2 alternations, qp_iters 15, seed 0;
 phase 3), the Shell7x5 band tune (float64, popsize 8, 3 generations, 1
 alternation, qp_iters 60; phase 3b) and the Van de Vusse NMPC tune
-(float64, popsize 8, 3 generations, 1 alternation, no joint polish; phase
-3d), and prints each one's wall (host clock around the tune, ending in a
-device sync), its result and its kernel launches.  ``--unpadded`` runs
+(float64, popsize 8, 3 generations, 1 alternation, no joint polish) with
+RK4 (phase 3d) and with TR-BDF2 (phase 3k), one after another in this one
+process, and prints each one's wall (host clock around the tune, ending in
+a device sync), its result and its kernel launches.  ``--nmpc`` runs the
+two Van de Vusse tunes only, after a short untimed one with each
+integrator that builds and loads their kernels.  ``--unpadded`` runs
 the eager loops at the batch's own width on the card (``card_lanes`` set
 to 1, a tree that has it) to isolate the cost of their padding.  Run the
 trees in turn in one call (parent, change, change, parent).  Needs one
@@ -25,6 +29,7 @@ import time
 ap = argparse.ArgumentParser()
 ap.add_argument("root")
 ap.add_argument("--unpadded", action="store_true")
+ap.add_argument("--nmpc", action="store_true")
 args = ap.parse_args()
 sys.path.insert(0, args.root)
 import numpy as np  # noqa: E402
@@ -62,22 +67,29 @@ def tracking(case, dtype, qp_iters, gens, alts):
     return res.N, res.Nu, res.Fvns
 
 
-def nmpc():
-    case = vandevusse.make_case()
+def nmpc(integrator, short=False):
+    kw = dict(nit=10, nbp=2, nbc=2) if short else {}
+    case = vandevusse.make_case(integrator=integrator, **kw)
     problem = vandevusse.build_problem(case, device="cuda")
     best, _, _, Fvns, _, _ = hybrid_tune(
-        problem, case.nbp, case.nbc, vandevusse.X0_WEIGHTS, gam_popsize=8,
-        gam_generations=3, max_alternations=1, seed=0, verbose=False,
-        joint_polish=False)
+        problem, case.nbp, case.nbc, vandevusse.X0_WEIGHTS,
+        gam_popsize=2 if short else 8, gam_generations=1 if short else 3,
+        max_alternations=1, seed=0, verbose=False, joint_polish=False)
     return int(best["N"]), best["Nu"], Fvns
 
 
-# the first tune builds the kernels: one short tune first, untimed
-mpc_tuning(woodberry.make_case(nit=40, nbp=4, nbc=2), dtype=torch.float32,
-           device="cuda", qp_iters=5, gam_popsize=4, gam_generations=1,
-           max_alternations=1, seed=0, checkpoint_dir=None, verbose=False)
-timed("3 woodberry", lambda: tracking(woodberry.make_case(), torch.float32,
-                                      15, 4, 2))
-timed("3b shell7x5", lambda: tracking(shell7x5.make_case(), torch.float64,
-                                      60, 3, 1))
-timed("3d vandevusse", nmpc)
+# the first tune builds the kernels: short tunes first, untimed
+if args.nmpc:
+    for integrator in ("rk4", "tr_bdf2"):
+        nmpc(integrator, short=True)
+else:
+    mpc_tuning(woodberry.make_case(nit=40, nbp=4, nbc=2),
+               dtype=torch.float32, device="cuda", qp_iters=5,
+               gam_popsize=4, gam_generations=1, max_alternations=1, seed=0,
+               checkpoint_dir=None, verbose=False)
+    timed("3 woodberry", lambda: tracking(woodberry.make_case(),
+                                          torch.float32, 15, 4, 2))
+    timed("3b shell7x5", lambda: tracking(shell7x5.make_case(),
+                                          torch.float64, 60, 3, 1))
+timed("3d vandevusse rk4", lambda: nmpc("rk4"))
+timed("3k vandevusse tr_bdf2", lambda: nmpc("tr_bdf2"))

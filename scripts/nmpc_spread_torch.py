@@ -6,13 +6,17 @@ solves its own control at the window steps only.
 
     PYTHONPATH=. python scripts/nmpc_spread_torch.py [--B 8] [--caps 31 15]
         [--nit 60] [--windows 1-12 38-47] [--seed 0] [--threads 4] [--card]
-        [--vns-last]
+        [--integrator rk4|tr_bdf2] [--vns-last [N NU DELTA1 DELTA2 LAM1
+        LAM2]]
 
-The candidates: B seeded ones spanning the bucket ``--caps`` with the
-case's setpoints, or (``--vns-last``) the last batch of ``chip_smoke.py``
-phase 3d's tune: the order-3 VNS neighbourhood of its result (N 31, Nu
-[2, 2], at its weights, printed to six digits), two selector lanes per
-candidate, each with the case setpoints of one output only (B = 36).
+The case integrates with ``--integrator`` (``make_case``'s; phase 3d's
+tune runs RK4, phase 3k's TR-BDF2).  The candidates: B seeded ones
+spanning the bucket ``--caps`` with the case's setpoints, or
+(``--vns-last``) the last batch of a Van de Vusse tune of ``chip_smoke.py``:
+the order-3 VNS neighbourhood of its result (by default phase 3d's, N 31,
+Nu [2, 2], at its weights, printed to six digits; else the six numbers
+given, Nu one value for both inputs), two selector lanes per candidate,
+each with the case setpoints of one output only (B = 36 at N 31, Nu 2).
 
 On the CPU (default): the plain loop, run once solving every step, then in
 pairs following that run's U with their inputs one ulp apart: the followed
@@ -72,12 +76,17 @@ def plain_on_card():
         nmpc_loop.nmpc_rollout, qp.spd_factor, qp.spd_factor_solve = saved
 
 
-def vns_last_batch(case, nit):
+PHASE_3D = (31, 2, 0.412407, 0.162317, 0.08433, 0.656057)
+
+
+def vns_last_batch(case, nit, result=PHASE_3D):
     """(N, Nu, (r, delta, lam)) of the lanes of the order-3 VNS
-    neighbourhood of phase 3d's result, as ``vns_objective_batch`` lays
-    them out for a nonlinear square case."""
-    x2 = np.stack([int_to_bits(2, case.nbc)] * 2)
-    cands = _neighborhood(int_to_bits(31, case.nbp), x2, 3)
+    neighbourhood of a tune's result (N, Nu, delta1, delta2, lam1, lam2),
+    as ``vns_objective_batch`` lays them out for a nonlinear square
+    case."""
+    N0, Nu0, d1, d2, l1, l2 = result
+    x2 = np.stack([int_to_bits(int(Nu0), case.nbc)] * 2)
+    cands = _neighborhood(int_to_bits(int(N0), case.nbp), x2, 3)
     Ns = np.array([bits_to_int(a) for a, _ in cands])
     Nus = np.array([max(bits_to_int(row) for row in b) for _, b in cands])
     sel = np.zeros((2, nit, 2))
@@ -85,8 +94,8 @@ def vns_last_batch(case, nit):
         sel[i, :, i] = case.r[:nit, i]
     B = 2 * len(cands)
     r = np.broadcast_to(sel[None], (len(cands), 2, nit, 2)).reshape(B, nit, 2)
-    d = np.broadcast_to([0.412407, 0.162317], (B, 2))
-    l = np.broadcast_to([0.08433, 0.656057], (B, 2))
+    d = np.broadcast_to([d1, d2], (B, 2))
+    l = np.broadcast_to([l1, l2], (B, 2))
     return np.repeat(Ns, 2), np.repeat(Nus, 2), (r, d, l)
 
 
@@ -113,15 +122,20 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--threads", type=int, default=4)
     ap.add_argument("--card", action="store_true")
-    ap.add_argument("--vns-last", action="store_true")
+    ap.add_argument("--integrator", default="rk4",
+                    choices=["rk4", "tr_bdf2"])
+    ap.add_argument("--vns-last", nargs="*", type=float, default=None,
+                    metavar="N NU DELTA1 DELTA2 LAM1 LAM2")
     args = ap.parse_args()
+    if args.vns_last not in (None, []) and len(args.vns_last) != 6:
+        ap.error("--vns-last takes no value or six")
     torch.set_num_threads(args.threads)
-    case = vandevusse.make_case()
+    case = vandevusse.make_case(integrator=args.integrator)
     problem = vandevusse.build_problem(case, device="cpu")
     rng = np.random.default_rng(args.seed)
     (p_cap, m_cap), nit = args.caps, args.nit
-    if args.vns_last:
-        N, Nu, vals = vns_last_batch(case, nit)
+    if args.vns_last is not None:
+        N, Nu, vals = vns_last_batch(case, nit, args.vns_last or PHASE_3D)
         p_cap, m_cap = int(N.max()), int(Nu.max())
     else:
         N = rng.integers(m_cap + 1, p_cap + 1, size=args.B)
@@ -135,10 +149,12 @@ def main():
         problem.v, N, Nu, (p_cap, m_cap), torch.float64, dev, *vals)
     spec, c, Nt, Nut, (r, d, l) = batch("cpu")
     steps = [k for k in windows(args.windows) if 1 <= k < nit]
+    which = ("the last batch" if args.vns_last is not None
+             else f"seed={args.seed}")
     head = (f"VdV NMPC f64, B={B} caps=({p_cap},{m_cap}) nit={nit} "
             f"substeps={spec.substeps} sqp={spec.sqp_iters} "
             f"qp={spec.qp_iters} "
-            f"{'the last 3d batch' if args.vns_last else f'seed={args.seed}'}"
+            f"integrator={spec.integrator} {which}"
             f"; U solved at steps "
             f"{args.windows}")
     follow = lambda cc, rr, NN, NNu, dd, ll, uf: nmpc_closed_core(

@@ -5,7 +5,8 @@ score the same batches cut into shards (``TuningProblem.mesh``) and compare
 them with the whole batch bit for bit.
 
     PYTHONPATH=. python scripts/slot_trace.py [--case CASE] [--device cpu] \\
-        [--nit NIT] [--tune] [--only BATCH] [--shards 2,3] [--out FILE]
+        [--nit NIT] [--tune] [--only BATCH] [--shards 2,3] [--lanes N] \\
+        [--out FILE]
 
 ``--case``: shell3x3 (default: float32, VNS through 'admm_fused' at 40
 iterations and GAM through 'pdip_ws_fused', as ``chip_smoke.py`` phase 3c
@@ -32,7 +33,10 @@ but whose output is not, with the call site in the port; the kernels the
 port launches through ctypes are checked the same way around their
 wrappers.  Then it compares the closed and open outputs and the parts of
 F lane by lane.  Prints one line per finding; ``--out`` writes them as
-JSON.
+JSON.  ``--lanes N``: the shard check's batch holds its candidates repeated
+in order until it has at least N lanes (above ops/qp.CARD_LANES, the
+whole batch runs wider than its shards); ``--only none`` skips the
+traces.
 """
 
 from __future__ import annotations
@@ -361,6 +365,8 @@ def main():
                          "'distinct + incumbent')")
     ap.add_argument("--shards", default="2,3",
                     help="shard counts of the shard check ('' skips it)")
+    ap.add_argument("--lanes", type=int, default=0,
+                    help="lanes of the shard check's batch at least")
     ap.add_argument("--out", type=pathlib.Path)
     args = ap.parse_args()
     if args.device == "cuda":
@@ -400,8 +406,12 @@ def main():
             lines += trace_batch(problem, name, pairs, own, delta, lam)
     shards = [int(k) for k in args.shards.split(",") if k]
     if shards:
-        lines += shard_check(problem, "distinct + incumbent",
-                             todo["distinct + incumbent"], delta, lam, shards)
+        name, pairs = "distinct + incumbent", todo["distinct + incumbent"]
+        my = problem.my if problem.square else 1
+        reps = -(-args.lanes // (len(pairs) * my))
+        if reps > 1:
+            name, pairs = f"{name}, {reps} times over", pairs * reps
+        lines += shard_check(problem, name, pairs, delta, lam, shards)
     if args.out:
         args.out.write_text(json.dumps(lines, indent=1))
 

@@ -1042,20 +1042,19 @@ def test_scan_engine_lanes_do_not_depend_on_the_slot(cuda, engine):
 
 @pytest.mark.parametrize("engine", mpc_loop.BATCH_MAJOR_ENGINES)
 def test_scan_engine_batch_size_moves_a_lane_by_rounding(cuda, engine):
-    """The same lanes in batches of 1, 2 and 13 against the batch of 37,
-    at F64 1e-9 (the card-vs-plain gate of float64 loops).  Not bit for
-    bit: torch's products round a lane by the batch's width (a width-1
-    product takes cuBLAS's matrix-vector path; the batched products of
-    'pdip_dense' and 'admm' follow the batch count), by 1e-16 to 3e-13 in
-    U on an NVIDIA H100 (PERF.md §6); the whole-sim kernels and the
-    lane-major engines at widths >= 2 read the same bits."""
+    """The same lanes in batches of 1, 2 and 13 read the same bits as in
+    the batch of 37: on the card the batch-major engines run padded to a
+    multiple of ops/qp.CARD_LANES lanes, their products in chunks of
+    CARD_LANES (torch's products round a lane by the batch's width: a
+    width-1 product takes cuBLAS's matrix-vector path, and the batched
+    products follow the batch count)."""
     run = _scan_batch()
     idx = np.arange(37)
     Y, U = run(engine, idx)
     for lo, hi in ((5, 6), (5, 7), (5, 18)):
         Ys, Us = run(engine, idx[lo:hi])
-        torch.testing.assert_close(Ys, Y[lo:hi], rtol=0, atol=1e-9)
-        torch.testing.assert_close(Us, U[lo:hi], rtol=0, atol=1e-9)
+        assert torch.equal(Ys, Y[lo:hi]) and torch.equal(Us, U[lo:hi]), \
+            (lo, hi)
 
 
 # ------------------------------------------------------------ DTC-GPC
@@ -1096,10 +1095,10 @@ def test_dtc_lanes_do_not_depend_on_the_batch(cuda, dtype):
                                    atol=1e-8)
 
 
-def _vdv_rollout_args(caps, B=64, seed=0):
+def _vdv_rollout_args(caps, B=64, seed=0, integrator="rk4"):
     """Seeded Van de Vusse states, previous inputs and moves around the
     operating point, on the card."""
-    spec = vandevusse.make_case().spec
+    spec = vandevusse.make_case(integrator=integrator).spec
     spec = dataclasses.replace(spec, p_max=caps[0], m_max=caps[1])
     rng = np.random.default_rng(seed)
     x = spec.x0 + rng.uniform([-0.5, -0.2, -5.0], [0.5, 0.2, 5.0], (B, 3))
@@ -1115,11 +1114,13 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
+@pytest.mark.parametrize("integrator", ["rk4", "tr_bdf2"])
 @pytest.mark.parametrize("caps", [(31, 15), (16, 2)])
-def test_nmpc_rollout_matches_plain(cuda, caps):
+def test_nmpc_rollout_matches_plain(cuda, caps, integrator):
     """Yf and J, the plant step (m = 0) and the held playback against the
-    plain version at float64 (1e-10 relative)."""
-    spec, x, up, du, cm, Nu = _vdv_rollout_args(caps)
+    plain version at float64 (1e-10 relative), with either integrator;
+    each call one launch."""
+    spec, x, up, du, cm, Nu = _vdv_rollout_args(caps, integrator=integrator)
     before = K.nmpc_rollout.launches
     Yk, Jk = K.nmpc_rollout(spec, x, up, du, cm, caps[0], jac=True)
     assert K.nmpc_rollout.launches == before + 1
@@ -1134,29 +1135,43 @@ def test_nmpc_rollout_matches_plain(cuda, caps):
     args = (spec, x, up, du, cm, 59)
     assert _rel(K.nmpc_rollout(*args, hold=hold)[0],
                 nmpc_rollout_plain(*args, hold=hold)[0]) <= 1e-10
+    assert K.nmpc_rollout.launches == before + 3
 
 
 def test_nmpc_rollout_refuses_models_without_a_kernel(cuda):
+    """Another rhs and an unknown integrator raise before any launch."""
     spec, x, up, du, cm, _ = _vdv_rollout_args((16, 2), B=4)
-    for bad in (dataclasses.replace(spec, integrator="tr_bdf2"),
-                dataclasses.replace(spec, rhs=lambda a, b: -a)):
-        with pytest.raises(ValueError, match="device='cpu'"):
+    before = K.nmpc_rollout.launches
+    for bad, match in ((dataclasses.replace(spec, rhs=lambda a, b: -a),
+                        "device='cpu'"),
+                       (dataclasses.replace(spec, integrator="euler"),
+                        "unknown integrator")):
+        with pytest.raises(ValueError, match=match):
             K.nmpc_rollout(bad, x, up, du, cm, 16, jac=True)
+    assert K.nmpc_rollout.launches == before
 
 
-def test_nmpc_closed_batch_follows_plain(cuda):
-    """An NMPC closed loop on the card (kernels #1, #2 and the rollout)
-    against the plain loop on the CPU stepping on the card's U, at
-    float64."""
-    from mpc_tuning_tpu_torch.sim.nmpc_loop import nmpc_closed_core
-
-    case = vandevusse.make_case(nit=10)
+def _vdv_closed(cuda, integrator):
+    """A Van de Vusse problem on the card and B = 8 seeded candidates at
+    nit 10, as closed_batch's arguments."""
+    case = vandevusse.make_case(nit=10, integrator=integrator)
     problem = vandevusse.build_problem(case, device=cuda)
     rng = np.random.default_rng(1)
     B = 8
     args = (np.broadcast_to(case.r[:10], (B, 10, 2)), problem.v,
             rng.integers(3, 9, B), rng.integers(2, 3, B),
             rng.uniform(0.05, 1.0, (B, 2)), rng.uniform(0.05, 0.5, (B, 2)), 10)
+    return problem, args
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "tr_bdf2"])
+def test_nmpc_closed_batch_follows_plain(cuda, integrator):
+    """An NMPC closed loop on the card (kernels #1, #2 and the rollout)
+    against the plain loop on the CPU stepping on the card's U, at
+    float64, with either integrator."""
+    from mpc_tuning_tpu_torch.sim.nmpc_loop import nmpc_closed_core
+
+    problem, args = _vdv_closed(cuda, integrator)
     before = K.launch_counts()
     Y, U = problem.loop.closed_batch(*args, caps=(8, 2), device=cuda)
     after = K.launch_counts()
@@ -1171,6 +1186,22 @@ def test_nmpc_closed_batch_follows_plain(cuda):
                                atol=1e-9)
     torch.testing.assert_close(U.cpu() / c["sf_u"], Up / c["sf_u"], rtol=0,
                                atol=1e-9)
+
+
+def test_nmpc_card_never_runs_the_plain_rollout(cuda, monkeypatch):
+    """A stiff closed batch on the card goes through the rollout kernel
+    alone: with the plain rollout made to raise it still runs, one launch
+    per rollout (SQP iterations and plant steps)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain rollout ran on a CUDA tensor")
+
+    monkeypatch.setattr(K, "nmpc_rollout_plain", refuse)
+    problem, args = _vdv_closed(cuda, "tr_bdf2")
+    before = K.nmpc_rollout.launches
+    Y, U = problem.loop.closed_batch(*args, caps=(8, 2), device=cuda)
+    spec = problem.loop.spec
+    assert K.nmpc_rollout.launches - before == 9 * (spec.sqp_iters + 1)
+    assert torch.isfinite(Y).all() and torch.isfinite(U).all()
 
 
 # ------------------------------------------------- candidate sharding

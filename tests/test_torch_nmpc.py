@@ -70,6 +70,16 @@ def test_integrate_matches_jax(method):
     np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-12)
 
 
+def test_integrate_rk4_matches_jax():
+    x, u = _states(np.random.default_rng(8), 5)
+    xj = np.stack([np.asarray(ode_jax.integrate_rk4(
+        ode_jax.vandevusse_rhs, jnp.asarray(a), jnp.asarray(b), 0.05, 4))
+        for a, b in zip(x, u)])
+    xt = ode_torch.integrate_rk4(ode_torch.vandevusse_rhs, torch.tensor(x),
+                                 torch.tensor(u), 0.05, 4).numpy()
+    np.testing.assert_allclose(xt, xj, rtol=0, atol=1e-12)
+
+
 def test_newton_steady_state_matches_jax():
     xj = np.asarray(ode_jax.newton_steady_state(
         ode_jax.vandevusse_rhs, ode_jax.VDV_X0, ode_jax.VDV_U0))
@@ -143,14 +153,19 @@ def test_rollout_plant_step_and_playback(specs):
 
 
 def test_rollout_envelope():
-    """The rollout kernel runs the Van de Vusse rhs with RK4 only; other
-    models and TR-BDF2 raise before any launch (they run on the CPU)."""
+    """The rollout kernel runs the Van de Vusse rhs with RK4 or TR-BDF2;
+    an unknown integrator and another rhs raise before any launch
+    (another rhs runs on the CPU)."""
     spec = vdv_torch.make_case(**CASE_KW).spec
     ode_torch.nmpc_envelope(spec)
-    with pytest.raises(ValueError, match="tr_bdf2"):
-        ode_torch.nmpc_envelope(dataclasses.replace(spec, integrator="tr_bdf2"))
+    ode_torch.nmpc_envelope(dataclasses.replace(spec, integrator="tr_bdf2"))
+    with pytest.raises(ValueError, match="unknown integrator 'euler'"):
+        ode_torch.nmpc_envelope(dataclasses.replace(spec, integrator="euler"))
     with pytest.raises(ValueError, match="no kernel for rhs"):
         ode_torch.nmpc_envelope(dataclasses.replace(spec, rhs=lambda x, u: -x))
+    with pytest.raises(ValueError, match="no kernel for rhs"):
+        ode_torch.nmpc_envelope(dataclasses.replace(
+            spec, rhs=lambda x, u: -x, integrator="tr_bdf2"))
 
 
 # ------------------------------------------------------- the QP and SPD solve
