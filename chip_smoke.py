@@ -41,7 +41,9 @@ Phases, each printing one line (with its wall time):
     2d the NMPC slice's kernels in float64 and float32: spd_solve at n = 5,
        17, 31; nmpc_rollout with each of its steppers, RK4 and TR-BDF2 (Y
        and its Jacobian J, the plant step, the held playback) on 256
-       seeded Van de Vusse states at caps (31,15) and (16,2), float32 at
+       seeded Van de Vusse states at caps (31,15) and (16,2) (the tune's
+       mask spread over the inputs) and at the explicit NMPC's shape (N 5,
+       per-input Nu (2, 1), 6 substeps; explicit_rollout_args), float32 at
        ROLLOUT_F32_LIMITS / ROLLOUT_TRBDF2_F32_LIMITS, fixed from what two
        correct runs differ by; one float64 NMPC closed-loop batch for each
        integrator (B = 32, nit 10, caps (16,4)) on the card, held step by
@@ -92,7 +94,8 @@ Phases, each printing one line (with its wall time):
     400) at float64 and float32: lanes bit-identical, the replay oracle,
     float32 against float64, the tracking checks;
  3h. the explicit NMPC Van de Vusse demo (nit 100, three lanes; in its
-    own process on the card beside 3j-3f) against the same loop on the
+    own process on the card beside 3j-3f; its prediction, offset model
+    and plant step through nmpc_rollout) against the same loop on the
     CPU and the staircase checks;
  3i. the front end: the batch-major scan engines 'pdip', 'pdip_ws',
     'pdip_dense' and 'admm' on Wood-Berry (B = 8, nit 60, f64) step by
@@ -137,7 +140,10 @@ Phases, each printing one line (with its wall time):
     and the explicit NMPC loop's seconds; parallel/report.card_rows (the
     bench shape's sims/s at B = 1024-8192, a record).  nmpc_rollout at
     float64 B = 256 (31, 15) with J with each stepper, a row each under
-    'shapes' with its launches on the main path (RK4's at the top level).
+    'shapes' with its launches on the main path (RK4's at the top level,
+    3h's among them), and each stepper with J and without, beside the
+    thread-per-column design it replaced, at (31, 15) and (16, 2), B = 8,
+    64 and 256 ('timings').
 Then one JSON line with the per-kernel record, the card's line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero before that line.
@@ -200,6 +206,9 @@ QP_LIMITS = {
 # product that could run on them)
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+# float64 outside the tensor cores (NVIDIA data sheet, H100 SXM): the
+# rollout's arithmetic is scalar chains, nothing GEMM-shaped
+FP64_SIMT_FLOPS = 33.5e12
 
 SOURCES = {
     "spd_factor": ("mpc_tuning_tpu_torch/ops/csrc/spd.cu",
@@ -251,6 +260,10 @@ ROLLOUT_F32_LIMITS = dict(y=4.4e-07, j=1.6e-06)
 # witnesses Y 4.380e-07, J 1.509e-06).
 ROLLOUT_TRBDF2_F32_LIMITS = dict(y=8.8e-07, j=3.1e-06)
 ROLLOUT_F32 = {"rk4": ROLLOUT_F32_LIMITS, "tr_bdf2": ROLLOUT_TRBDF2_F32_LIMITS}
+# phase 4 times the rollout kernel with and without J, and the
+# thread-per-column design it replaced, at these buckets and batches
+ROLLOUT_TIMING_CAPS = ((31, 15), (16, 2))
+ROLLOUT_TIMING_B = (8, 64, 256)
 # Both TR-BDF2 witnesses peaked at (16, 2); phase 2d measures them there
 # only (the plain TR-BDF2 rollout with J at (31, 15) takes ~10 s a run on
 # the card) and holds (31, 15) at the frozen limits.
@@ -490,11 +503,12 @@ def nbytes(*xs) -> int:
     return total
 
 
-def bound_ms(bytes_moved: float, flops: float, dtype):
+def bound_ms(bytes_moved: float, flops: float, dtype, peak=None):
     """(least ms on the card, what bounds it): the bytes read and written
-    once over the HBM rate, or the operations over the peak rate."""
+    once over the HBM rate, or the operations over the peak rate (``peak``
+    FLOP/s, else PEAK_FLOPS[dtype])."""
     tb = bytes_moved / HBM_BPS * 1e3
-    to = flops / PEAK_FLOPS[dtype] * 1e3
+    to = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -1935,8 +1949,9 @@ def phase_step_throughput(problem, tune_shapes=TUNE_SHAPES):
 
 def vdv_rollout_args(spec, caps, B, dtype, seed, device="cuda"):
     """Seeded Van de Vusse states, previous inputs and moves around the
-    operating point at capacity ``caps``: (capped spec, x, u_prev, du,
-    cmask, Nu)."""
+    operating point at capacity ``caps``, the tune's move mask (one Nu a
+    candidate) spread over the inputs: (capped spec, x, u_prev, du, cmask
+    (B, m nu), Nu)."""
     import dataclasses
 
     spec = dataclasses.replace(spec, p_max=caps[0], m_max=caps[1])
@@ -1945,9 +1960,35 @@ def vdv_rollout_args(spec, caps, B, dtype, seed, device="cuda"):
     up = spec.u0 + rng.uniform(-5.0, 5.0, (B, 2))
     du = rng.uniform(-2.0, 2.0, (B, caps[1] * 2))
     Nu = rng.integers(1, caps[1] + 1, size=B)
-    cm = (np.arange(caps[1])[None] < Nu[:, None]).astype(float)
+    cm = np.repeat((np.arange(caps[1])[None] < Nu[:, None]).astype(float),
+                   2, axis=1)
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)
     return spec, t(x), t(up), t(du), t(cm), Nu
+
+
+def explicit_rollout_args(integrator, B, dtype, seed, device="cuda"):
+    """The explicit NMPC's rollout at its phase 3h settings (N 5, 6
+    substeps) with per-input control horizons Nu (2, 1), the mask per
+    column, on seeded states around the operating point: (the controller
+    as the rollout's model, x, u_prev, du, cmask (B, m nu))."""
+    import dataclasses
+
+    from mpc_tuning_tpu_torch.cases import vandevusse_explicit as vex
+    from mpc_tuning_tpu_torch.models.ode import VDV_U0, VDV_X0
+
+    ctl = dataclasses.replace(vex.make_controller(**ENMPC_KW), Nu=(2, 1),
+                              integrator=integrator)
+    m = max(ctl.Nu)
+    rng = np.random.default_rng(seed)
+    x = VDV_X0 + rng.uniform([-3.5, -0.5, -5.0], [-2.5, 0.2, 5.0], (B, 3))
+    up = VDV_U0 + rng.uniform(-5.0, 5.0, (B, 2))
+    du = rng.uniform(-4.0, 4.0, (B, m * 2))
+    cm = np.zeros((m, 2))
+    for j, nuj in enumerate(ctl.Nu):
+        cm[:nuj, j] = 1.0
+    cm = np.broadcast_to(cm.reshape(-1), (B, m * 2))
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)
+    return ctl, t(x), t(up), t(du), t(cm)
 
 
 def rel(a, b) -> float:
@@ -2012,13 +2053,19 @@ def phase_nmpc_kernels(problems, pool):
 
     for integrator, problem in problems.items():
         spec = problem.loop.spec
-        for caps in ((31, 15), (16, 2)):
+        for caps in ((31, 15), (16, 2), "explicit"):
             for dtype in (torch.float64, torch.float32):
                 f64 = dtype == torch.float64
                 tag = "f64" if f64 else "f32"
-                cspec, x, up, du, cm, Nu = vdv_rollout_args(
-                    spec, caps, 256, dtype, caps[0])
-                args = (cspec, x, up, du, cm, caps[0])
+                if caps == "explicit":  # 3h's N 5, Nu (2, 1), 6 substeps
+                    cspec, x, up, du, cm = explicit_rollout_args(
+                        integrator, 256, dtype, 5)
+                    Nu = np.full(256, max(cspec.Nu))
+                    args = (cspec, x, up, du, cm, cspec.N)
+                else:
+                    cspec, x, up, du, cm, Nu = vdv_rollout_args(
+                        spec, caps, 256, dtype, caps[0])
+                    args = (cspec, x, up, du, cm, caps[0])
                 Yk, Jk = K.nmpc_rollout(*args, jac=True)
                 Yp, Jp = ode.nmpc_rollout_plain(*args, jac=True)
                 torch.cuda.synchronize()
@@ -2049,7 +2096,8 @@ def phase_nmpc_kernels(problems, pool):
                         bad.append(rows[-1])
                     continue
                 lim = ROLLOUT_F32[integrator]
-                if integrator == "tr_bdf2" and caps != TRBDF2_WITNESS_CAPS:
+                if integrator == "tr_bdf2" and caps not in (
+                        TRBDF2_WITNESS_CAPS, "explicit"):
                     rows.append(head + f" (limits Y {lim['y']:g} J "
                                 f"{lim['j']:g}; witnesses at "
                                 f"{TRBDF2_WITNESS_CAPS})")
@@ -2721,7 +2769,8 @@ def phase_explicit_nmpc(jobs):
     (Y, U, wall, launches), proc_s, waited = collect_card_process(
         card, "3h's explicit NMPC")
     h = ENMPC_HOLD_NIT
-    if min(launches[k] for k in ("spd_factor", "spd_factor_solve")) <= 0:
+    if min(launches[k] for k in ("spd_factor", "spd_factor_solve",
+                                 "nmpc_rollout")) <= 0:
         fail(f"a kernel of the explicit NMPC path was never launched: "
              f"{launches}")
     Yc, Uc, cpu_s = cpu.get()
@@ -3159,7 +3208,40 @@ def phase_dtc_nmpc_throughput(dtc, enmpc):
           + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
 
 
-def rollout_flops(B, ncol, p, substeps, integrator="rk4"):
+def newton_iterations(model, x, u_prev, du, cmask, p):
+    """The Newton iterations a TR-BDF2 stage of this rollout runs, on
+    average over candidates, stages and substeps: each stage's loop up to
+    and including the first iteration that leaves its iterate unchanged
+    (the kernel stops there: ops/csrc/nmpc.cu newton_update), counted
+    along the plain version's iterates without J (the kernel rounds its
+    Newton steps otherwise, so its own count may differ by an iteration
+    here and there)."""
+    from mpc_tuning_tpu_torch.models import ode
+
+    runs = []
+    plain = ode._newton_solve
+
+    def counting(res, jac, x_guess, iters):
+        z = x_guess
+        done = torch.zeros(z.shape[:-1], dtype=torch.bool, device=z.device)
+        n = torch.zeros(z.shape[:-1], dtype=torch.float64, device=z.device)
+        for _ in range(iters):
+            zn = z - torch.linalg.solve(jac(z), res(z))
+            n += (~done).double()
+            done |= (zn == z).all(-1)
+            z = zn
+        runs.append(n.mean())
+        return z
+
+    ode._newton_solve = counting
+    try:
+        ode.nmpc_rollout_plain(model, x, u_prev, du, cmask, p)
+    finally:
+        ode._newton_solve = plain
+    return float(torch.stack(runs).mean())
+
+
+def rollout_flops(B, ncol, p, substeps, integrator="rk4", newton=6.0):
     """Operations the rollout needs, per candidate and substep: what a
     candidate's tangent columns share once, and each column's own work
     once per column (fx has one zero entry; fu du is 5 operations for
@@ -3169,13 +3251,14 @@ def rollout_flops(B, ncol, p, substeps, integrator="rk4"):
     stages of fx dx + fu du (21) and the tangent's stage states and sum
     (39).  TR-BDF2, shared: the rhs and fx at x (84), the first guess (6),
     6 trapezoidal and 6 BDF2 Newton iterations (144 / 150: the rhs and fx,
-    the residual, I - a fx, its 3 x 3 LU and substitutions, the update),
-    fx at the converged xg and xn (2 x 53, the rates recomputed), the two
-    LU factors of I - a fx (2 x 30) and fu at three states (9); per
-    column, fx(x) dx (13), fu du at three states (15), the two right-hand
-    sides (12 + 15) and two substitutions (2 x 15)."""
+    the residual, I - a fx, its 3 x 3 LU and substitutions, the update;
+    ``newton`` of them a stage, those this run's data needs:
+    newton_iterations), fx at the converged xg and xn (2 x 53, the rates
+    recomputed), the two LU factors of I - a fx (2 x 30) and fu at three
+    states (9); per column, fx(x) dx (13), fu du at three states (15), the
+    two right-hand sides (12 + 15) and two substitutions (2 x 15)."""
     if integrator == "tr_bdf2":
-        shared = 84 + 6 + 6 * 144 + 6 * 150 + 2 * 53 + 2 * 30 + 9
+        shared = (84 + 6 + newton * (144 + 150) + 2 * 53 + 2 * 30 + 9)
         return B * p * substeps * (shared + ncol * (13 + 15 + 27 + 30))
     return B * p * substeps * ((4 * 41 + 39 + 4 * 43 + 12)
                                + ncol * (4 * 21 + 39))
@@ -3231,22 +3314,58 @@ def phase_nmpc_throughput(vdv_problems):
             f"{sol['library_ms']:.5f}, bound {sol['bound_ms']:.5f} "
             f"({sol['bound_by']})")
 
+    # the rollout: the kernel with J, without J (the primal alone) and
+    # the thread-per-column design it replaced, in turns, at the tunes'
+    # batches and the record's B = 256; the record row f64 B=256 (31, 15)
+    # with J, its plain version and its bound (float64 outside the tensor
+    # cores)
     caps, rows = (31, 15), []
     for integrator, problem in vdv_problems.items():
+        grid = []
+        for shape in ROLLOUT_TIMING_CAPS:
+            for B in ROLLOUT_TIMING_B:
+                cspec, x, up, du, cm, _ = vdv_rollout_args(
+                    problem.loop.spec, shape, B, f64, 9)
+                a = (cspec, x, up, du, cm, shape[0])
+                t = {}
+                for name, fn in (
+                        ("new", lambda: K.nmpc_rollout(*a, jac=True)),
+                        ("primal", lambda: K.nmpc_rollout(*a)),
+                        ("old", lambda: K.nmpc_rollout_thread_per_column(
+                            *a, jac=True)),
+                        ("old_primal",
+                         lambda: K.nmpc_rollout_thread_per_column(*a))):
+                    t[name] = timed(fn, 5)[0]
+                grid.append(dict(caps=list(shape), B=B, **t))
         cspec, x, up, du, cm, _ = vdv_rollout_args(problem.loop.spec, caps,
                                                    256, f64, 9)
         args = (cspec, x, up, du, cm, caps[0])
         ms, out = timed(lambda: K.nmpc_rollout(*args, jac=True), 5)
         pm = timed(lambda: ode.nmpc_rollout_plain(*args, jac=True), 1,
                    warm=False)[0]
+        newton = (newton_iterations(*args) if integrator == "tr_bdf2"
+                  else 0.0)
         b, by = bound_ms(nbytes(x, up, du, cm, out),
                          rollout_flops(256, 30, caps[0], cspec.substeps,
-                                       integrator), f64)
+                                       integrator, newton), f64,
+                         FP64_SIMT_FLOPS)
+        rec256 = next(g for g in grid
+                      if tuple(g["caps"]) == caps and g["B"] == 256)
         rows.append(dict(stepper=integrator, ms=ms, plain_ms=pm,
-                         bound_ms=b, bound_by=by, library_ms=None))
+                         bound_ms=b, bound_by=by, library_ms=None,
+                         old_ms=rec256["old"], primal_ms=rec256["primal"],
+                         timings=grid))
+        its = (f", {newton:.3f} Newton iterations a stage"
+               if integrator == "tr_bdf2" else "")
         txt.append(f"nmpc_rollout[{integrator}] B=256 caps={caps} "
-                   f"substeps={cspec.substeps} f64 with J: kernel {ms:.3f} "
-                   f"ms, plain {pm:.1f} ms, bound {b:.5f} ms ({by})")
+                   f"substeps={cspec.substeps} f64 with J: kernel {ms:.4f} "
+                   f"ms, plain {pm:.1f} ms, bound {b:.5f} ms ({by}, "
+                   f"{FP64_SIMT_FLOPS:g} FLOP/s{its}); ms per launch (with "
+                   f"J / without, thread per column with J / without): "
+                   + ", ".join(f"{tuple(g['caps'])} B={g['B']} "
+                               f"{g['new']:.4f} / {g['primal']:.4f}, "
+                               f"{g['old']:.4f} / {g['old_primal']:.4f}"
+                               for g in grid))
     # one row a stepper under 'shapes'; the top-level numbers are the
     # first stepper's, RK4, the default path's (vdv_problems' order)
     rec["nmpc_rollout"] = dict(rows[0], shapes=rows)

@@ -28,8 +28,9 @@ __all__ = ["vandevusse_rhs", "vandevusse_partials", "rhs_partials",
            "rk4_step", "tr_bdf2_step", "integrate", "integrate_rk4",
            "integrate_tangent",
            "vandevusse_rk4_tangent", "rollout_tangent",
-           "newton_steady_state", "batched_jacobian", "rollout_inputs",
-           "nmpc_rollout_plain", "nmpc_envelope", "NMPC_INTEGRATORS",
+           "newton_steady_state", "batched_jacobian", "column_mask",
+           "rollout_inputs", "nmpc_rollout_plain", "nmpc_envelope",
+           "NMPC_INTEGRATORS",
            "VDV_X0", "VDV_U0",
            "VDV_PARAMS"]
 
@@ -351,16 +352,31 @@ def nmpc_envelope(model):
                          f"{' or '.join(NMPC_INTEGRATORS)})")
 
 
+def column_mask(cmask, m, nu):
+    """The move mask per column, (B, m nu): column t nu + i moves input i
+    by cmask[:, t nu + i] from step t on.  A per-step mask (B, m) is spread
+    over the inputs (each column takes its step's entry); a per-column one
+    is returned as it is."""
+    if cmask.shape[1] == m * nu:
+        return cmask
+    if cmask.shape[1] == m:
+        return cmask.repeat_interleave(nu, dim=1)
+    raise ValueError(f"move mask: (B, {m}) per step or (B, {m * nu}) per "
+                     f"column, got {tuple(cmask.shape)}")
+
+
 def rollout_inputs(u_prev, du, cmask, hold, p):
     """The input of each of p prediction steps, (B, p, nu), as the NMPC
     rollout applies them: u_prev plus the masked moves du (B, m nu) summed
-    up to min(step, m - 1, hold) (``hold`` (B,) int, or None)."""
+    up to min(step, m - 1, hold) (``hold`` (B,) int, or None), ``cmask``
+    per step (B, m) or per column (B, m nu) (``column_mask``)."""
     B, nu = u_prev.shape
-    m = cmask.shape[1]
+    m = du.shape[1] // nu
     if m == 0:
         return u_prev[:, None, :].expand(B, p, nu)
+    cm = column_mask(cmask, m, nu)
     u_seq = u_prev[:, None, :] + torch.cumsum(
-        du.reshape(B, m, nu) * cmask[:, :, None], dim=1)
+        du.reshape(B, m, nu) * cm.reshape(B, m, nu), dim=1)
     idx = torch.clamp(torch.arange(p, device=du.device), max=m - 1)
     idx = idx[None, :].expand(B, p)
     if hold is not None:
@@ -378,25 +394,25 @@ def nmpc_rollout_plain(model, x, u_prev, du, cmask, p, hold=None, jac=False,
     Returns (Y (B, p ny), J (B, p ny, m nu) or None)."""
     out = list(model.xc if outputs is None else outputs)
     B, nu = u_prev.shape
-    m = cmask.shape[1]
+    m = du.shape[1] // nu
     if jac and (m == 0 or hold is not None):
         raise ValueError("nmpc_rollout: jac needs moves (m > 0) and no hold")
-    U = rollout_inputs(u_prev, du, cmask, hold, p)
+    cm = column_mask(cmask, m, nu)
+    U = rollout_inputs(u_prev, du, cm, hold, p)
     ncol = m * nu if jac else 0
     kw = dict(dtype=x.dtype, device=x.device)
     dX = torch.zeros((B, x.shape[1], ncol), **kw)
-    eye = torch.eye(nu, **kw)
-    t = torch.arange(m, device=x.device)
+    sel = torch.eye(nu, **kw).repeat(1, m)  # (nu, m nu): column t nu + i
+    t = torch.arange(m, device=x.device).repeat_interleave(nu)
     ys, js = [], []
     for k in range(p):
         if not jac:
             x = integrate(model.rhs, x, U[:, k], model.Ts, model.substeps,
                           model.integrator)
         else:
-            # column t nu + i moves input i by cmask[t] from step t on
-            on = cmask * (t <= min(k, m - 1)).to(x.dtype)
-            dU = (eye[None, :, None, :] * on[:, None, :, None]).reshape(
-                B, nu, ncol)
+            # column t nu + i moves input i by cm[t nu + i] from step t on
+            on = cm * (t <= min(k, m - 1)).to(x.dtype)
+            dU = sel[None] * on[:, None, :]
             x, dX = integrate_tangent(model.rhs, x, U[:, k], dX, dU,
                                       model.Ts, model.substeps,
                                       model.integrator)

@@ -172,6 +172,9 @@ def reference_library():
             fn.restype = i
         _ref.mpc_spd_solve_one_thread.argtypes = [i, vp, vp, vp, vp, i, i, vp]
         _ref.mpc_spd_solve_one_thread.restype = i
+        _ref.mpc_nmpc_rollout_thread_per_column.argtypes = [
+            i, ctypes.POINTER(vp), ctypes.POINTER(i), ctypes.c_double, vp]
+        _ref.mpc_nmpc_rollout_thread_per_column.restype = i
     return _ref
 
 

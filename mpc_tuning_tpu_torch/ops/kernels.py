@@ -30,7 +30,8 @@ import ctypes
 
 import torch
 
-from mpc_tuning_tpu_torch.models.ode import (NMPC_INTEGRATORS, nmpc_envelope,
+from mpc_tuning_tpu_torch.models.ode import (NMPC_INTEGRATORS, column_mask,
+                                             nmpc_envelope,
                                              nmpc_rollout_plain)
 from mpc_tuning_tpu_torch.ops import _build
 
@@ -40,6 +41,7 @@ __all__ = ["spd_factor", "spd_factor_solve", "spd_solve", "factor_lanes",
            "admm_fused_envelope",
            "solve_lanes", "pdip_fused", "admm_fused", "closed_sim_admm",
            "closed_sim_pdip", "closed_sim_band", "nmpc_rollout",
+           "nmpc_rollout_thread_per_column",
            "spd_factor_plain", "spd_factor_solve_plain", "spd_solve_plain",
            "factor_lanes_plain", "solve_lanes_plain", "pdip_fused_plain",
            "admm_fused_plain", "closed_sim_admm_plain",
@@ -1195,36 +1197,45 @@ closed_sim_band.launches = 0
 #
 # Not a TPU kernel: it replaces what XLA fuses on the TPU, the NMPC
 # prediction rollout and its sensitivities (the JAX package's
-# sim/nmpc_loop._rollout_y under jax.jacfwd).  ``model`` is an NMPCSpec (or
-# anything with its rhs, integrator, substeps, Ts and xc).  For B
-# candidates at state x (B, nx) with previous input u_prev (B, nu), moves
-# du (B, m nu) and the move mask cmask (B, m), the input at prediction step
-# k is u_prev + sum over t <= min(k, m - 1, hold) of cmask[t] du[t] (held
-# after the control horizon; ``hold`` (B,) int32, or None for m - 1), and
-# the rollout integrates p sample intervals.  Returns Y (B, p ny), the
-# states ``outputs`` (default model.xc) after each interval, and with
-# ``jac`` J (B, p ny, m nu) = dY / d du, the exact derivative of the
-# discrete map.  The same call is the closed loop's plant step (m = 0,
-# p = 1, every state as an output) and the open leg's playback (p = nit - 1,
-# ``hold`` the last active move).  The CUDA kernel (ops/csrc/nmpc.cu) runs
-# one thread per (candidate, tangent column) and steps the model's
-# integrator, RK4 or TR-BDF2 (a template parameter, chosen by the dims slot
-# after the outputs).  The plain version and the kernel's envelope (the
-# models and integrators it covers) live beside the models:
-# ``models/ode.nmpc_rollout_plain`` / ``nmpc_envelope``.
+# sim/nmpc_loop._rollout_y under jax.jacfwd, and the explicit NMPC's y_of,
+# sim/explicit_nmpc.py).  ``model`` is an NMPCSpec or an ExplicitNMPC
+# (anything with rhs, integrator, substeps, Ts and xc).  For B candidates
+# at state x (B, nx) with previous input u_prev (B, nu), moves du (B, m nu)
+# and the move mask cmask, per column (B, m nu) or per step (B, m) (spread
+# over the inputs, ``models/ode.column_mask``), the input at prediction
+# step k is u_prev plus, per input i, the sum over t <= min(k, m - 1, hold)
+# of cmask[t nu + i] du[t nu + i] (held after the control horizon; ``hold``
+# (B,) int32, or None for m - 1), and the rollout integrates p sample
+# intervals.  Returns Y (B, p ny), the states ``outputs`` (default
+# model.xc) after each interval, and with ``jac`` J (B, p ny, m nu) = dY /
+# d du, the exact derivative of the discrete map.  The same call is the
+# closed loop's plant step (m = 0, p = 1, every state as an output) and
+# the open leg's playback (p = nit - 1, ``hold`` the last active move).
+# The CUDA kernel (ops/csrc/nmpc.cu) runs with jac one block a candidate:
+# a producer warp steps the primal and hands each substep's stage states
+# and partials through a shared-memory ring to the consumer warps, one
+# tangent column a lane; without jac one warp a candidate.  It steps the
+# model's integrator, RK4 or TR-BDF2 (a template parameter, chosen by the
+# dims slot after the outputs).  The plain version and the kernel's
+# envelope (the models and integrators it covers) live beside the models:
+# ``models/ode.nmpc_rollout_plain`` / ``nmpc_envelope``.  The design it
+# replaced, one thread per (candidate, column), stays as
+# ops/csrc/reference/nmpc_rollout_thread_per_column.cu
+# (``nmpc_rollout_thread_per_column``).
+
+# the columns one block carries: 31 consumer warps beside the producer
+NMPC_MAX_COLUMNS = 31 * 32
 
 
-def nmpc_rollout(model, x, u_prev, du, cmask, p, hold=None, jac=False,
-                 outputs=None):
-    """See the section note: (Y (B, p ny), J (B, p ny, m nu) or None)."""
-    if _on_cpu(x, u_prev, du, cmask):
-        return nmpc_rollout_plain(model, x, u_prev, du, cmask, p, hold, jac,
-                                  outputs)
+def _rollout_launch(entry, model, x, u_prev, du, cmask, p, hold, jac,
+                    outputs):
+    """Check the rollout's arguments and launch ``entry`` (a C function
+    with mpc_nmpc_rollout's arguments) on them: (Y, J or None)."""
     nmpc_envelope(model)
     dtype = _float_dtype(x)
     B, nx = x.shape
     nu = u_prev.shape[1]
-    m = cmask.shape[1]
+    m = du.shape[1] // nu
     out = list(model.xc if outputs is None else outputs)
     if (nx, nu) != (3, 2) or not 1 <= len(out) <= 3 \
             or not all(0 <= o < nx for o in out):
@@ -1232,10 +1243,14 @@ def nmpc_rollout(model, x, u_prev, du, cmask, p, hold=None, jac=False,
                          f"state outputs, got nx={nx} nu={nu} outputs={out}")
     if jac and (m == 0 or hold is not None):
         raise ValueError("nmpc_rollout: jac needs moves (m > 0) and no hold")
+    if jac and m * nu > NMPC_MAX_COLUMNS:
+        raise ValueError(f"nmpc_rollout kernel: {m * nu} tangent columns, "
+                         f"at most {NMPC_MAX_COLUMNS}")
+    cmask = column_mask(cmask, m, nu)
     _require(x, (B, nx), dtype, "x")
     _require(u_prev, (B, nu), dtype, "u_prev")
     _require(du, (B, m * nu), dtype, "du")
-    _require(cmask, (B, m), dtype, "cmask")
+    _require(cmask, (B, m * nu), dtype, "cmask")
     if hold is not None:
         _require(hold, (B,), torch.int32, "hold")
         if hold.device != x.device:
@@ -1251,14 +1266,37 @@ def nmpc_rollout(model, x, u_prev, du, cmask, p, hold=None, jac=False,
                                *(out + [0] * (3 - ny)),
                                NMPC_INTEGRATORS.index(model.integrator))
     with _device_of(x):
-        _build.check(_build.library().mpc_nmpc_rollout(
-            int(dtype == torch.float64), ptrs, dims, ctypes.c_double(model.Ts),
-            _stream(x)), "nmpc_rollout")
-    nmpc_rollout.launches += 1
+        _build.check(entry(int(dtype == torch.float64), ptrs, dims,
+                           ctypes.c_double(model.Ts), _stream(x)),
+                     "nmpc_rollout")
     return Y, J
 
 
+def nmpc_rollout(model, x, u_prev, du, cmask, p, hold=None, jac=False,
+                 outputs=None):
+    """See the section note: (Y (B, p ny), J (B, p ny, m nu) or None)."""
+    if _on_cpu(x, u_prev, du, cmask):
+        return nmpc_rollout_plain(model, x, u_prev, du, cmask, p, hold, jac,
+                                  outputs)
+    out = _rollout_launch(_build.library().mpc_nmpc_rollout, model, x,
+                          u_prev, du, cmask, p, hold, jac, outputs)
+    nmpc_rollout.launches += 1
+    return out
+
+
 nmpc_rollout.launches = 0
+
+
+def nmpc_rollout_thread_per_column(model, x, u_prev, du, cmask, p, hold=None,
+                                   jac=False, outputs=None):
+    """``nmpc_rollout`` by the one-thread-per-(candidate, column) design it
+    replaced (ops/csrc/reference/nmpc_rollout_thread_per_column.cu, built
+    on demand into its own library), its reference: CUDA tensors only, not
+    counted, on no path of the port."""
+    return _rollout_launch(
+        _build.reference_library().mpc_nmpc_rollout_thread_per_column, model,
+        x, u_prev, du, cmask, p, hold, jac, outputs)
+
 
 _WRAPPERS = (spd_factor, spd_factor_solve, spd_solve, factor_lanes,
              solve_lanes, pdip_fused, admm_fused, closed_sim_admm,

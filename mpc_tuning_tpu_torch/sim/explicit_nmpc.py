@@ -16,16 +16,21 @@ the hand-rolled fmincon NMPC with
 
 Solved by a fixed number of Gauss-Newton SQP iterations, each one dense
 PDIP (``ops/qp.solve_qp``: on the card around the ``spd_factor`` /
-``spd_factor_solve`` kernels).  The prediction's Jacobian comes from the
-forward sensitivities of the rollout (the JAX package takes ``jax.jacfwd``
-of it), ``models/ode.rollout_tangent``: for the Van de Vusse rhs with RK4
-in about a third of the operations of the general
-``models/ode.integrate_tangent``, which serves any other rhs or
-integrator.  The measurement noise is an
-input, (nit, nx) or one (nit, nx) array per lane of a batch (the JAX
-package draws it with ``jax.random`` inside the loop); ``draw_noise``
-draws it from a seeded ``torch.Generator``.  Everything runs as eager
-torch ops, every lane of a batch at once.
+``spd_factor_solve`` kernels).  The prediction and its Jacobian (the JAX
+package takes ``jax.jacfwd`` of it), the one-step offset model and the
+plant step run on the card as the rollout kernel
+``ops/kernels.nmpc_rollout`` (one launch each, the move mask per column),
+inside its envelope ``models/ode.nmpc_envelope``: the Van de Vusse rhs
+with RK4 or TR-BDF2; another rhs or integrator raises there and runs with
+``device="cpu"``.  On the CPU the prediction is
+``models/ode.rollout_tangent``'s eager rollout with forward
+sensitivities (for the Van de Vusse rhs with RK4 in about a third of the
+operations of the general ``models/ode.integrate_tangent``), the plant
+step and the offset model the kernel's plain version.  The measurement
+noise is an input, (nit, nx) or one (nit, nx) array per lane of a batch
+(the JAX package draws it with ``jax.random`` inside the loop);
+``draw_noise`` draws it from a seeded ``torch.Generator``.  The rest runs
+as eager torch ops, every lane of a batch at once.
 """
 
 from __future__ import annotations
@@ -35,8 +40,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpc_tuning_tpu_torch.models.ode import integrate, rollout_tangent
-from mpc_tuning_tpu_torch.ops.kernels import require_device
+from mpc_tuning_tpu_torch.models.ode import nmpc_envelope, rollout_tangent
+from mpc_tuning_tpu_torch.ops.kernels import nmpc_rollout, require_device
 from mpc_tuning_tpu_torch.ops.mpc_qp import pin_precision
 from mpc_tuning_tpu_torch.ops.qp import solve_qp
 
@@ -80,8 +85,12 @@ class ExplicitNMPC:
         nx), added to the plant's state at every step (the measurement, from
         which the plant also integrates on, as in the JAX package).
         Returns NumPy (y (nit, ny), u (nit, nu)), or (B, nit, ny), (B, nit,
-        nu) for a batch of noise arrays."""
+        nu) for a batch of noise arrays.  On the card the model must lie
+        inside the rollout kernel's envelope (``models/ode.nmpc_envelope``);
+        else it raises."""
         require_device(device)
+        if torch.device(device).type != "cpu":
+            nmpc_envelope(self)
         pin_precision()
         kw = dict(dtype=dtype, device=device)
         as_t = lambda a: torch.as_tensor(np.array(a, dtype=np.float64), **kw)
@@ -96,13 +105,13 @@ class ExplicitNMPC:
         u = as_t(u0).expand(B, self.nu).clone()
         r_t = as_t(r)[:nit]
         consts = self._constants(**kw)
+        consts["cmask"] = consts["cm"].expand(B, -1).contiguous()
         Y = torch.empty((B, nit, self.ny), **kw)
         U = torch.empty((B, nit, self.nu), **kw)
         xc = list(self.xc)
         for k in range(nit):
             # plant one Ts + state measurement noise (ClosedLoopNMPC.m:84-87)
-            x = integrate(self.rhs, x, u, self.Ts, self.substeps,
-                          self.integrator)
+            x = self._step(x, u)
             if n_t is not None:
                 x = x + n_t[:, k]
             if k >= inK - 1:  # the loop starts at inK
@@ -141,10 +150,21 @@ class ExplicitNMPC:
             lb=torch.as_tensor(np.asarray(self.lb, dtype=np.float64),
                                **kw).repeat(m))
 
+    def _step(self, x, u):
+        """x (B, nx) one sample interval on at the input u (B, nu): the
+        rollout's plant step (m = 0, p = 1; on the CPU ``integrate``)."""
+        none = x.new_zeros((x.shape[0], 0))
+        return nmpc_rollout(self, x, u, none, none, 1,
+                            outputs=range(self.nx))[0]
+
     def _predict(self, x, u_prev, du, c):
         """The corrected-free predictions Y (B, N ny) of the moves du (B, m
         nu) from x, and their Jacobian J (B, N ny, m nu): the rollout of
-        NMPC_Controller.m with its forward sensitivities."""
+        NMPC_Controller.m with its forward sensitivities, on the card one
+        launch of the rollout kernel."""
+        if x.device.type != "cpu":
+            return nmpc_rollout(self, x, u_prev, du, c["cmask"], self.N,
+                                jac=True)
         B = x.shape[0]
         m, nu = c["m"], self.nu
         u_seq = u_prev[:, None, :] + torch.cumsum(
@@ -169,8 +189,7 @@ class ExplicitNMPC:
         xc = list(self.xc)
         # offset correction: measured controlled states minus one-step model
         # propagation under u(k-1) (NMPC_Controller.m:108-127)
-        x_one = integrate(self.rhs, x_meas, u_prev, self.Ts, self.substeps,
-                          self.integrator)
+        x_one = self._step(x_meas, u_prev)
         offset = x_meas[:, xc] - x_one[:, xc]
         r_flat = rk.repeat(self.N)
         eye_pad = torch.diag(c["w"] + (1.0 - cm))

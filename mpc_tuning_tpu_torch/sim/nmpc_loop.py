@@ -210,7 +210,7 @@ def _nmpc_control(spec, c, x, u_prev, rk, N, Nu, delta, lam):
 
     du = torch.zeros((B, m * nu), **kw)
     for _ in range(s.sqp_iters):
-        Yf, J = nmpc_rollout(spec, x, u_prev, du, col_mask, p, jac=True)
+        Yf, J = nmpc_rollout(spec, x, u_prev, du, cm, p, jac=True)
         e = Yf - rk_t
         JQ = J * q[:, :, None]
         # batched products in chunks of CARD_LANES on the card, the shared

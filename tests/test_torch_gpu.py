@@ -1151,6 +1151,136 @@ def test_nmpc_rollout_refuses_models_without_a_kernel(cuda):
     assert K.nmpc_rollout.launches == before
 
 
+def _column_args(caps, B, seed, integrator, substeps=None):
+    """``_vdv_rollout_args`` with a mask per column: each candidate's own
+    control horizon per input (the explicit NMPC's per-input Nu)."""
+    spec, x, up, du, _, _ = _vdv_rollout_args(caps, B, seed, integrator)
+    if substeps is not None:
+        spec = dataclasses.replace(spec, substeps=substeps)
+    rng = np.random.default_rng(seed + 1)
+    Nu = rng.integers(1, caps[1] + 1, size=(B, 2))
+    cm = (np.arange(caps[1])[None, :, None] < Nu[:, None, :]).astype(float)
+    return spec, x, up, du, torch.tensor(cm.reshape(B, -1), dtype=F64,
+                                         device="cuda")
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "tr_bdf2"])
+@pytest.mark.parametrize("B", [1, 7, 64, 256])
+def test_nmpc_rollout_column_mask_matches_plain(cuda, B, integrator):
+    """The producer-and-consumers kernel with a mask per column (per-input
+    control horizons) against the plain version at float64 (1e-10
+    relative): at the explicit NMPC's shape (p 5, m 2, 6 substeps) and at
+    (16, 4); a block a candidate, so B = 1, 7, 64 and 256 are one to
+    256 blocks."""
+    for caps, substeps in (((5, 2), 6), ((16, 4), None)):
+        spec, x, up, du, cm = _column_args(caps, B, B, integrator, substeps)
+        Yk, Jk = K.nmpc_rollout(spec, x, up, du, cm, caps[0], jac=True)
+        Yp, Jp = nmpc_rollout_plain(spec, x, up, du, cm, caps[0], jac=True)
+        assert _rel(Yk, Yp) <= 1e-10 and _rel(Jk, Jp) <= 1e-10, caps
+        off = cm[:, None, :].expand_as(Jk) == 0
+        assert (Jk[off] == 0).all()
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "tr_bdf2"])
+def test_nmpc_rollout_lane_bits_follow_neither_batch_nor_slot(cuda,
+                                                              integrator):
+    """A candidate's Y and J are the same bits alone, in a batch of 64 and
+    at another slot of it (the batch reversed)."""
+    spec, x, up, du, cm = _column_args((16, 4), 64, 3, integrator)
+    Y, J = K.nmpc_rollout(spec, x, up, du, cm, 16, jac=True)
+    flip = lambda t: t.flip(0).contiguous()
+    Yr, Jr = K.nmpc_rollout(spec, *map(flip, (x, up, du, cm)), 16, jac=True)
+    assert torch.equal(Yr.flip(0), Y) and torch.equal(Jr.flip(0), J)
+    for b in (0, 17, 63):
+        one = lambda t: t[b:b + 1].contiguous()
+        Y1, J1 = K.nmpc_rollout(spec, *map(one, (x, up, du, cm)), 16,
+                                jac=True)
+        assert torch.equal(Y1[0], Y[b]) and torch.equal(J1[0], J[b])
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "tr_bdf2"])
+def test_nmpc_rollout_against_the_thread_per_column_design(cuda,
+                                                           integrator):
+    """The kernel against the design it replaced
+    (ops/csrc/reference/nmpc_rollout_thread_per_column.cu) on the same
+    inputs at float64, Y and J within 1e-13 relative, with J and without
+    (the primal alone).  The two designs step Newton with different solves
+    (the adjugate, the pivoted LU) and RK4's tangent stages fuse otherwise,
+    so bit equality, seen on the inputs measured, is not promised."""
+    for caps in ((31, 15), (5, 2)):
+        spec, x, up, du, cm = _column_args(caps, 64, 11, integrator)
+        Yk, Jk = K.nmpc_rollout(spec, x, up, du, cm, caps[0], jac=True)
+        Yo, Jo = K.nmpc_rollout_thread_per_column(spec, x, up, du, cm,
+                                                  caps[0], jac=True)
+        assert _rel(Yk, Yo) <= 1e-13 and _rel(Jk, Jo) <= 1e-13, caps
+        assert _rel(K.nmpc_rollout(spec, x, up, du, cm, caps[0])[0],
+                    K.nmpc_rollout_thread_per_column(spec, x, up, du, cm,
+                                                     caps[0])[0]) <= 1e-13
+
+
+def _explicit_run(ctl, nit, device):
+    from mpc_tuning_tpu_torch.cases import vandevusse_explicit as vex
+    from mpc_tuning_tpu_torch.models.ode import (VDV_U0, VDV_X0,
+                                                 newton_steady_state,
+                                                 vandevusse_rhs)
+
+    x0 = newton_steady_state(vandevusse_rhs, VDV_X0, VDV_U0)
+    r = vex.make_reference(x0, nit)
+    noise = np.stack([np.zeros((nit, 3)), ctl.draw_noise(nit, seed=1)])
+    return ctl.simulate(x0, np.asarray(VDV_U0), r, nit, inK=vex.INK,
+                        noise=noise, device=device)
+
+
+@pytest.mark.parametrize("integrator", ["rk4", "tr_bdf2"])
+def test_explicit_nmpc_card_never_runs_the_eager_rollout(cuda, monkeypatch,
+                                                         integrator):
+    """The explicit NMPC on the card goes through the rollout kernel
+    alone: with the eager rollouts (``rollout_tangent``,
+    ``integrate_tangent``, ``integrate``) and the plain rollout made to
+    raise it still runs, one launch a plant step, an offset model and an
+    SQP iteration; it holds the CPU's loop within 1e-9."""
+    import dataclasses as dc
+
+    from mpc_tuning_tpu_torch.cases import vandevusse_explicit as vex
+    from mpc_tuning_tpu_torch.models import ode
+    from mpc_tuning_tpu_torch.sim import explicit_nmpc
+
+    ctl = dc.replace(vex.make_controller(substeps=6, sqp_iters=4,
+                                         qp_iters=20), integrator=integrator)
+    nit = 12
+    Yc, Uc = _explicit_run(ctl, nit, "cpu")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("an eager rollout ran on the card")
+
+    for mod, name in ((explicit_nmpc, "rollout_tangent"),
+                      (ode, "integrate_tangent"), (ode, "integrate"),
+                      (K, "nmpc_rollout_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    before = K.nmpc_rollout.launches
+    Y, U = _explicit_run(ctl, nit, cuda)
+    solves = nit - vex.INK + 1
+    assert K.nmpc_rollout.launches - before == nit + solves * (
+        1 + ctl.sqp_iters)
+    assert np.abs(Y - Yc).max() <= 1e-9 and np.abs(U - Uc).max() <= 1e-9
+
+
+def test_explicit_nmpc_card_refuses_models_outside_the_envelope(cuda):
+    """Another rhs or integrator raises on the card before any launch,
+    with the tune's message for another rhs."""
+    import dataclasses as dc
+
+    from mpc_tuning_tpu_torch.cases import vandevusse_explicit as vex
+
+    ctl = vex.make_controller(substeps=6, sqp_iters=2, qp_iters=5)
+    before = K.nmpc_rollout.launches
+    for change, match in ((dict(rhs=lambda x, u: -x), "device='cpu'"),
+                          (dict(integrator="euler"), "unknown integrator")):
+        with pytest.raises(ValueError, match=match):
+            _explicit_run(dc.replace(ctl, **change), 6, cuda)
+    assert K.nmpc_rollout.launches == before
+
+
 def _vdv_closed(cuda, integrator):
     """A Van de Vusse problem on the card and B = 8 seeded candidates at
     nit 10, as closed_batch's arguments."""
