@@ -31,13 +31,17 @@ Phases, each printing one line (with its wall time):
        posed) at the reference's tuned point and on two seeded lanes, and
        on each bucket's tightest lane relative to correct runs of the
        plain solve chain on the same QPs, step by step
-       (ops/band_cert.hold_relative);
+       (ops/band_cert.hold_relative); the certificate's host work a task a
+       lane in the CPU workers (cpu_pool), its line printed after 3i;
     2c the per-step engines' kernels in float64 and float32: the lane-major
        factor/solve at n = 7, 17, 46 (B = 1024 and 37) and the
        single-solve PDIP and ADMM kernels on one real Shell3x3 step's QPs
        (caps (32,4), (127,15), B=1024), held at QP_LIMITS, fixed from what
        two correct runs differ by; the warp-per-lane admm_fused also bit
        for bit against the one-thread design it replaced (B = 1024, 37);
+       the lane_sum kernel (ops/qp.lane_sum's lane-major sums) at 181 rows,
+       B = 1024 and 37, within rows ulps of each lane's sum of |x| of its
+       plain version, a prefix of lanes the whole batch's bits;
     2d the NMPC slice's kernels in float64 and float32: spd_solve at n = 5,
        17, 31; nmpc_rollout with each of its steppers, RK4 and TR-BDF2 (Y
        and its Jacobian J, the plant step, the held playback) on 256
@@ -49,10 +53,11 @@ Phases, each printing one line (with its wall time):
        integrator (B = 32, nit 10, caps (16,4)) on the card, held step by
        step against the plain loop on the CPU (in a worker);
  3. the first main path: a seeded Wood-Berry hybrid tune in float32 on the
-    card through ``mpc_tuning``, with every kernel's launch count, the
-    tune's last batch of each whole-sim kernel against the plain version,
-    a validity check of the result and its closed-loop outputs against the
-    float64 plain version on the CPU;
+    card through ``mpc_tuning``, the bench's tune row (bench.tune_row:
+    bench.py's budget), with every kernel's launch count, the tune's last
+    batch of each whole-sim kernel against the plain version, a validity
+    check of the result and its closed-loop outputs against the float64
+    plain version on the CPU (bench.hold_tune);
  3b. the band main path: a seeded Shell7x5 hybrid tune in float64 on the
     card (the full case: nit 200, nbp/nbc 7/4), launch counts, its last
     band batch against the plain version at 2b's live gate (the plain
@@ -87,9 +92,10 @@ Phases, each printing one line (with its wall time):
  3e. spd_solve's own path, its public entry point (no tune calls it),
     and its refusal above the envelope (n = 65);
  3f. the open-vs-closed horizon check (cases/verify_horizons) of the
-    tunes of 3, 3b and 3c on the card at float64, against the same on the
-    CPU (tracking legs at HORIZON_GATE; band legs at phase 2b's Y limit,
-    the closed leg along the card's U);
+    tunes of 3, 3b and 3c on the card at float64 (the tracking closed leg
+    the cold PDIP 'pdip', as the JAX package's check), against the same on
+    the CPU (tracking legs at HORIZON_GATE; band legs at phase 2b's Y
+    limit, the closed leg along the card's U);
  3g. the DTC-GPC Wood-Berry closed loop (bench.py's shapes cut to B = 256, nit
     400) at float64 and float32: lanes bit-identical, the replay oracle,
     float32 against float64, the tracking checks;
@@ -117,7 +123,10 @@ Phases, each printing one line (with its wall time):
     lambda exactly and Fvns within 1e-6 relative, with the launch counts
     of both runs; (b) a Shell7x5 band batch (float64, B = 8, (48, 4), nit
     200) and a Van de Vusse closed batch (float64, B = 8, nit 60) over two
-    shards, bit for bit the whole batches (run after 3b); (c) two gloo
+    shards, bit for bit the whole batches ((a) and (b) host-bound, in
+    their own process on the card started after 3, beside 3b-3i; the line
+    prints after 3i, so the sharded tune's wall is taken on a card and
+    host that those phases share); (c) two gloo
     ranks on the card running one tuner alternation at the float32
     production shape unsharded and sharded (MULTIHOST_TUNE_OK) and one
     single-rank NCCL group reducing a B = 256 sweep through
@@ -143,9 +152,20 @@ Phases, each printing one line (with its wall time):
     'shapes' with its launches on the main path (RK4's at the top level,
     3h's among them), and each stepper with J and without, beside the
     thread-per-column design it replaced, at (31, 15) and (16, 2), B = 8,
-    64 and 256 ('timings').
+    64 and 256 ('timings'); the lane_sum kernel at 181 rows beside its
+    plain version and torch's column sum;
+ 4b. the bench (mpc_tuning_tpu_torch/bench.py, bench.run_rows): bench.py's
+    rows on the card, one timed run each after its warm-up, nothing else
+    running (DTC-GPC B 1024; the Wood-Berry headline 'admm_sim' B 8192
+    (64, 8); the GAM row 'pdip_sim' B 2048 (32, 4); the Shell7x5 band row
+    B 256 at float64; the single-QP p50; the Van de Vusse row B 256 nit 60
+    at float32, the NMPC loop's whole evaluation; the tune row is phase
+    3's); then each row's first 8 lanes held against its plain version,
+    all at once in the CPU workers; prints the bench's JSON line
+    (bench.bench_line).
 Then one JSON line with the per-kernel record, the card's line, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failed phase exits
+last line ``{"ok": true, "device": {...}}`` (the bench's JSON line comes
+earlier, in 4b).  Any failed phase exits
 non-zero before that line.
 """
 
@@ -235,6 +255,11 @@ SOURCES = {
     # fuses into the NMPC step on the TPU
     "nmpc_rollout": ("mpc_tuning_tpu_torch/ops/csrc/nmpc.cu",
                      "mpc_tuning_tpu/sim/nmpc_loop.py:191"),
+    # no TPU kernel: a repair of the port, the lane-major sums of
+    # ops/qp.lane_sum (torch's column sum rounded a lane by the batch's
+    # width)
+    "lane_sum": ("mpc_tuning_tpu_torch/ops/csrc/qp_fused.cu",
+                 "none: repairs mpc_tuning_tpu_torch/ops/qp.py lane_sum"),
 }
 # the plain version of each whole-sim kernel and per-step engine: the
 # per-step engines' plain version is the plain step loop of the whole-sim
@@ -291,8 +316,9 @@ NMPC_TRBDF2_HOLD_GATE = 3.6e-9
 
 POOLS = []  # worker pools and processes still open, terminated by fail
 PROCS = []  # background process groups (phase 3j's ranks), killed by fail
-CPU_WORKERS = 4  # the CPU runs of 2d (two), 3k (two), 3c (three), 3d
-                 # (two), 3f, 3h, 3i (five)
+# the CPU runs of 2b's certificate (a task a lane), 2d (two), 3k (two), 3c
+# (three), 3d (two), 3f, 3h, 3i (five) and 4b's Van de Vusse hold
+CPU_WORKERS = 4
 
 
 def fail(msg: str):
@@ -629,9 +655,11 @@ def phase_kernels(problem):
     carries it through all later steps.  Float32 PDIP answers also scatter
     within one step (ill-conditioned normal matrices at the dual cap), so
     its U gate is F32_SIM_GATE on the median lane and F32_PDIP_U_CAP on
-    every lane; the main path's own float32 batches are held to
-    F32_SIM_GATE on every lane in phase 3."""
+    every lane, a lane over the cap held by correct runs one rounding away
+    (tools/pdip_spread.pdip_u_hold); the main path's own float32 batches
+    are held to F32_SIM_GATE on every lane in phase 3."""
     from mpc_tuning_tpu_torch.ops import kernels as K
+    from mpc_tuning_tpu_torch.tools.pdip_spread import pdip_u_hold
 
     t0 = time.perf_counter()
     B, nit = 1024, KERNEL_NIT
@@ -669,6 +697,12 @@ def phase_kernels(problem):
             else:
                 ok = (ey <= F32_SIM_GATE and med <= F32_SIM_GATE
                       and eu <= F32_PDIP_U_CAP)
+            if not ok and engine == "pdip_sim" and not f64:
+                # lanes over the cap: by correct runs one rounding away
+                ok, text = pdip_u_hold(getattr(K, PLAIN[name]), args, kwargs,
+                                       *out_k[:2], F32_SIM_GATE,
+                                       F32_PDIP_U_CAP)
+                rows[-1] = f"{name}{caps}B={Bs}:{tag}={text}"
             if not ok:
                 fail(f"{rows[-1]}: above its gate")
         for n, Bs in ((n, Bs) for n in (5, 17, 31, 46) for Bs in (B, 37)):
@@ -717,15 +751,15 @@ def phase_kernels(problem):
     return err64
 
 
-def phase_band_kernels(band_problem):
+def phase_band_kernels(band_problem, pool):
     """2b. The band kernel vs its plain version, step by step, at float64,
     held at the live witness's limits (tools/band_spread.band_gate); then
     by the LP certificate at the tuned point and seeded lanes, and on each
-    bucket's tightest lane relative to the plain chain.  Returns the max
-    |dY|, |dU| over the rows.  Every row prints before the limits are
-    applied."""
+    bucket's tightest lane relative to the plain chain, the certificate in
+    ``pool``'s workers.  Returns (the max |dY|, |dU| over the rows, the
+    pending certificate for finish_band_cert).  Every row prints before
+    the limits are applied."""
     from mpc_tuning_tpu_torch.ops import kernels as K
-    from mpc_tuning_tpu_torch.ops.band_cert import REL_REPLICAS
     from mpc_tuning_tpu_torch.tools.band_spread import (ADJUDICATED_LANES,
                                                         BAND_CAPS,
                                                         band_candidates,
@@ -779,14 +813,51 @@ def phase_band_kernels(band_problem):
     if bad:
         fail("band rows above their limits, past what the certificate "
              "may decide: " + " | ".join(bad))
-    held = band_cert_hold(K.closed_sim_band, band_problem, tight)
+    # the certificate, host-side work, in the CPU workers beside the
+    # card's later phases (finish_band_cert collects and prints it)
+    return err64, band_cert_start(K.closed_sim_band, band_problem, tight,
+                                  pool)
+
+
+def band_cert_collect(pending):
+    """The certificate of band_cert_start: {"lanes": {name: hold's dict},
+    "relative": {name: hold_relative's dict}, "gates": text, "eps_rel",
+    "du_rel", "wall_s" (from its start), "waited_s"}."""
+    t0 = time.perf_counter()
+    tasks, t_start, gates = pending
+    lanes, relative = {}, {}
+    for kind, name, job in tasks:
+        (lanes if kind == "hold" else relative)[name] = job.get()
+    now = time.perf_counter()
+    return dict(lanes=lanes, relative=relative, gates=gates[0],
+                eps_rel=gates[1], du_rel=gates[2], wall_s=now - t_start,
+                waited_s=now - t0)
+
+
+def band_cert_hold(kernel, band_problem, tight=()):
+    """band_cert_start and band_cert_collect in a pool of CPU workers of
+    its own (for scripts)."""
+    pool = cpu_pool()
+    try:
+        return band_cert_collect(band_cert_start(kernel, band_problem, tight,
+                                                 pool))
+    finally:
+        close_pool(pool)
+
+
+def finish_band_cert(pending):
+    """2b's certificate (band_cert_start) collected, printed and held."""
+    from mpc_tuning_tpu_torch.ops.band_cert import REL_REPLICAS
+
+    held = band_cert_collect(pending)
+    lanes, relative = held["lanes"], held["relative"]
     txt = " | ".join(f"{name}: steps {h['steps']} well posed "
                      f"{h['well_posed']} slack > 0 {h['eps_pos']} "
                      f"uncertified {h['uncertified']} slack {h['deps_rel']:.3e}"
                      f" du {h['du_well_posed']:.3e}"
-                     for name, h in held["lanes"].items())
+                     for name, h in lanes.items())
     rel = " | ".join(f"{name}: {relative_text(h)}"
-                     for name, h in held["relative"].items())
+                     for name, h in relative.items())
     print(f"[2b band certificate] the kernel's run, B=1 at the tuned point "
           f"and {CERT_LANES[1] - 1} seeded lanes at {CERT_LANES[0]}, nit "
           f"{BAND_HOLD_NIT}, "
@@ -796,14 +867,14 @@ def phase_band_kernels(band_problem):
           f"live limits (per step, slack at most max({held['eps_rel']:g}, "
           f"twice the largest of the plain chains' on that step), first move "
           f"at most max({held['du_rel']:g}, the same); the chains as "
-          f"harvested and reordered, and {REL_REPLICAS} rounded where those "
-          f"two do not clear the run) | {rel} | "
-          f"wall_s={held['wall_s']:.1f}", flush=True)
-    bad = [k for k, h in held["lanes"].items() if not h["ok"]]
-    bad += [k for k, h in held["relative"].items() if not h["ok"]]
+          f"harvested and reordered, and {REL_REPLICAS} rounded on the card "
+          f"where those two do not clear the run) | {rel} | a task a lane in "
+          f"the CPU workers, {held['wall_s']:.1f} s from their start, waited "
+          f"{held['waited_s']:.1f} s for them", flush=True)
+    bad = [k for k, h in lanes.items() if not h["ok"]]
+    bad += [k for k, h in relative.items() if not h["ok"]]
     if bad:
         fail(f"band kernel off its certificate on {bad}: {txt} | {rel}")
-    return err64
 
 
 def relative_text(h):
@@ -823,24 +894,22 @@ def relative_text(h):
             f"{'passes' if h['ok'] else 'FAILS'}")
 
 
-def band_cert_hold(kernel, band_problem, tight=()):
+def band_cert_start(kernel, band_problem, tight, pool):
     """The band kernel ``kernel`` (closed_sim_band's arguments; (Y, U, E))
     held step by step by the LP certificate (ops/band_cert.hold): at the
     reference's tuned point (its own conditioning frame, B = 1, nit
-    BAND_HOLD_NIT) and on CERT_LANES' seeded lanes of ``band_problem``; and each of
-    ``tight``'s lanes ((caps, lane, N, Nu, lam, U, E, why) of a phase 2b
-    bucket) relative to the plain chain (ops/band_cert.hold_relative).
-    Returns {"lanes": {name: hold's dict}, "relative": {name:
-    hold_relative's dict}, "gates": text, "eps_rel", "du_rel", "wall_s"}."""
-    import os
-
+    BAND_HOLD_NIT) and on CERT_LANES' seeded lanes of ``band_problem``; and
+    each of ``tight``'s lanes ((caps, lane, N, Nu, lam, U, E, why) of a
+    phase 2b bucket) relative to the plain chain
+    (ops/band_cert.hold_relative).  The kernel runs here; each lane's
+    certificate is a task of ``pool`` (band_cert_lane).  Returns the
+    pending certificate for finish_band_cert."""
     from mpc_tuning_tpu_torch.cases import shell7x5
     from mpc_tuning_tpu_torch.ops import band_cert as bc
     from mpc_tuning_tpu_torch.tools.band_spread import band_candidates
     from mpc_tuning_tpu_torch.tuning.api import build_problem
 
     t0 = time.perf_counter()
-    workers = min(8, os.cpu_count() or 1)
     ref = shell7x5.REF_TUNED
     nit = BAND_HOLD_NIT
     tuned, _ = build_problem(shell7x5.make_case(), L=np.diag(ref.L),
@@ -850,29 +919,48 @@ def band_cert_hold(kernel, band_problem, tight=()):
     runs = (("tuned", tuned, [ref.N], [int(ref.Nu.max())], ref.lam[None],
              None, [0]),
             ("seeded", band_problem, N, Nu, lam, caps, range(1, B)))
-    lanes, relative = {}, {}
-    with bc.certify_pool(workers) as pool:
-        for name, problem, N, Nu, lam, caps, take in runs:
-            r_b = np.broadcast_to(problem.r[:nit], (len(N), nit, 7))
-            t, lc, Hp, r_l, dims = problem.loop.sim_inputs(
-                r_b, problem.v, N, Nu, np.zeros((len(N), 7)), lam, nit,
-                torch.float64, "band_sim", "cuda", caps=caps)
-            _, U, E = kernel(t, lc, Hp, r_l, nit, 20, 12, dims)
-            U, E = U.cpu().numpy(), E.cpu().numpy()
-            for b in take:
-                lanes[f"{name} lane {b} (N {N[b]}, Nu {Nu[b]})"] = bc.hold(
-                    problem, N[b], Nu[b], np.zeros(7), lam[b], U[:, :, b],
-                    E[:, b], caps=(int(N[b]), int(Nu[b])), pool=pool)
-        for caps, b, N, Nu, lam, U, E, why in tight:
-            relative[f"{caps} lane {b} (N {N[b]}, Nu {Nu[b]}; {why})"] = \
-                bc.hold_relative(band_problem, N[b], Nu[b], np.zeros(7),
-                                 lam[b], U, E, caps=(int(N[b]), int(Nu[b])),
-                                 pool=pool, device="cuda")
+    tasks = []
+    for name, problem, N, Nu, lam, caps, take in runs:
+        r_b = np.broadcast_to(problem.r[:nit], (len(N), nit, 7))
+        t, lc, Hp, r_l, dims = problem.loop.sim_inputs(
+            r_b, problem.v, N, Nu, np.zeros((len(N), 7)), lam, nit,
+            torch.float64, "band_sim", "cuda", caps=caps)
+        _, U, E = kernel(t, lc, Hp, r_l, nit, 20, 12, dims)
+        U, E = U.cpu().numpy(), E.cpu().numpy()
+        for b in take:
+            tasks.append(("hold", f"{name} lane {b} (N {N[b]}, Nu {Nu[b]})",
+                          pool.apply_async(band_cert_lane, (
+                              "hold", name, N[b], Nu[b], lam[b], U[:, :, b],
+                              E[:, b]))))
+    for caps, b, N, Nu, lam, U, E, why in tight:
+        tasks.append(("relative",
+                      f"{caps} lane {b} (N {N[b]}, Nu {Nu[b]}; {why})",
+                      pool.apply_async(band_cert_lane, (
+                          "relative", "seeded", N[b], Nu[b], lam[b], U, E))))
     gates = (f"slack {bc.HOLD_EPS_REL:g} relative on every step, first move "
-             f"{bc.HOLD_DU:g} where du_sens < {bc.DU_SENS_BAR:g}")
-    return dict(lanes=lanes, relative=relative, gates=gates,
-                eps_rel=bc.HOLD_EPS_REL, du_rel=bc.HOLD_DU,
-                wall_s=time.perf_counter() - t0)
+             f"{bc.HOLD_DU:g} where du_sens < {bc.DU_SENS_BAR:g}",
+             bc.HOLD_EPS_REL, bc.HOLD_DU)
+    return tasks, t0, gates
+
+
+def band_cert_lane(kind, frame, N, Nu, lam, U, E):
+    """One lane of 2b's certificate, in a CPU worker: ``kind`` "hold"
+    (ops/band_cert.hold) or "relative" (hold_relative, its rounded replica
+    chains on the card); ``frame`` "tuned" (the reference's L, R) or
+    "seeded" (the case's own conditioning, phase 2b's).  The QPs are
+    harvested and certified on the host in this process."""
+    from mpc_tuning_tpu_torch.cases import shell7x5
+    from mpc_tuning_tpu_torch.ops import band_cert as bc
+    from mpc_tuning_tpu_torch.tuning.api import build_problem
+
+    ref = shell7x5.REF_TUNED
+    kw = dict(L=np.diag(ref.L), R=np.diag(ref.R)) if frame == "tuned" else {}
+    problem = build_problem(shell7x5.make_case(), device="cpu", **kw)[0]
+    caps = (int(N), int(Nu))
+    if kind == "hold":
+        return bc.hold(problem, N, Nu, np.zeros(7), lam, U, E, caps=caps)
+    return bc.hold_relative(problem, N, Nu, np.zeros(7), lam, U, E,
+                            caps=caps, device="cuda")
 
 
 STEP_TAKE = 85  # the Shell3x3 step whose QPs phase 2c solves (after the
@@ -981,6 +1069,29 @@ def phase_step_kernels(s3_problem):
             if max(eL, ex) > (F64_SPD_GATE if f64 else F32_SPD_GATE) or \
                     not same:
                 bad.append(rows[-1])
+        for Bs in (B, 37):
+            # the lane_sum kernel at the Shell3x3 (127, 15) bucket's 181
+            # rows: within rows ulps of each lane's sum of |x| of the plain
+            # version's sum on the same values (the CPU's, in groups of 8
+            # lanes); a prefix of the lanes reads the whole batch's bits
+            g = torch.Generator(device="cuda").manual_seed(Bs)
+            x = torch.randn((181, Bs), generator=g, device="cuda",
+                            dtype=dtype)
+            sk = K.lane_sum(x)
+            sp = K.lane_sum_plain(x.cpu())
+            torch.cuda.synchronize()
+            es = float((sk.cpu() - sp).abs().max())
+            lim = 181 * torch.finfo(dtype).eps * x.abs().sum(0).cpu()
+            prefix = torch.equal(K.lane_sum(x[:, :8].contiguous()),
+                                 sk[:, :8])
+            if f64:
+                err64["lane_sum"] = max(err64.get("lane_sum", 0.0), es)
+            rows.append(f"lane_sum(181 rows, B={Bs}):{tag}=max |d| {es:.3e}"
+                        f" (limit rows ulps of the sum of |x|, at most "
+                        f"{float(lim.max()):.3e}), lanes 0-7 alone the "
+                        f"batch's bits: {prefix}")
+            if not (bool(((sk.cpu() - sp).abs() <= lim).all()) and prefix):
+                bad.append(rows[-1])
         for caps in ((32, 4), (127, 15)):
             for engine, name in (("pdip_ws_fused", "pdip_fused"),
                                  ("admm_fused", "admm_fused")):
@@ -1045,7 +1156,8 @@ def phase_step_kernels(s3_problem):
           f"relative; QPs: f64 first move du {F64_SIM_GATE:g} on every "
           f"lane, z and lam at QP_LIMITS (lane quantiles p50/p90/p99/max); "
           f"admm_fused bit for bit against its one-thread design, pdip_fused"
-          f"'s distance from its one-thread design reported | "
+          f"'s distance from its one-thread design reported; lane_sum within "
+          f"rows ulps of each lane's sum of |x| | "
           + " | ".join(rows)
           + f" | wall_s={time.perf_counter() - t0:.1f}", flush=True)
     if bad:
@@ -1088,30 +1200,28 @@ def keep_last_launches(store):
 
 
 def phase_main_path():
-    """3. The seeded Wood-Berry hybrid tune on the card; returns the
-    launch counts, the tune's result and its wall seconds."""
-    from mpc_tuning_tpu_torch.cases import woodberry
+    """3. The seeded Wood-Berry hybrid tune on the card: the bench's tune
+    row (``bench.tune_row``: bench.py's budget, its validity check and the
+    tuned loop at float32 on the card against float64 on the CPU), its
+    launch counts and its last batch of each whole-sim kernel against the
+    plain version; returns the launch counts, the row, the tune's result
+    and its case (phase 4b's bench takes the row)."""
+    from mpc_tuning_tpu_torch import bench
     from mpc_tuning_tpu_torch.ops import kernels as K
-    from mpc_tuning_tpu_torch.tuning.api import build_problem, mpc_tuning
 
-    case = woodberry.make_case()
     last = {}
     undo = keep_last_launches(last)
-    K.reset_launches()
     t0 = time.perf_counter()
-    res = mpc_tuning(case, dtype=torch.float32, device="cuda", qp_iters=15,
-                     gam_popsize=8, gam_generations=4, max_alternations=2,
-                     seed=0, checkpoint_dir=None, verbose=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    K.reset_launches()
+    try:
+        row, res, case = bench.tune_row()
+    finally:
+        undo()
     launches = K.launch_counts()
-    undo()
-    Nu = np.asarray(res.Nu)
-    weights = np.concatenate([res.delta, res.lam])
-    ok = (res.N > Nu.max() and (Nu >= 2).all() and np.isfinite(weights).all()
-          and (weights > 0).all() and np.isfinite([res.Fvns, res.Fgam]).all())
-    if not ok:
-        fail(f"invalid tuning result N={res.N} Nu={Nu} weights={weights}")
+    try:
+        bench.run_holds([row])
+    except bench.HoldFailed as exc:
+        fail(f"the Wood-Berry tune: {exc}")
     wb_kernels = ("spd_factor", "spd_factor_solve", "closed_sim_admm",
                   "closed_sim_pdip")
     if min(launches[k] for k in wb_kernels) <= 0:
@@ -1128,30 +1238,16 @@ def phase_main_path():
                     f")=Y {ey:.3e} U {eu:.3e}")
         if max(ey, eu) > F32_SIM_GATE:
             fail(f"main path's last {held[-1]}: above {F32_SIM_GATE:g}")
-
-    # the tuned controller's closed loop: float32 kernel on the card vs
-    # the float64 plain version on the CPU
-    ref, _ = build_problem(case, dtype=torch.float64, qp_iters=15,
-                           L=res.L, R=res.R, device="cpu")
-    sim = lambda p: p.loop.simulate(p.r, p.v, p.nit, res.N, int(Nu.max()),
-                                    res.delta, res.lam, dtype=p.dtype,
-                                    qp_iters=15, device=p.device)
-    y32, u32 = sim(res.problem)
-    y64, u64 = sim(ref)
-    dy = float(np.abs(y32 - y64).max())
-    du = float(np.abs(u32 - u64).max())
-    if not (np.isfinite(y32).all() and np.isfinite(u32).all()
-            and dy <= LOOP_GATE):
-        fail(f"tuned closed loop f32 card vs f64 cpu: max |dy| {dy:.3e}")
-    print(f"[3 main path] mpc_tuning(WB nit=400 nbp/nbc=7/4 f32 cuda "
-          f"popsize=8 gens=4 alts=2 qp_iters=15) N={res.N} "
+    Nu = np.asarray(res.Nu)
+    print(f"[3 main path] bench.tune_row: mpc_tuning(WB nit=400 nbp/nbc=7/4 "
+          f"f32 cuda popsize=8 gens=4 alts=2 qp_iters=15) N={res.N} "
           f"Nu={Nu.tolist()} delta={np.round(res.delta, 6).tolist()} "
           f"lam={np.round(res.lam, 6).tolist()} Fvns={res.Fvns:.6g} "
-          f"Fgam={res.Fgam:.6g} wall_s={wall:.2f} launches={launches} "
-          f"last batches vs plain: {'; '.join(held)} | "
-          f"loop_f32_card_vs_f64_cpu dy={dy:.3e} du={du:.3e} | "
-          f"phase_s={time.perf_counter() - t0:.1f}", flush=True)
-    return launches, res, wall
+          f"Fgam={res.Fgam:.6g} wall_s={row['value']:.2f} "
+          f"launches={launches} last batches vs plain: {'; '.join(held)} | "
+          f"{row['held']} | phase_s={time.perf_counter() - t0:.1f}",
+          flush=True)
+    return launches, (row, res, case)
 
 
 def phase_band_main_path():
@@ -1223,7 +1319,8 @@ def phase_band_main_path():
           f"below after 3i | final_simulation "
           f"(card, f64, {sim_s:.2f} s): max|u| {umax:.6f} |y1| end "
           f"{abs(y[-1, 0]):.6f} |y2| end {abs(y[-1, 1]):.6f} | "
-          f"phase_s={time.perf_counter() - t0:.1f}", flush=True)
+          f"phase_s={time.perf_counter() - t0:.1f} (contended: beside 3j's "
+          f"and the NMPC tunes' card processes)", flush=True)
     return launches, res, held
 
 
@@ -1287,18 +1384,18 @@ SHARD_B = 8  # the band and Van de Vusse batches of 3j (b)
 SHARD_BAND_CAPS = (48, 4)
 
 
-def phase_sharding(wb_launches, wb_res, wb_wall, band_problem,
-                   vdv_problem):
-    """3j (a, b). Phase 3's Wood-Berry tune (its budget and seed) on two
-    shards of the card: phase 3's N, Nu, delta and lambda exactly, Fvns
-    within 1e-6 relative; then a Shell7x5 band batch (float64, B = 8 at
-    the (48, 4) bucket, the case's nit 200) and a Van de Vusse closed batch
-    (float64, B = 8, nit 60) over two shards, bit for bit the whole
-    batches.  Returns the launch counts of both."""
-    from mpc_tuning_tpu_torch.cases import woodberry
+def sharding_run():
+    """3j (a, b), in a process of its own on the card (start_card_process,
+    started after phase 3, beside 3b-3i): phase 3's Wood-Berry tune (its
+    budget and seed) on two shards of the card; then a Shell7x5 band batch
+    (float64, B = 8 at the (48, 4) bucket, the case's nit 200) and a Van de
+    Vusse closed batch (float64, B = 8, nit 60) over two shards against the
+    whole batches.  Returns plain values for phase_sharding, which holds
+    them."""
+    from mpc_tuning_tpu_torch.cases import shell7x5, vandevusse, woodberry
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.parallel.sweep import candidate_mesh
-    from mpc_tuning_tpu_torch.tuning.api import mpc_tuning
+    from mpc_tuning_tpu_torch.tuning.api import build_problem, mpc_tuning
 
     mesh = candidate_mesh(SHARD_DEVICES)
     t0 = time.perf_counter()
@@ -1308,34 +1405,17 @@ def phase_sharding(wb_launches, wb_res, wb_wall, band_problem,
                      gam_generations=4, max_alternations=2, seed=0,
                      checkpoint_dir=None, verbose=False, mesh=mesh)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    tune_launches = K.launch_counts()
-    ref = wb_res
-    rel = abs(res.Fvns - ref.Fvns) / max(1.0, abs(ref.Fvns))
-    same = (res.N == ref.N and np.array_equal(res.Nu, ref.Nu)
-            and np.array_equal(res.delta, ref.delta)
-            and np.array_equal(res.lam, ref.lam))
-    wb_kernels = ("spd_factor", "spd_factor_solve", "closed_sim_admm",
-                  "closed_sim_pdip")
-    counts = " ".join(f"{k} {tune_launches[k]}/{wb_launches[k]}"
-                      for k in wb_kernels)
-    text = (f"(a) WB tune on {mesh.describe()} shards (phase 3's budget, "
-            f"seed 0): N={res.N} Nu={np.asarray(res.Nu).tolist()} "
-            f"delta={res.delta.tolist()} lam={res.lam.tolist()} "
-            f"Fvns={res.Fvns!r} Fgam={res.Fgam!r} | phase 3: N={ref.N} "
-            f"Nu={np.asarray(ref.Nu).tolist()} delta={ref.delta.tolist()} "
-            f"lam={ref.lam.tolist()} Fvns={ref.Fvns!r} Fgam={ref.Fgam!r} | "
-            f"Fvns rel {rel:.3e} wall_s={wall:.2f} (phase 3's tune "
-            f"{wb_wall:.2f}) launches sharded/whole: {counts}")
-    if not same or rel > 1e-6:
-        fail(f"3j {text}: the sharded tune parts from phase 3's")
-    if min(tune_launches[k] for k in wb_kernels) <= 0:
-        fail(f"3j {text}: a kernel of the path was never launched")
+    out = dict(mesh=mesh.describe(), wall=time.perf_counter() - t0,
+               tune_launches=K.launch_counts(), N=res.N,
+               Nu=np.asarray(res.Nu), delta=res.delta, lam=res.lam,
+               Fvns=res.Fvns, Fgam=res.Fgam, batches=[])
 
     rng = np.random.default_rng(13)
-    held = []
     K.reset_launches()
-    for name, problem in (("band", band_problem), ("VdV", vdv_problem)):
+    for name, problem in (
+            ("band", build_problem(shell7x5.make_case(), device="cuda")[0]),
+            ("VdV", vandevusse.build_problem(vandevusse.make_case(),
+                                             device="cuda"))):
         B, nit, my, nu = SHARD_B, problem.nit, problem.my, problem.nu
         if name == "band":
             N = rng.integers(SHARD_BAND_CAPS[1] + 1, SHARD_BAND_CAPS[0] + 1,
@@ -1356,20 +1436,58 @@ def phase_sharding(wb_launches, wb_res, wb_wall, band_problem,
         finally:
             problem.mesh = None
         equal = np.array_equal(Ys, Yw) and np.array_equal(Us, Uw)
-        held.append(f"{name} f64 B={B} caps={problem._caps(N, Nu)} nit={nit}"
-                    f": shards equal the whole batch {equal} (max |dY| "
-                    f"{np.abs(Ys - Yw).max():.3e} |dU| "
-                    f"{np.abs(Us - Uw).max():.3e}, "
-                    f"{time.perf_counter() - t1:.1f} s)")
+        out["batches"].append((equal, (
+            f"{name} f64 B={B} caps={problem._caps(N, Nu)} nit={nit}"
+            f": shards equal the whole batch {equal} (max |dY| "
+            f"{np.abs(Ys - Yw).max():.3e} |dU| "
+            f"{np.abs(Us - Uw).max():.3e}, "
+            f"{time.perf_counter() - t1:.1f} s)")))
+    out["batch_launches"] = K.launch_counts()
+    return out
+
+
+def phase_sharding(job, wb_launches, wb_res, wb_wall):
+    """3j (a, b), collected (sharding_run's process): the sharded tune
+    gives phase 3's N, Nu, delta and lambda exactly and Fvns within 1e-6
+    relative; each sharded batch equals its whole batch bit for bit.
+    Returns the launch counts of both."""
+    out, process_s, waited_s = collect_card_process(job, "3j (a, b)")
+    tune_launches, batch_launches = out["tune_launches"], \
+        out["batch_launches"]
+    ref = wb_res
+    rel = abs(out["Fvns"] - ref.Fvns) / max(1.0, abs(ref.Fvns))
+    same = (out["N"] == ref.N and np.array_equal(out["Nu"], ref.Nu)
+            and np.array_equal(out["delta"], ref.delta)
+            and np.array_equal(out["lam"], ref.lam))
+    wb_kernels = ("spd_factor", "spd_factor_solve", "closed_sim_admm",
+                  "closed_sim_pdip")
+    counts = " ".join(f"{k} {tune_launches[k]}/{wb_launches[k]}"
+                      for k in wb_kernels)
+    text = (f"(a) WB tune on {out['mesh']} shards (phase 3's budget, "
+            f"seed 0): N={out['N']} Nu={out['Nu'].tolist()} "
+            f"delta={out['delta'].tolist()} lam={out['lam'].tolist()} "
+            f"Fvns={out['Fvns']!r} Fgam={out['Fgam']!r} | phase 3: N={ref.N} "
+            f"Nu={np.asarray(ref.Nu).tolist()} delta={ref.delta.tolist()} "
+            f"lam={ref.lam.tolist()} Fvns={ref.Fvns!r} Fgam={ref.Fgam!r} | "
+            f"Fvns rel {rel:.3e} contended wall_s={out['wall']:.2f} (taken "
+            f"in a second card process beside 3b-3i, so not comparable "
+            f"with phase 3's tune alone, {wb_wall:.2f} s) launches "
+            f"sharded/whole: {counts}")
+    if not same or rel > 1e-6:
+        fail(f"3j {text}: the sharded tune parts from phase 3's")
+    if min(tune_launches[k] for k in wb_kernels) <= 0:
+        fail(f"3j {text}: a kernel of the path was never launched")
+    held = [t for _, t in out["batches"]]
+    for equal, t in out["batches"]:
         if not equal:
-            fail(f"3j (b) {held[-1]}")
-    batch_launches = K.launch_counts()
+            fail(f"3j (b) {t}")
     for k in ("closed_sim_band", "nmpc_rollout", "spd_factor"):
         if batch_launches[k] <= 0:
             fail(f"3j (b): {k} never launched: {batch_launches}")
     print(f"[3j candidate sharding] {text} | (b) {'; '.join(held)} "
-          f"launches={batch_launches} | phase_s="
-          f"{time.perf_counter() - t0:.1f}", flush=True)
+          f"launches={batch_launches} | in its own process on the card, "
+          f"{process_s:.1f} s from its start, waited {waited_s:.1f} s",
+          flush=True)
     return {k: tune_launches[k] + batch_launches[k] for k in tune_launches}
 
 
@@ -1491,6 +1609,7 @@ def phase_step_path(pool):
     from mpc_tuning_tpu_torch.ops import kernels as K
     from mpc_tuning_tpu_torch.sim import mpc_loop
     from mpc_tuning_tpu_torch.tools.band_spread import lane_quantiles
+    from mpc_tuning_tpu_torch.tools.pdip_spread import pdip_u_hold
     from mpc_tuning_tpu_torch.tuning import api
     from mpc_tuning_tpu_torch.tuning.objectives import vns_objective_batch
 
@@ -1557,7 +1676,8 @@ def phase_step_path(pool):
     torch.cuda.synchronize()
     F["cuda_s"] = time.perf_counter() - t2
     launches = K.launch_counts()
-    path = ("pdip_fused", "admm_fused", "factor_lanes", "solve_lanes")
+    path = ("pdip_fused", "admm_fused", "factor_lanes", "solve_lanes",
+            "lane_sum")
     if min(launches[k] for k in path) <= 0:
         bad.append(f"a kernel of the Shell3x3 path was never launched: "
                    f"{launches}")
@@ -1585,6 +1705,11 @@ def phase_step_path(pool):
         ey, eu = float(dy.max()), float(du.max())
         ok = ey <= F32_SIM_GATE and eu <= (
             F32_SIM_GATE if engine == "admm_fused" else F32_PDIP_U_CAP)
+        cert = ""
+        if engine != "admm_fused" and not ok:  # by runs one ulp away
+            ok, cert = pdip_u_hold(plain, args, kwargs, *out_k[:2],
+                                   F32_SIM_GATE, F32_PDIP_U_CAP, median=False)
+            cert = f" [{cert}]"
         t64, lc64, Hm64, r64 = (to_f64(x) for x in args[:4])
         Y64, U64 = mpc_loop.step_engine(engine, t64, lc64, Hm64, r64,
                                         kwargs["dims"], args[5])
@@ -1595,8 +1720,8 @@ def phase_step_path(pool):
         wit = (out_p[1].cpu() - cpu_follow[engine].get()).abs().amax(1)
         held.append(f"{engine}(B={out_k[0].shape[2]}, n={kwargs['dims']['n']}"
                     f"): f32 Y {ey:.3e} U {eu:.3e} (per step p50/p90/p99/max "
-                    f"{fmt(steps)}; plain card vs cpu {fmt(wit.flatten())}), "
-                    f"the same inputs at f64 Y, U {e64:.3e}")
+                    f"{fmt(steps)}; plain card vs cpu {fmt(wit.flatten())})"
+                    f"{cert}, the same inputs at f64 Y, U {e64:.3e}")
         if not ok:
             bad.append(held[-1])
     t2 = time.perf_counter()
@@ -1623,7 +1748,8 @@ def phase_step_path(pool):
           f"{F['cpu'][i]:.9g}, max relative "
           f"F gap card vs cpu {gap:.3e} (card {F['cuda_s']:.1f} s, cpu "
           f"{F['cpu_s']:.1f} s in a worker, waited {wait_s:.1f} s) | "
-          f"phase_s={time.perf_counter() - t0:.1f}",
+          f"phase_s={time.perf_counter() - t0:.1f} (contended: beside 3j's "
+          f"card process)",
           flush=True)
     if bad:
         fail("Shell3x3 path: " + " | ".join(bad))
@@ -1934,6 +2060,26 @@ def phase_step_throughput(problem, tune_shapes=TUNE_SHAPES):
                    f"{ms:.3f} ms, plain {pm:.1f} ms, bound {b:.5f} ms ({by}); "
                    f"one nit-400 evaluation: engine {engine} {step_ms:.1f} ms "
                    f"vs whole-sim {whole_ms:.1f} ms")
+    # the lane_sum kernel at the Shell3x3 (127, 15) bucket's 181 rows:
+    # float64 B = 1024 (the record's), float32 B = 1024 and phase 3c's
+    # float64 re-score's lanes, beside its plain version (on the card) and
+    # torch's column sum; bound: the bytes read once and written once
+    for dtype, B in ((torch.float64, 1024), (f32, 1024),
+                     (torch.float64, tune_shapes["rescore"][0])):
+        g = torch.Generator(device="cuda").manual_seed(B)
+        x = torch.randn((181, B), generator=g, device="cuda", dtype=dtype)
+        t = dict(ms=timed(lambda: K.lane_sum(x), 50)[0],
+                 plain_ms=timed(lambda: K.lane_sum_plain(x), 20)[0],
+                 library_ms=timed(lambda: x.sum(0, keepdim=True), 50)[0])
+        dev = device_ms(lambda: K.lane_sum(x))
+        t["bound_ms"], t["bound_by"] = bound_ms((181 + 1) * B
+                                                * x.element_size(),
+                                                181 * B, dtype)
+        rec.setdefault("lane_sum", t)
+        txt.append(f"lane_sum 181 rows B={B} {str(dtype)[6:]}: kernel "
+                   f"{t['ms']:.5f} ms (device {fmt_ms(dev)}), plain "
+                   f"{t['plain_ms']:.5f}, torch.sum {t['library_ms']:.5f}, "
+                   f"bound {t['bound_ms']:.6f} ({t['bound_by']})")
     for B in (8, 18):
         inp, _, _ = sim_inputs(problem, (64, 8), B, 400, f32, "admm_fused", 3)
         e_ms = timed(lambda: mpc_loop.run_engine("admm_fused", *inp, 40), 1,
@@ -2522,8 +2668,8 @@ def phase_horizon_checks(results, pool):
         torch.cuda.synchronize()
         runs.append((name, band, args, kw, card, time.perf_counter() - t1))
     launches = K.launch_counts()
-    if min(launches[k] for k in ("closed_sim_pdip", "closed_sim_band",
-                                 "spd_factor", "spd_factor_solve")) <= 0:
+    if min(launches[k] for k in ("closed_sim_band", "spd_factor",
+                                 "spd_factor_solve")) <= 0:
         fail(f"a kernel of the horizon checks was never launched: "
              f"{launches}")
     # the band closed leg's kernel run again on its inputs, for its frozen
@@ -2606,7 +2752,8 @@ def finish_horizon_checks(held):
         if not (ok and card.ok == cpu.ok and np.isfinite(card.mismatch).all()):
             bad.append(rows[-1])
     print("[3f horizon checks] verify_horizons f64 on the card (tracking: "
-          "closed leg 'pdip_sim', band: 'band_sim' and the split open leg), "
+          "closed leg 'pdip', the cold PDIP of the JAX package's check; "
+          "band: 'band_sim' and the split open leg), "
           "the CPU's in a worker | " + " | ".join(rows)
           + f" | launches={launches} | phase_s={card_phase_s:.1f} on the "
           f"card, waited {wait_s:.1f} s for the CPU", flush=True)
@@ -3266,11 +3413,11 @@ def rollout_flops(B, ncol, p, substeps, integrator="rk4", newton=6.0):
 
 def phase_nmpc_throughput(vdv_problems):
     """4, the NMPC slice: spd_solve, nmpc_rollout with each integrator (a
-    row each under 'shapes', RK4's at the top level) and one NMPC
-    closed-loop evaluation (B = 256, caps (16, 2)) with its launches and
-    its host-versus-kernel split, and the device time of a 4-step loop of
-    it with each integrator; returns {name: dict(ms, plain_ms, bound_ms,
-    bound_by, library_ms)}."""
+    row each under 'shapes', RK4's at the top level) and the device time
+    of a 4-step NMPC closed loop (B = 256, caps (16, 2), float64) with
+    each integrator (the whole evaluation, at float32, is the bench's Van
+    de Vusse row, phase 4b; the float64 whole evaluation is not timed);
+    returns {name: dict(ms, plain_ms, bound_ms, bound_by, library_ms)}."""
     from mpc_tuning_tpu_torch.models import ode
     from mpc_tuning_tpu_torch.ops import kernels as K
 
@@ -3370,25 +3517,15 @@ def phase_nmpc_throughput(vdv_problems):
     # first stepper's, RK4, the default path's (vdv_problems' order)
     rec["nmpc_rollout"] = dict(rows[0], shapes=rows)
 
-    # one NMPC closed-loop evaluation (nit 60) through the card: its time
-    # and launches; then the device time inside a 4-step loop of the same
-    # batch (torch.profiler, CUDA activity only: recording every host op
-    # costs ~0.4 ms an op, minutes over the ~1e6 ops of a whole evaluation)
+    # the device time inside a 4-step NMPC closed loop (torch.profiler,
+    # CUDA activity only: recording every host op costs ~0.4 ms an op,
+    # minutes over the ~1e6 ops of a whole evaluation)
     from torch.profiler import ProfilerActivity, profile
 
     for integrator, problem in vdv_problems.items():
         loop = problem.loop
         args = vdv_batch(problem, 256, 60, (16, 2), 11)
         head = f"NMPC closed loop[{integrator}] B=256 caps=(16,2)"
-        if integrator == "rk4":  # the whole evaluation, RK4 only
-            K.reset_launches()
-            t1 = time.perf_counter()
-            loop.closed_batch(*args, caps=(16, 2), device="cuda")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t1
-            counts = {k: v for k, v in K.launch_counts().items() if v}
-            head += (f" nit=60 f64: {wall:.2f} s = {256 / wall:.1f} sims/s, "
-                     f"launches {counts};")
         short = args[:6] + (4,)
         t2 = time.perf_counter()
         loop.closed_batch(*short, caps=(16, 2), device="cuda")
@@ -3410,6 +3547,42 @@ def phase_nmpc_throughput(vdv_problems):
     return rec
 
 
+def phase_bench(wb_tune, pool, card):
+    """4b. The bench (mpc_tuning_tpu_torch/bench.py): its rows at bench.py's
+    shapes through the port's entry points (``bench.run_rows``), one timed
+    run each after the warm-up, with nothing else running; then every
+    row's hold at once in ``pool``'s workers; the tune row is phase 3's
+    (``wb_tune``).  Prints the bench's JSON line (``bench.bench_line``).
+    Returns the launches of the rows' runs, warm-ups included (the tune's
+    are phase 3's)."""
+    from mpc_tuning_tpu_torch import bench
+    from mpc_tuning_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    K.reset_launches()
+    rows = bench.run_rows(reps=1)
+    launches = K.launch_counts()
+    timed_s = time.perf_counter() - t0
+    held = [rows["head"], rows["qp"], *rows["extra"]]
+    jobs = [pool.apply_async(*row["held"]) for row in held]
+    try:
+        for row, job in zip(held, jobs):
+            row["held"] = job.get()
+    except bench.HoldFailed as exc:
+        fail(f"4b bench: {exc}")
+    line = bench.bench_line(rows, wb_tune[0], card)
+    print(json.dumps(line), flush=True)
+    d = line["detail"]
+    print(f"[4b bench] {line['metric']} {line['value']} sims/s: "
+          f"{d['held']} | qp_p50_latency_us {d['qp_p50_latency_us']}: "
+          f"{d['qp_p50_held']} | "
+          + " | ".join(f"{m['metric']} {m['value']} {m['unit']}: "
+                       f"{m['held']}" for m in d["extra_metrics"])
+          + f" | launches={launches} | rows timed in {timed_s:.1f} s, "
+          f"wall_s={time.perf_counter() - t0:.1f}", flush=True)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     card = phase_env()
@@ -3428,16 +3601,19 @@ def main():
     vdv_problems = {integrator: vandevusse.build_problem(
         vandevusse.make_case(integrator=integrator), device="cuda")
         for integrator in ("rk4", "tr_bdf2")}
-    vdv_problem = vdv_problems["rk4"]
     err64 = phase_kernels(problem)
-    err64["closed_sim_band"] = phase_band_kernels(band_problem)
+    err64["closed_sim_band"], band_cert = phase_band_kernels(band_problem,
+                                                             pool)
     # after 2b's certificates, which take the host's cores
     front_cpu = start_front_end_cpu(pool)
     err64.update(phase_step_kernels(s3_problem))
     nmpc_err, nmpc_closed = phase_nmpc_kernels(vdv_problems, pool)
     err64.update(nmpc_err)
-    (wb_launches, wb_res, wb_wall), (band_launches, band_res, band_held) = (
-        phase_main_path(), phase_band_main_path())
+    wb_launches, wb_tune = phase_main_path()
+    # 3j (a, b), host-bound, in its own process on the card beside 3b-3i
+    shard_job = start_card_process(sharding_run)
+    band_launches, band_res, band_held = phase_band_main_path()
+    wb_res, wb_wall = wb_tune[1], wb_tune[0]["value"]
     stiff, rk4 = (collect_tune(tune_jobs[i], tag)
                   for i, tag in (("tr_bdf2", "3k"), ("rk4", "3d")))
     # 3i's cross-evaluation and 3h's loop, each in its own process beside
@@ -3448,12 +3624,10 @@ def main():
         "3k", stiff, pool, NMPC_TRBDF2_HOLD_GATE, beside=rk4)
     nmpc_launches, nmpc_held = phase_nmpc_path(
         "3d", rk4, pool, F64_SIM_GATE, beside=stiff)
-    shard_launches = phase_sharding(wb_launches, wb_res, wb_wall,
-                                    band_problem, vdv_problem)
     launches, tune_shapes, s3_res = phase_step_path(pool)
     ranks = start_ranks()  # beside the host-bound phases 3e-3i
-    paths = [wb_launches, band_launches, shard_launches, launches,
-             nmpc_launches, stiff_launches, phase_spd_solve_entry()]
+    paths = [wb_launches, band_launches, launches, nmpc_launches,
+             stiff_launches, phase_spd_solve_entry()]
     horizon_launches, horizon_held = phase_horizon_checks(
         {"WoodBerry": wb_res, "Shell7x5": band_res, "Shell3x3": s3_res}, pool)
     paths.append(horizon_launches)
@@ -3462,19 +3636,22 @@ def main():
     paths.append(enmpc[0])
     front_launches, front_held = phase_front_end(pool, cross_job, front_cpu)
     paths.append(front_launches)
+    paths.append(phase_sharding(shard_job, wb_launches, wb_res, wb_wall))
+    finish_band_cert(band_cert)
     finish_band_hold(band_held)
     finish_horizon_checks(horizon_held)
     finish_nmpc_closed(nmpc_closed)
     finish_nmpc_hold(stiff_held)
     finish_nmpc_hold(nmpc_held)
     finish_front_end(front_held)
-    close_pool(pool)
     finish_ranks(ranks)
     rec = phase_throughput(problem, band_problem)
     rec.update(phase_step_throughput(problem, tune_shapes))
     rec.update(phase_nmpc_throughput(vdv_problems))
     phase_dtc_nmpc_throughput(dtc, enmpc)
     phase_sharding_report()
+    paths.append(phase_bench(wb_tune, pool, card))
+    close_pool(pool)
     # each stepper's launches on the main path: TR-BDF2 runs only in 3k
     # (every other Van de Vusse path takes make_case()'s RK4)
     total = sum(launches["nmpc_rollout"] for launches in paths)

@@ -15,9 +15,13 @@ signal.
 
 Engines.  The port names its closed-loop engine (one of
 ``sim/mpc_loop.ENGINES``) instead of the JAX package's qp-method string:
-'pdip_sim' (the warm masked PDIP) for tracking loops and 'band_sim' (the
-slack LP of 20 iterations, then the slack-frozen stage 2 of 12) for band
-loops, the only engine a band loop runs.  The band open leg is
+'pdip' (the cold masked PDIP each step, the JAX package's default
+``qp_method='pdip'``) for tracking loops and 'band_sim' (the slack LP of
+20 iterations, then the slack-frozen stage 2 of 12) for band loops, the
+only engine a band loop runs.  The warm 'pdip_sim' is another algorithm:
+at Shell3x3's tuned N 8, Nu 2 its 30 iterations leave the closed leg
+8.8e-4 from the cold PDIP's, and the mismatch 3.0e-3
+(``scripts/horizons_vs_jax.py``).  The band open leg is
 ``MPCLoop.open_loop`` of a band loop: the cold slack LP of 20 iterations,
 then the slack-frozen stage 2 of ``qp_iters`` (the JAX package's
 ``open_loop(..., qp_split=True, qp_lp=20)``).  This departs from the JAX
@@ -65,9 +69,10 @@ def verify_horizons(loop: MPCLoop, L: np.ndarray, N: int, Nu: int,
                     qp_iters: int = 30, device="cuda") -> HorizonCheck:
     """Run the protocol at the tuned horizons (conditioned units) on
     ``device``.  ``engine``: the closed leg's engine, by default
-    'band_sim' for band loops and 'pdip_sim' otherwise."""
+    'band_sim' for band loops and 'pdip' (the JAX package's cold PDIP)
+    otherwise."""
     band = loop.ctl.spec.has_y_constraints
-    engine = engine or ("band_sim" if band else "pdip_sim")
+    engine = engine or ("band_sim" if band else "pdip")
     ny = loop.ctl.spec.model.ny
     nu = loop.ctl.spec.n_mv
     nd = loop.ctl.spec.n_md

@@ -6,7 +6,8 @@
       run the hybrid tuner on a benchmark case and print the result JSON
       (cases: woodberry, shell3x3, shell7x5, vandevusse)
 
-The JAX package's ``mpc-tuning-bench`` has no counterpart here yet.
+  mpc-tuning-bench-torch [--batch B] [--method ENGINE] [--qp-iters N]
+      the bench (``bench.py``'s rows on the card): one JSON line
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["run_main", "card_dtype", "mesh_from_arg"]
+__all__ = ["run_main", "bench_main", "card_dtype", "mesh_from_arg"]
 
 CASES = ("woodberry", "shell3x3", "shell7x5", "vandevusse")
 
@@ -203,6 +204,13 @@ def _linear_report(args, mod, case, res) -> str:
                      delta=np.round(res.delta, 4).tolist(),
                      lam=np.round(res.lam, 4).tolist(),
                      Fvns=res.Fvns, Fgam=res.Fgam))
+
+
+def bench_main(argv=None):
+    """``mpc-tuning-bench-torch``: the port's bench (``bench.main``)."""
+    from mpc_tuning_tpu_torch import bench
+
+    bench.main(argv)
 
 
 if __name__ == "__main__":

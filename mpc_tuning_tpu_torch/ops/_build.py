@@ -64,6 +64,9 @@ def _bind(lib):
     lib.mpc_pdip_fused_ptr_count.restype = i
     lib.mpc_admm_fused_ptr_count.restype = i
     lib.mpc_qp_fused_dim_count.restype = i
+    lib.mpc_lane_sum.argtypes = [i, vp, vp, i, i, ctypes.c_longlong,
+                                 ctypes.c_longlong, vp]
+    lib.mpc_lane_sum.restype = i
     for fn in (lib.mpc_pdip_fused, lib.mpc_admm_fused):
         fn.argtypes = [i, ctypes.POINTER(vp), d,
                        ctypes.POINTER(ctypes.c_double), vp]

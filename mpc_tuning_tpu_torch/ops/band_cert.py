@@ -193,6 +193,7 @@ def chain_steps(qps, c, cand, certs, lp_iters, s2_iters, replicas=None,
     ``dobj`` (the objective's excess, NaN where du is well posed); all NaN
     on an uncertified step."""
     from mpc_tuning_tpu_torch.ops.kernels import (factor_lanes_plain,
+                                                  lane_sum_plain,
                                                   solve_lanes_plain)
 
     W = 1 if replicas is None else int(replicas)
@@ -209,7 +210,8 @@ def chain_steps(qps, c, cand, certs, lp_iters, s2_iters, replicas=None,
         return T(np.where(move > 0, np.nextafter(x, np.inf),
                           np.where(move < 0, np.nextafter(x, -np.inf), x)))
 
-    plain = dict(factor=factor_lanes_plain, solve=solve_lanes_plain)
+    plain = dict(factor=factor_lanes_plain, solve=solve_lanes_plain,
+                 total=lane_sum_plain)
     nu = len(c["sf_u"])
     G0 = T(c["G0"])
     T2T = T(c["T2"]).T.contiguous()

@@ -379,6 +379,78 @@ int launch_admm_fused(void* const* p, const int* d, const double* c,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------- lane_sum
+//
+// x (rows, B), any strides, summed over its rows into out (1, B): the
+// lane-major sums of the eager PDIP (ops/qp.pdip_lanes through
+// ops/qp.lane_sum), in the per-step engine 'pdip_ws_lanes' and in the
+// plain versions' solves.  It replaces no TPU kernel: it repairs a fault of
+// the port, where torch's column sum split a column's rows over threads by
+// the batch's width, so a lane's bits followed B.
+//
+// Each lane's rows are summed in one fixed order, the order of the
+// warp-per-lane QP kernels' reductions (warp_qp.cuh warp_sum): row r into
+// partial r % kLaneSumWays in index order, then the partials added by the
+// xor butterfly of a warp's shuffles, all in double and rounded once to T
+// (a float32 sum is then its exact sum rounded, but where the double
+// partials round, whatever the order).  So a lane's bits follow neither
+// its slot nor B.  A block takes kLaneSumLanes lanes; thread (x, y) runs
+// partial y of lane x, so the threads of a warp read neighbouring lanes of
+// one row (one coalesced load a row when the lanes are contiguous, stride
+// 1); the partials are added in shared memory.  Bound by bytes (rows B
+// elements read once).
+constexpr int kLaneSumWays = 32;
+constexpr int kLaneSumLanes = 32;
+
+template <typename T>
+__global__ void lane_sum_kernel(const T* __restrict__ x, T* __restrict__ out,
+                                int rows, int B, long long s_row,
+                                long long s_lane) {
+  __shared__ double part[kLaneSumWays][kLaneSumLanes];
+  const int b = blockIdx.x * kLaneSumLanes + threadIdx.x;
+  const int y = threadIdx.y;
+  double acc = 0.0;
+  if (b < B) {
+    const T* p = x + (long long)b * s_lane;
+    int r = y;
+    // four loads in flight, added in index order
+    for (; r + 3 * kLaneSumWays < rows; r += 4 * kLaneSumWays) {
+      const T a0 = p[(long long)r * s_row];
+      const T a1 = p[(long long)(r + kLaneSumWays) * s_row];
+      const T a2 = p[(long long)(r + 2 * kLaneSumWays) * s_row];
+      const T a3 = p[(long long)(r + 3 * kLaneSumWays) * s_row];
+      acc += (double)a0;
+      acc += (double)a1;
+      acc += (double)a2;
+      acc += (double)a3;
+    }
+    for (; r < rows; r += kLaneSumWays)
+      acc += (double)p[(long long)r * s_row];
+  }
+  part[y][threadIdx.x] = acc;
+  __syncthreads();
+  // warp_sum's butterfly as its lane 0 sees it (v += shfl_xor(v, o)), a
+  // level at a time in shared memory
+#pragma unroll
+  for (int o = kLaneSumWays / 2; o > 0; o >>= 1) {
+    if (y < o) part[y][threadIdx.x] = part[y][threadIdx.x] +
+                                      part[y + o][threadIdx.x];
+    __syncthreads();
+  }
+  if (y == 0 && b < B) out[b] = static_cast<T>(part[0][threadIdx.x]);
+}
+
+template <typename T>
+int launch_lane_sum(const void* x, void* out, int rows, int B,
+                    long long s_row, long long s_lane, cudaStream_t st) {
+  if (rows < 0 || B < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (B + kLaneSumLanes - 1) / kLaneSumLanes;
+  lane_sum_kernel<T><<<blocks, dim3(kLaneSumLanes, kLaneSumWays), 0, st>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), rows, B, s_row,
+      s_lane);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace mpc
 
 extern "C" {
@@ -403,6 +475,16 @@ int mpc_admm_fused(int is_f64, void* const* ptrs, const int* dims,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_f64 ? mpc::launch_admm_fused<double>(ptrs, dims, scal, st)
                 : mpc::launch_admm_fused<float>(ptrs, dims, scal, st);
+}
+
+// x (rows, B) with element strides s_row, s_lane -> out (1, B), each
+// lane's rows summed in one fixed order; refuses B < 1 or rows < 0.
+int mpc_lane_sum(int is_f64, const void* x, void* out, int rows, int B,
+                 long long s_row, long long s_lane, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_f64
+             ? mpc::launch_lane_sum<double>(x, out, rows, B, s_row, s_lane, st)
+             : mpc::launch_lane_sum<float>(x, out, rows, B, s_row, s_lane, st);
 }
 
 }  // extern "C"

@@ -46,7 +46,8 @@ __all__ = ["spd_factor", "spd_factor_solve", "spd_solve", "factor_lanes",
            "factor_lanes_plain", "solve_lanes_plain", "pdip_fused_plain",
            "admm_fused_plain", "closed_sim_admm_plain",
            "closed_sim_pdip_plain", "closed_sim_band_plain",
-           "g_shared", "step_loop",
+           "g_shared", "step_loop", "lane_sum", "lane_sum_plain",
+           "warp_order_sum",
            "pdip_step", "admm_step", "band_envelope", "band_plan",
            "reset_launches",
            "launch_counts", "require_device", "sim_envelope"]
@@ -448,6 +449,85 @@ def g_shared(G0, T2T=None):
     return G
 
 
+# ------------------------------------------------------------- lane_sum
+#
+# Replaces no TPU kernel: it repairs a fault of the port.  The eager PDIP's
+# sums over the rows of a lane-major (rows, B) tensor (ops/qp.lane_sum)
+# were torch's column sum on the card, which splits a column's rows over
+# threads by the batch's width, so a lane's bits followed B.  The kernel
+# sums each lane's rows in one fixed order, the order of the warp-per-lane
+# QP kernels' reductions (32 strided partials, then warp_sum's butterfly),
+# in double, rounded once (ops/csrc/qp_fused.cu); bound by the bytes read.
+
+# lanes a CPU sum of ``lane_sum_plain`` takes at a time: torch's CPU sum
+# over the rows of a lane-major (rows, B) tensor runs full groups of 32
+# (float32) or 16 (float64) lanes vectorised and the rest scalar, which
+# round differently; a group of 8 lanes runs scalar, as a batch of up to 8
+# lanes always did
+_CPU_LANES = 8
+# the partials of warp_order_sum: a warp's lanes
+_WARP = 32
+
+
+def warp_order_sum(x):
+    """x (rows, B) summed over its rows, (1, B), by elementwise adds in the
+    order and at the precision of the warp-per-lane kernels' reductions
+    (warp_qp.cuh warp_sum: row r into partial r % 32 in index order, from
+    zero, then the xor butterfly as its lane 0 sees it).  Every add is one
+    element's, so a lane's bits follow neither its slot nor B, on any
+    device."""
+    rows, B = x.shape
+    acc = x.new_zeros((_WARP, B))
+    for r0 in range(0, rows, _WARP):
+        chunk = x[r0:r0 + _WARP]
+        acc[:chunk.shape[0]] += chunk
+    width = _WARP
+    while width > 1:
+        width //= 2
+        acc = acc[:width] + acc[width:2 * width]
+    return acc
+
+
+def lane_sum_plain(x):
+    """Plain version of ``lane_sum``: x (rows, B) summed over its rows,
+    (1, B), a lane's bits following neither its slot nor B.  On the CPU
+    torch's sum over groups of _CPU_LANES lanes (padded with zeros to whole
+    groups), all on its scalar path; on the card ``warp_order_sum`` (a
+    torch reduction there splits a column by the batch's width).  The plain
+    versions of the PDIP kernels take it (``ops/qp.pdip_lanes``'s
+    ``total``), so they launch no kernel."""
+    if x.device.type != "cpu":
+        return warp_order_sum(x)
+    rows, B = x.shape
+    pad = -B % _CPU_LANES
+    if pad:
+        x = torch.cat([x, x.new_zeros((rows, pad))], dim=1)
+    groups = x.reshape(rows, x.shape[1] // _CPU_LANES, _CPU_LANES)
+    groups = groups.transpose(0, 1).contiguous()
+    return groups.sum(1).reshape(1, -1)[:, :B]
+
+
+def lane_sum(x):
+    """x (rows, B), any strides, -> (1, B), each lane's rows summed in one
+    fixed order: a lane's bits follow neither its slot nor B."""
+    if _on_cpu(x):
+        return lane_sum_plain(x)
+    dtype = _float_dtype(x)
+    rows, B = x.shape
+    out = torch.empty((1, B), dtype=dtype, device=x.device)
+    if B == 0:
+        return out
+    with _device_of(x):
+        _build.check(_build.library().mpc_lane_sum(
+            int(dtype == torch.float64), x.data_ptr(), out.data_ptr(), rows,
+            B, x.stride(0), x.stride(1), _stream(x)), "lane_sum")
+    lane_sum.launches += 1
+    return out
+
+
+lane_sum.launches = 0
+
+
 def _launch_qp(fn, ptr_count, names, bufs, dims, scal, dtype, what):
     if ptr_count is not None and (
             ptr_count() != len(names)
@@ -473,11 +553,12 @@ def _require_g(G, dtype, mc, n, device, keys=_QP_CSR):
 
 def pdip_fused_plain(Hp, f, h, rmask, cmask, warm, G, iters):
     """Plain version of ``pdip_fused``: ``ops/qp.pdip_lanes`` with the
-    plain factor and solve and G's dense T2T."""
+    plain factor, solve and row sum and G's dense T2T."""
     from mpc_tuning_tpu_torch.ops.qp import pdip_lanes
 
     return pdip_lanes(Hp, f, G["G0"], G["T2T"], rmask, cmask, h, iters, warm,
-                      factor=factor_lanes_plain, solve=solve_lanes_plain)
+                      factor=factor_lanes_plain, solve=solve_lanes_plain,
+                      total=lane_sum_plain)
 
 
 def pdip_fused_envelope(dtype, n, mc):
@@ -997,8 +1078,9 @@ def closed_sim_band_plain(tables, lane_consts, Hp_t, r_l, nit, lp_iters,
                           s2_iters, dims, u_follow=None):
     """Plain version of ``closed_sim_band``: ``step_loop`` with, per step,
     the slack seeding, the stage-0 slack LP and the slack-frozen stage 2,
-    each a ``ops/qp.pdip_lanes`` solve with the plain factor and solve; the
-    LP's best (z, lam) is the next step's warm pair.  Returns (Y, U, E)."""
+    each a ``ops/qp.pdip_lanes`` solve with the plain factor, solve and
+    row sum; the LP's best (z, lam) is the next step's warm pair.  Returns
+    (Y, U, E)."""
     from mpc_tuning_tpu_torch.ops.qp import pdip_lanes, seed_slack, split_stage2
 
     t, lc = tables, lane_consts
@@ -1009,7 +1091,8 @@ def closed_sim_band_plain(tables, lane_consts, Hp_t, r_l, nit, lp_iters,
     H_lp = torch.diag_embed(lc["lpd"].T).permute(1, 2, 0)
     f_lp = torch.zeros((n, B), **kw)
     f_lp[-1] = 1.0
-    plain = dict(factor=factor_lanes_plain, solve=solve_lanes_plain)
+    plain = dict(factor=factor_lanes_plain, solve=solve_lanes_plain,
+                 total=lane_sum_plain)
     zero1 = torch.zeros((1, B), **kw)
     E = torch.empty((r_l.shape[0], B), **kw)
 
@@ -1300,7 +1383,7 @@ def nmpc_rollout_thread_per_column(model, x, u_prev, du, cmask, p, hold=None,
 
 _WRAPPERS = (spd_factor, spd_factor_solve, spd_solve, factor_lanes,
              solve_lanes, pdip_fused, admm_fused, closed_sim_admm,
-             closed_sim_pdip, closed_sim_band, nmpc_rollout)
+             closed_sim_pdip, closed_sim_band, nmpc_rollout, lane_sum)
 
 
 def reset_launches():

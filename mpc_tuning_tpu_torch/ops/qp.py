@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import torch
 
+from mpc_tuning_tpu_torch.ops import kernels
 from mpc_tuning_tpu_torch.ops.kernels import (factor_lanes, solve_lanes,
                                               spd_factor, spd_factor_solve)
 
@@ -58,55 +59,42 @@ def pdip_constants(dtype):
     return 1e-6, 1e7
 
 
-# lanes a CPU sum of ``lane_sum`` takes at a time: torch's CPU sum over
-# the rows of a lane-major (rows, B) tensor runs full groups of 32 (float32)
-# or 16 (float64) lanes vectorised and the rest scalar, which round
-# differently; a group of 8 lanes runs scalar, as a batch of up to 8 lanes
-# always did
-_CPU_LANES = 8
-
-
 def lane_sum(x, batch_major=False):
     """x (rows, B) summed over its rows, (1, B), each lane's bits the same
-    wherever the batch puts it.  ``batch_major``: x is the transpose of a
-    batch-major (B, rows) tensor, each lane's rows contiguous
-    (``solve_qp_masked``'s inputs, the open legs).
+    wherever the batch puts it and whatever the batch's size.
+    ``batch_major``: x is the transpose of a batch-major (B, rows) tensor,
+    each lane's rows contiguous (``solve_qp_masked``'s inputs, the open
+    legs).
 
-    torch's own sum over the rows rounds a lane by its place in two
-    layouts: on the card where each lane's rows lie contiguous (its vector
-    loads start at the lane's first aligned row, so the rounding follows
-    the lane's address: identical candidates of one Shell3x3 VNS batch
-    read F 299.69048 / 299.69050 / 299.69052, ``scripts/slot_trace.py``),
-    and on the CPU where the lanes lie contiguous (full groups of 32
-    float32 or 16 float64 lanes run vectorised, the rest scalar,
-    _CPU_LANES).  So:
+    torch's own sum over the rows rounds a lane by its place: on the card
+    where each lane's rows lie contiguous (its vector loads start at the
+    lane's first aligned row, so the rounding follows the lane's address:
+    identical candidates of one Shell3x3 VNS batch read F 299.69048 /
+    299.69050 / 299.69052, ``scripts/slot_trace.py``), on the card where
+    the lanes lie contiguous (a column's rows are split over threads by the
+    batch's width), and on the CPU where the lanes lie contiguous (full
+    groups of lanes run vectorised, the rest scalar).  So:
       * card, batch-major: a pairwise tree of elementwise adds (row i +
         row i + h, an odd last row added to row 0 first), which rounds
         each lane alone and whatever the batch's size;
-      * card, lane-major: torch's sum over the lanes' contiguous columns,
-        every column in one order (the rows' split over threads follows
-        the batch's width, so a lane's bits may follow the batch's size);
-      * CPU, batch-major: torch's sum lane by lane;
-      * CPU, lane-major: torch's sum over groups of _CPU_LANES lanes
-        (padded with zeros to whole groups), all on its scalar path."""
-    rows, B = x.shape
-    if x.device.type != "cpu":
-        if not batch_major:
-            return x.contiguous().sum(0, keepdim=True)
-        while x.shape[0] > 1:
-            h = x.shape[0] // 2
-            y = x[:h] + x[h:2 * h]
-            if x.shape[0] % 2:
-                y[:1] += x[2 * h:]
-            x = y
-        return x
-    if batch_major:
+      * lane-major: ``ops/kernels.lane_sum``, on the card a kernel that
+        sums each lane's rows in one fixed order, on the CPU its plain
+        version (torch's scalar path in groups of 8 lanes).  The plain
+        versions of the PDIP kernels sum by ``lane_sum_plain`` instead
+        (``pdip_lanes``' ``total``; on the card elementwise adds in the
+        warp-per-lane kernels' order), so they launch no kernel;
+      * CPU, batch-major: torch's sum lane by lane."""
+    if not batch_major:
+        return kernels.lane_sum(x)
+    if x.device.type == "cpu":
         return x.sum(0, keepdim=True)
-    pad = -B % _CPU_LANES
-    if pad:
-        x = torch.cat([x, x.new_zeros((rows, pad))], dim=1)
-    groups = x.reshape(rows, -1, _CPU_LANES).transpose(0, 1).contiguous()
-    return groups.sum(1).reshape(1, -1)[:, :B]
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        y = x[:h] + x[h:2 * h]
+        if x.shape[0] % 2:
+            y[:1] += x[2 * h:]
+        x = y
+    return x
 
 
 # On the card cuBLAS picks a product's algorithm, and so its rounding, by
@@ -288,7 +276,8 @@ def _spd_solve_t(L, rhs):
 
 
 def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
-               factor=factor_lanes, solve=solve_lanes, batch_major=False):
+               factor=factor_lanes, solve=solve_lanes, batch_major=False,
+               total=None):
     """Masked Mehrotra PDIP, lane-major: the batch B is the last axis.
 
     Hp (n, n, B), f (n, B), rmask (mc, B), cmask (n, B), h (mc, B), shared
@@ -298,19 +287,21 @@ def pdip_lanes(Hp, f, G0, T2T, rmask, cmask, h, iters: int, warm=None,
     (n, B)``: the lane-major kernels by default (the 'pdip_ws_lanes'
     engine), their plain versions in the plain versions of the other PDIP
     kernels.  ``batch_major``: the inputs are transposed batch-major
-    tensors (``lane_sum``).  Returns the best iterate by merit, (z, lam,
-    s).
+    tensors (``lane_sum``).  ``total(x (rows, B)) -> (1, B)``: the row
+    sums, ``lane_sum`` by default (on the card the lane_sum kernel where
+    the inputs are lane-major), ``ops/kernels.lane_sum_plain`` in the plain
+    versions.  Returns the best iterate by merit, (z, lam, s).
 
     Masked rows are exact no-ops: their duals are pinned to zero and mu
     normalises by the active row count.  Every reduction runs over axis 0,
-    the sums by ``lane_sum``: a lane's bits do not depend on its column.
+    the sums by ``total``: a lane's bits do not depend on its column.
     The zero rows and columns of a capacity bucket are exact no-ops in the
     products; the sums group a lane's rows by their index, so two buckets
     agree to rounding.
     """
     n, B = f.shape
     kw = dict(dtype=f.dtype, device=f.device)
-    lsum = lambda x: lane_sum(x, batch_major)
+    lsum = (lambda x: lane_sum(x, batch_major)) if total is None else total
     # the open legs' products as lane_mm takes them (they run sharded); the
     # step loops' (the per-step engine, the plain versions) as they come
     mm = lane_mm if batch_major else torch.matmul

@@ -1,13 +1,14 @@
-"""How far two correct float64 NMPC closed loops of the Van de Vusse case
-can differ, beside how far the card's loop is from the plain one.  The
-full case (substeps 10, SQP 4, QP 25) on seeded candidates; every pair
-follows one U (``nmpc_closed_core(..., u_follow=, solve_steps=)``) and
-solves its own control at the window steps only.
+"""How far two correct NMPC closed loops of the Van de Vusse case can
+differ (float64, or float32 with ``--dtype``), beside how far the card's
+loop is from the plain one.  The full case (substeps 10, SQP 4, QP 25)
+on seeded candidates; every pair follows one U
+(``nmpc_closed_core(..., u_follow=, solve_steps=)``) and solves its own
+control at the window steps only.
 
     PYTHONPATH=. python scripts/nmpc_spread_torch.py [--B 8] [--caps 31 15]
         [--nit 60] [--windows 1-12 38-47] [--seed 0] [--threads 4] [--card]
         [--integrator rk4|tr_bdf2] [--vns-last [N NU DELTA1 DELTA2 LAM1
-        LAM2]]
+        LAM2]] [--bench] [--dtype float64|float32]
 
 The case integrates with ``--integrator`` (``make_case``'s; phase 3d's
 tune runs RK4, phase 3k's TR-BDF2).  The candidates: B seeded ones
@@ -16,7 +17,11 @@ spanning the bucket ``--caps`` with the case's setpoints, or
 the order-3 VNS neighbourhood of its result (by default phase 3d's, N 31,
 Nu [2, 2], at its weights, printed to six digits; else the six numbers
 given, Nu one value for both inputs), two selector lanes per candidate,
-each with the case setpoints of one output only (B = 36 at N 31, Nu 2).
+each with the case setpoints of one output only (B = 36 at N 31, Nu 2),
+or (``--bench``) the first B lanes of the Van de Vusse row of
+``mpc_tuning_tpu_torch/bench.py`` (``bench.vdv_draws``, at their bucket
+(16, 2)).  ``--dtype``: the loops' precision (float64 by default; the
+bench row runs at float32).
 
 On the CPU (default): the plain loop, run once solving every step, then in
 pairs following that run's U with their inputs one ulp apart: the followed
@@ -126,7 +131,11 @@ def main():
                     choices=["rk4", "tr_bdf2"])
     ap.add_argument("--vns-last", nargs="*", type=float, default=None,
                     metavar="N NU DELTA1 DELTA2 LAM1 LAM2")
+    ap.add_argument("--bench", action="store_true")
+    ap.add_argument("--dtype", default="float64",
+                    choices=["float64", "float32"])
     args = ap.parse_args()
+    dtype = getattr(torch, args.dtype)
     if args.vns_last not in (None, []) and len(args.vns_last) != 6:
         ap.error("--vns-last takes no value or six")
     torch.set_num_threads(args.threads)
@@ -137,6 +146,13 @@ def main():
     if args.vns_last is not None:
         N, Nu, vals = vns_last_batch(case, nit, args.vns_last or PHASE_3D)
         p_cap, m_cap = int(N.max()), int(Nu.max())
+    elif args.bench:
+        from mpc_tuning_tpu_torch.bench import vdv_draws
+        from mpc_tuning_tpu_torch.sim.mpc_loop import horizon_caps
+
+        N, Nu, d, l = vdv_draws(args.B)
+        p_cap, m_cap = horizon_caps(case.spec.p_max, case.spec.m_max, N, Nu)
+        vals = (np.broadcast_to(case.r[:nit], (args.B, nit, 2)), d, l)
     else:
         N = rng.integers(m_cap + 1, p_cap + 1, size=args.B)
         Nu = rng.integers(2, m_cap + 1, size=args.B)
@@ -146,12 +162,12 @@ def main():
                 rng.uniform(0.05, 0.5, (args.B, 2)))
     B = len(N)
     batch = lambda dev: problem.loop._batch(
-        problem.v, N, Nu, (p_cap, m_cap), torch.float64, dev, *vals)
+        problem.v, N, Nu, (p_cap, m_cap), dtype, dev, *vals)
     spec, c, Nt, Nut, (r, d, l) = batch("cpu")
     steps = [k for k in windows(args.windows) if 1 <= k < nit]
     which = ("the last batch" if args.vns_last is not None
-             else f"seed={args.seed}")
-    head = (f"VdV NMPC f64, B={B} caps=({p_cap},{m_cap}) nit={nit} "
+             else "the bench row" if args.bench else f"seed={args.seed}")
+    head = (f"VdV NMPC {args.dtype}, B={B} caps=({p_cap},{m_cap}) nit={nit} "
             f"substeps={spec.substeps} sqp={spec.sqp_iters} "
             f"qp={spec.qp_iters} "
             f"integrator={spec.integrator} {which}"

@@ -161,7 +161,7 @@ def test_cpu_tensors_never_launch_and_cuda_request_raises(wb):
         "spd_factor": 0, "spd_factor_solve": 0, "spd_solve": 0,
         "factor_lanes": 0, "solve_lanes": 0, "pdip_fused": 0,
         "admm_fused": 0, "closed_sim_admm": 0, "closed_sim_pdip": 0,
-        "closed_sim_band": 0, "nmpc_rollout": 0}
+        "closed_sim_band": 0, "nmpc_rollout": 0, "lane_sum": 0}
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             pt.loop.closed_batch(r_b, pt.v, N, Nu, delta, lam, NIT, F64, 5,

@@ -46,6 +46,30 @@ def test_lane_sum_does_not_depend_on_the_slot(rows, dtype, batch_major):
         assert torch.equal(total(x[:, lo:hi]), whole[:, lo:hi]), (lo, hi)
 
 
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("rows", [1, 7, 33, 181])
+def test_warp_order_sum_is_the_kernels_order(rows, dtype):
+    """``ops/kernels.warp_order_sum`` (the plain versions' row sum on the
+    card) adds a lane's rows as warp_qp.cuh's warp_sum does: row r into
+    partial r % 32 from zero, then the xor butterfly as lane 0 sees it;
+    its bits follow neither the batch's width nor a lane's slot."""
+    g = torch.Generator().manual_seed(rows)
+    x = torch.randn((rows, 37), generator=g, dtype=dtype)
+    s = K.warp_order_sum(x)
+    for b in (0, 11, 36):
+        part = [torch.zeros((), dtype=dtype) for _ in range(32)]
+        for r in range(rows):
+            part[r % 32] = part[r % 32] + x[r, b]
+        for o in (16, 8, 4, 2, 1):
+            part = [part[i] + part[i + o] for i in range(o)]
+        assert torch.equal(part[0], s[0, b]), b
+    torch.testing.assert_close(s, x.sum(0, keepdim=True))
+    for lo, hi in SLICES:
+        assert torch.equal(K.warp_order_sum(x[:, lo:hi]), s[:, lo:hi])
+    perm = torch.randperm(37, generator=g)
+    assert torch.equal(K.warp_order_sum(x[:, perm]), s[:, perm])
+
+
 def _step_qp(dtype, B=37, take=12, caps=(32, 4)):
     """The plain single-solve PDIP's arguments at step ``take`` of B seeded
     Shell3x3 candidates' closed loop (a real step's QPs and warm start)."""

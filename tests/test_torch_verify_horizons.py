@@ -12,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from mpc_tuning_tpu.cases import shell3x3 as s3_jax
 from mpc_tuning_tpu.cases import shell7x5 as s7_jax
 from mpc_tuning_tpu.cases import woodberry as wb_jax
 from mpc_tuning_tpu.cases.verify_horizons import \
     verify_horizons as verify_jax
 from mpc_tuning_tpu.tuning import api as api_jax
+from mpc_tuning_tpu_torch.cases import shell3x3 as s3_torch
 from mpc_tuning_tpu_torch.cases import shell7x5 as s7_torch
 from mpc_tuning_tpu_torch.cases import woodberry as wb_torch
 from mpc_tuning_tpu_torch.cases.verify_horizons import (HorizonCheck,
@@ -31,6 +33,15 @@ FIELDS = ("y_closed", "y_open", "u_closed", "u_open", "mismatch")
 # Wood-Berry's tuned point of the port's float32 tune on the card (PERF.md)
 WB_TUNED = (7, 3, np.array([0.263334, 0.670454]),
             np.array([0.097199, 0.05639]))
+# the tuned points of the card's tunes that the check reads ok False at
+# (chip_smoke.py phase 3f; scripts/horizons_vs_jax.py runs the band one):
+# (JAX case, port case, make_case keywords, N, Nu, delta, lambda)
+TUNED_POINTS = {
+    "woodberry": (wb_jax, wb_torch, {}, *WB_TUNED),
+    "shell3x3": (s3_jax, s3_torch, dict(nit=250), 8, 2,
+                 np.array([2.358838, 0.426045, 0.810902]),
+                 np.array([0.066399, 0.246926, 0.085728])),
+}
 JAX_BAND = f"pdip_ws_lanes+lp{BAND_LP_ITERS}+split{BAND_S2_ITERS}"
 BAND_NIT = 25  # the band free run's horizon in tests/test_torch_band.py
 
@@ -59,6 +70,27 @@ def test_selector_protocol_matches_jax():
     assert ct.y_closed.shape == (2, N + 30)
     _assert_fields(ct, cj, atol=1e-8)
     assert ct.ok == cj.ok and ct.as_json() == cj.as_json()
+
+
+@pytest.mark.parametrize("name", sorted(TUNED_POINTS))
+def test_tuned_points_read_as_jax(name):
+    """At the tuned points of the card's Wood-Berry (phase 3) and Shell3x3
+    (phase 3c) tunes the check reads ok False, and so does the JAX
+    package's: the same mismatch (1e-10) and legs (1e-8) at float64.  The
+    closed leg is the cold PDIP of the JAX package's default; the warm
+    'pdip_sim' it ran before read Shell3x3's mismatch 1.1406 against
+    JAX's 1.1436."""
+    mod_j, mod_t, case_kw, N, Nu, delta, lam = TUNED_POINTS[name]
+    pj, info = api_jax.build_problem(mod_j.make_case(**case_kw),
+                                     dtype=jnp.float64)
+    pt, _ = api_torch.build_problem(mod_t.make_case(**case_kw), dtype=F64,
+                                    device="cpu")
+    args = (info[0], N, Nu, delta, lam)
+    cj = verify_jax(pj.loop, *args)
+    ct = verify_horizons(pt.loop, *args, device="cpu")
+    _assert_fields(ct, cj, atol=1e-8)
+    np.testing.assert_allclose(ct.mismatch, cj.mismatch, rtol=0, atol=1e-10)
+    assert not ct.ok and not cj.ok
 
 
 @pytest.fixture(scope="module")
